@@ -1,0 +1,175 @@
+"""Chunked multi-chain NUTS driver.
+
+Counterpart of ``bayesfast_tpu/samplers/chain.py``: ``ChainDriver``'s chunk
+paths (``run_warmup_chunk``, ``run_frozen_chunk``, ``_CHUNK_CAP``, and the
+host threading of the Welford window ints, ``chain.py:443-518``). All chains
+advance together; every chunk of up to ``_CHUNK_CAP`` transitions is one
+kernel launch (``nuts_cuda.py``). The carry holds one int32 kernel seed in
+place of the JAX per-chain keys: the kernels' randomness is keyed by
+(seed, global iteration, global chain), so the seed never advances.
+"""
+
+from typing import Any, NamedTuple
+
+import torch
+
+from . import nuts_cuda
+from .metrics import DiagMetricState, _Welford
+from .nuts import NutsStats
+from .step_size import StepSizeState
+
+__all__ = ['ChainCarry', 'ChainDriver']
+
+
+class ChainCarry(NamedTuple):
+    seed: int     # int32 kernel seed
+    q: Any        # (n_chain, dim)
+    step: Any     # StepSizeState, leaves (n_chain,)
+    metric: Any   # DiagMetricState, leaves (n_chain, dim) / (n_chain,)
+
+
+class ChainDriver:
+    """Runs the chunked NUTS kernels for one configuration.
+
+    ``nuts_kernel`` is 'auto' (the CUDA kernels on CUDA tensors, their plain
+    torch versions on CPU tensors), 'cuda' (CPU tensors raise) or 'torch'
+    (the plain versions on any device).
+    """
+
+    # transitions per kernel launch, as in the JAX package
+    _CHUNK_CAP = 64
+
+    def __init__(self, density, max_treedepth=10, max_change=1000.,
+                 target_accept=0.8, gamma=0.05, k=0.75, t_0=10.,
+                 adapt_step_size=True, update_window=1, doubling=True,
+                 adapt_metric=True, nuts_kernel='auto'):
+        if nuts_kernel not in ('auto', 'cuda', 'torch'):
+            raise ValueError("nuts_kernel should be 'auto', 'cuda' or "
+                             "'torch'.")
+        self._density = density
+        self._nuts_kernel = nuts_kernel
+        self._max_treedepth = int(max_treedepth)
+        self._max_change = float(max_change)
+        self._target_accept = float(target_accept)
+        self._gamma = float(gamma)
+        self._k = float(k)
+        self._t_0 = float(t_0)
+        self._adapt_step_size = bool(adapt_step_size)
+        self._update_window = int(update_window)
+        self._doubling = bool(doubling)
+        self._adapt_metric = bool(adapt_metric)
+        self._lpg = nuts_cuda.plain_lpg(density)
+
+    def _warmup_chunk(self, carry, n_steps, i0, wsched, ints_new):
+        adapt = (self._max_treedepth, self._max_change, self._target_accept,
+                 self._gamma, self._k, self._t_0, self._adapt_step_size,
+                 self._adapt_metric, wsched)
+        if self._nuts_kernel == 'torch':
+            steps, mets = nuts_cuda._warmup_leaves(carry.q, carry.step,
+                                                   carry.metric)
+            o = nuts_cuda.nuts_warmup_chunk_plain(
+                carry.seed, carry.q, steps, mets, n_steps, *adapt,
+                self._lpg, i0)
+        else:
+            o = nuts_cuda.nuts_warmup_chunk_batched(
+                carry.seed, carry.q, carry.step, carry.metric, n_steps,
+                *adapt, density=self._density, lpg=self._lpg, i0=i0,
+                kernel=self._nuts_kernel)
+        extras = {'step_size': o['step_size'],
+                  'step_size_bar': o['step_size_bar'],
+                  'warmup': torch.ones_like(o['logp'], dtype=torch.bool)}
+        step = StepSizeState(
+            log_step=o['log_step'], log_bar=o['log_bar'], hbar=o['hbar'],
+            count=o['count'], mu=carry.step.mu,
+            # the post-warmup acceptance diagnostic stays untouched in warmup
+            accept_sum=carry.step.accept_sum,
+            accept_count=carry.step.accept_count)
+        metric = DiagMetricState(
+            var=o['var'], fg=_Welford(o['fg_mean'], o['fg_raw'], o['fg_w']),
+            bg=_Welford(o['bg_mean'], o['bg_raw'], o['bg_w']),
+            n_samples=ints_new[0], prev_update=ints_new[1],
+            adapt_window=ints_new[2])
+        new_carry = ChainCarry(carry.seed, o['q_final'], step, metric)
+        stats = nuts_cuda._chunk_stats(o, carry.q.dtype)
+        return new_carry, (o['q'], (stats, extras))
+
+    def _frozen_chunk(self, carry, n_steps, i0):
+        # frozen post-warmup step size: the dual-averaged one
+        eps = torch.exp(carry.step.log_bar)
+        if self._nuts_kernel == 'torch':
+            C, D = carry.q.shape
+            o = nuts_cuda.nuts_chunk_plain(
+                carry.seed, carry.q,
+                nuts_cuda._mat(carry.metric.var, C, D, carry.q),
+                nuts_cuda._row(eps, C, carry.q), n_steps,
+                self._max_treedepth, self._max_change, self._lpg, i0)
+            q_chunk, q_last = o['q'], o['q_final']
+            stats = nuts_cuda._chunk_stats(o, carry.q.dtype)
+        else:
+            q_chunk, q_last, stats = nuts_cuda.nuts_chunk_batched(
+                carry.seed, carry.q, carry.metric, eps, n_steps,
+                self._max_treedepth, self._max_change,
+                density=self._density, lpg=self._lpg, i0=i0,
+                kernel=self._nuts_kernel)
+        # the only live adaptation state post-warmup is the acceptance
+        # diagnostic accumulator
+        step = carry.step._replace(
+            accept_sum=carry.step.accept_sum
+            + torch.sum(stats.mean_tree_accept, dim=0),
+            accept_count=carry.step.accept_count + float(n_steps))
+        new_carry = ChainCarry(carry.seed, q_last, step, carry.metric)
+        return new_carry, (q_chunk, (stats, None))
+
+    @staticmethod
+    def _concat(pieces):
+        if len(pieces) == 1:
+            return pieces[0]
+        qs = torch.cat([p[0] for p in pieces])
+        stats = NutsStats(*[torch.cat(xs) for xs in
+                            zip(*[p[1][0] for p in pieces])])
+        extras = pieces[0][1][1]
+        if extras is not None:
+            extras = {k: torch.cat([p[1][1][k] for p in pieces])
+                      for k in extras}
+        return qs, (stats, extras)
+
+    def run_warmup_chunk(self, carry, n_steps, params=(), i0=0,
+                         win_ints=None):
+        """``n_steps`` adapting transitions in launches of at most
+        ``_CHUNK_CAP``. ``win_ints`` threads the (n_samples, prev_update,
+        adapt_window) window counters across chunks host-side; None reads
+        them from the carry. Returns ``(carry, out, win_ints)`` with
+        ``out = (q (K, C, D), (NutsStats, extras))``. ``params`` is accepted
+        for the JAX signature and unused."""
+        n_steps = int(n_steps)
+        if win_ints is None:
+            m = carry.metric
+            win_ints = (int(m.n_samples), int(m.prev_update),
+                        int(m.adapt_window))
+        pieces = []
+        done = 0
+        while done < n_steps:
+            k = min(self._CHUNK_CAP, n_steps - done)
+            wsched, win_ints = nuts_cuda._window_schedule(
+                win_ints[0], win_ints[1], win_ints[2], k,
+                self._update_window, self._doubling)
+            carry, out = self._warmup_chunk(carry, k, i0 + done, wsched,
+                                            win_ints)
+            pieces.append(out)
+            done += k
+        return carry, self._concat(pieces), win_ints
+
+    def run_frozen_chunk(self, carry, n_steps, params=(), i0=0):
+        """``n_steps`` post-warmup transitions (step size and metric
+        frozen) in launches of at most ``_CHUNK_CAP``. Returns
+        ``(carry, out)``; the extras are None (the caller rebuilds the
+        constant step-size rows)."""
+        n_steps = int(n_steps)
+        pieces = []
+        done = 0
+        while done < n_steps:
+            k = min(self._CHUNK_CAP, n_steps - done)
+            carry, out = self._frozen_chunk(carry, k, i0 + done)
+            pieces.append(out)
+            done += k
+        return carry, self._concat(pieces)

@@ -1,0 +1,680 @@
+"""Chunked NUTS transitions: hand-written CUDA kernels and their plain
+torch versions.
+
+Counterpart of ``bayesfast_tpu/samplers/nuts_pallas.py``. Two entry points
+run ``n_steps`` (K) whole NUTS transitions for every chain in one launch:
+
+* ``nuts_chunk_batched``: frozen step size and metric (post-warmup);
+  replaces ``_nuts_multi_kernel`` (``nuts_pallas.py:462``);
+* ``nuts_warmup_chunk_batched``: the same plus per-transition dual
+  averaging and windowed diag-Welford adaptation; replaces
+  ``_nuts_warmup_kernel`` (``nuts_pallas.py:746``).
+
+A wrapper given CUDA tensors launches its kernel (``csrc/nuts.cu``, built at
+first use by ``_build.py``) and counts the launch in its ``launches``
+attribute; given CPU tensors it runs the plain torch version beside it
+(``nuts_chunk_plain``, ``nuts_warmup_chunk_plain``), unless asked for
+``kernel='cuda'``, which then raises. There is no fallback: a density without
+``kernel_spec()`` on a CUDA tensor raises ``NotImplementedError``, and a
+failed build or launch raises.
+
+Randomness is the JAX package's counter RNG, reproduced bit for bit:
+``_fmix32``/``_uniforms`` (murmur3 finalizer over golden-ratio-spread
+counters, ``nuts_pallas.py:54-88``) and Box-Muller momenta
+(``:418-428``), keyed by (seed, global iteration, salt, row, global chain
+index). Uniforms are float32 from the ``(x >> 9) | 0x3F800000`` bit trick
+in every run dtype, ``log(u)`` is taken in float32 and compared in the run
+dtype, and Box-Muller runs in float32, all as in the JAX kernels. torch on
+the CPU has no ``>>`` for uint32, so the plain versions carry the uint32
+values in int64 and multiply in 16-bit halves (``_mul32``), which keeps
+every product below 2^49.
+
+Layouts follow the JAX package's public functions: ``q`` is (C, D), chunk
+outputs are (K, C, D) and (K, C).
+"""
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..ops.densities import spec_logp_and_grad, warp_sum
+from .metrics import DiagMetricState
+from .nuts import NutsStats, _kahan_add
+
+__all__ = ['nuts_chunk_batched', 'nuts_warmup_chunk_batched',
+           'nuts_chunk_plain', 'nuts_warmup_chunk_plain', 'plain_lpg']
+
+_M32 = 0xFFFFFFFF
+# float32(2 pi), the Box-Muller angle constant as the float32 kernels use it
+_TWO_PI_F32 = float(np.float32(2.0 * np.pi))
+
+
+# ---------------------------------------------------------------------------
+# The counter RNG (ints or int64 tensors holding uint32 values)
+
+def _mul32(x, c):
+    """``(x * c) mod 2^32`` without int64 overflow: ``c`` in 16-bit
+    halves."""
+    c = int(c) & _M32
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x):
+    """murmur3 finalizer: full-avalanche bijection on uint32."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _uniforms(seed, it, salt, rows, lane):
+    """Counter-based float32 uniforms in [0, 1), shape (C, rows).
+
+    ``lane`` is the (C,) int64 tensor of GLOBAL chain indices (uint32
+    values); ``it`` may be negative (it wraps, as the JAX int32->uint32 cast
+    does); row ``r`` of the JAX (rows, C) draw is column ``r`` here.
+    """
+    row = torch.arange(rows, dtype=torch.int64, device=lane.device)
+    base = ((int(seed) & _M32) ^ _mul32(int(it) & _M32, 0x85EBCA77)
+            ^ _mul32(int(salt) & _M32, 0xC2B2AE3D))
+    x = (_mul32(lane, 0x9E3779B9)[:, None]
+         ^ _mul32(row, 0x7FEB352D)[None, :]) ^ base
+    x = _fmix32((_fmix32(x) + 0x165667B1) & _M32)
+    bits = ((x >> 9) | 0x3F800000).to(torch.int32)
+    return bits.view(torch.float32) - 1.0
+
+
+def _gauss_from_uniforms(seed, counter, salt, rows, lane):
+    """float32 Box-Muller standard normals from the uniform stream, (C,
+    rows); ``1 - u`` keeps the log argument in (0, 1]."""
+    u1 = _uniforms(seed, counter, salt, rows, lane)
+    u2 = _uniforms(seed, counter, salt + 1, rows, lane)
+    r = torch.sqrt(-2.0 * torch.log(1.0 - u1))
+    return r * torch.cos(_TWO_PI_F32 * u2)
+
+
+def _transition_seed(seed, i0, t):
+    """Per-transition stream key ``seed ^ fmix32(i0 + t + 0x9E3779B9)``:
+    keyed by the global iteration, so chunk boundaries never change it."""
+    return (int(seed) & _M32) ^ _fmix32((int(i0) + int(t) + 0x9E3779B9)
+                                        & _M32)
+
+
+# ---------------------------------------------------------------------------
+# Host-side schedules
+
+@functools.lru_cache(maxsize=None)
+def _schedule_table(max_treedepth):
+    """Per-leaf tree schedule rows [pending, sub_done, w_idx, depth_s] for
+    every global leaf index of a full tree (a pure function of the leaf
+    index: the binary-counter merge count, whether the leaf completes its
+    subtree, and where its frame goes on the stack)."""
+    n_lvl = max(int(max_treedepth) - 1, 1)
+    rows = []
+    for depth_s in range(int(max_treedepth)):
+        for k in range(2 ** depth_s):
+            x, pending = k, 0
+            while x & 1:
+                pending += 1
+                x >>= 1
+            sub_done = int(k + 1 == 2 ** depth_s)
+            w_idx = n_lvl if sub_done else pending
+            rows.append((pending, sub_done, w_idx, depth_s))
+    return np.asarray(rows, np.int32).T.copy()  # (4, total_leaves)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_schedule(n_samples0, prev_update0, adapt_window0, n_steps,
+                     update_window, doubling):
+    """Host simulation of the Welford window schedule for a warmup chunk:
+    per-step [do_refresh, do_switch] flags (the same for every chain), plus
+    the final (n_samples, prev_update, adapt_window) ints."""
+    flags = np.zeros((2, n_steps), np.int32)
+    ns, pu, aw = int(n_samples0), int(prev_update0), int(adapt_window0)
+    for t in range(n_steps):
+        delta = ns - pu
+        flags[0, t] = int(((delta + 1) % update_window) == 0)
+        do_switch = delta >= aw
+        flags[1, t] = int(do_switch)
+        if do_switch:
+            pu = ns
+            aw = aw * 2 if doubling else aw
+        ns += 1
+    return flags, (ns, pu, aw)
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions: every chain in lockstep with masks, as the JAX
+# kernel runs a block of lanes
+
+def _logaddexp(a, b):
+    """``jnp.logaddexp``'s formula (NaN delta: same-sign infinities)."""
+    amax = torch.maximum(a, b)
+    delta = a - b
+    return torch.where(torch.isnan(delta), a + b,
+                       amax + torch.log1p(torch.exp(-torch.abs(delta))))
+
+
+def _sel(mask, new, old):
+    """Select over a list of (C, ...) tensors with a (C,) mask."""
+    return [torch.where(mask.view((-1,) + (1,) * (n.dim() - 1)), n, o)
+            for n, o in zip(new, old)]
+
+
+def _dot(a, b):
+    # summed in the kernels' warp order, so that the plain version rounds
+    # as the kernels do
+    return warp_sum(a * b)
+
+
+def _merge(u, t1, t2, merged_depth, var, D):
+    """Join older/left frame ``t1`` with newer/right frame ``t2`` (both
+    (C, 4D+3): [left_p | right_p | p_sum | log_size | q | energy | logp]);
+    multinomial take by log-size, generalized U-turn check with the extra
+    inner-subtree checks above merged depth 1."""
+    ps1, ps2 = t1[:, 2 * D:3 * D], t2[:, 2 * D:3 * D]
+    p_sum = ps1 + ps2
+    p_sum1 = ps1 + t2[:, :D]
+    p_sum2 = t1[:, D:2 * D] + ps2
+    v1l, v1r = var * t1[:, :D], var * t1[:, D:2 * D]
+    v2l, v2r = var * t2[:, :D], var * t2[:, D:2 * D]
+    turning = (_dot(p_sum, v1l) <= 0) | (_dot(p_sum, v2r) <= 0)
+    if merged_depth > 1:
+        turning = (turning | (_dot(p_sum1, v1l) <= 0)
+                   | (_dot(p_sum1, v2l) <= 0) | (_dot(p_sum2, v1r) <= 0)
+                   | (_dot(p_sum2, v2r) <= 0))
+    ls1, ls2 = t1[:, 3 * D], t2[:, 3 * D]
+    log_size = _logaddexp(ls1, ls2)
+    take2 = torch.log(u).to(t1.dtype) < ls2 - log_size
+    tail = torch.where(take2[:, None], t2[:, 3 * D + 1:], t1[:, 3 * D + 1:])
+    merged = torch.cat([t1[:, :D], t2[:, D:2 * D], p_sum, log_size[:, None],
+                        tail], dim=-1)
+    return merged, turning
+
+
+def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
+                           max_treedepth, max_change):
+    """One full NUTS transition for every chain (the plain version of the
+    kernels' ``transition``; ``nuts_pallas.py:120-415``). Returns
+    ``(q_prop, energy, logp, d_energy, depth, tree_size, accept_sum,
+    max_de, diverging)``."""
+    C, D = q0.shape
+    dtype, dev = q0.dtype, q0.device
+    n_lvl = max(int(max_treedepth) - 1, 1)
+    sched = _schedule_table(int(max_treedepth))
+
+    def energy_of(p, lp):
+        return 0.5 * _dot(p, var * p) - lp
+
+    logp0, grad0 = lpg(q0)
+    e0 = energy_of(p0, logp0)
+    zero_v = torch.zeros_like(q0)
+    cur = [q0, p0, grad0, zero_v, zero_v, e0, logp0]
+    left, right = list(cur), list(cur)
+    prop = torch.cat([q0, e0[:, None], logp0[:, None]], dim=-1)
+    p_sum = p0
+    log_size = torch.zeros(C, dtype=dtype, device=dev)
+    depth = torch.zeros(C, dtype=torch.int32, device=dev)
+    go_right = _uniforms(seed, -1, 7, 1, lane)[:, 0] < 0.5
+    eps = torch.where(go_right, step, -step)
+    accept_sum = torch.zeros(C, dtype=dtype, device=dev)
+    n_prop = torch.zeros(C, dtype=torch.int32, device=dev)
+    max_de = torch.zeros(C, dtype=dtype, device=dev)
+    diverging = torch.zeros(C, dtype=torch.bool, device=dev)
+    done = torch.zeros(C, dtype=torch.bool, device=dev)
+    stack = torch.zeros((n_lvl + 1, C, 4 * D + 3), dtype=dtype, device=dev)
+
+    it = 0
+    while not bool(done.all()):
+        u = _uniforms(seed, it, 0, 3, lane)
+        u0, u1, u2 = u[:, 0], u[:, 1], u[:, 2]
+        active = ~done
+
+        # one Kahan-compensated leapfrog, every iteration
+        e_ = eps[:, None]
+        dt = 0.5 * e_
+        p_half, cp = _kahan_add(cur[1], cur[4], dt * cur[2])
+        nq, cq = _kahan_add(cur[0], cur[3], e_ * (var * p_half))
+        nlp, ng = lpg(nq)
+        npm, cp = _kahan_add(p_half, cp, dt * ng)
+        ne = energy_of(npm, nlp)
+        d_energy = ne - e0
+        d_energy = torch.where(torch.isnan(d_energy),
+                               torch.full_like(d_energy, math.inf), d_energy)
+        div = active & ~(torch.abs(d_energy) < max_change)
+        upd = active & (torch.abs(d_energy) > torch.abs(max_de))
+        max_de = torch.where(upd, d_energy, max_de)
+        accept = torch.clamp(torch.exp(-d_energy), max=1.0)
+        ok_merge = active & ~div
+        accept_sum = accept_sum + torch.where(ok_merge, accept,
+                                              torch.zeros_like(accept))
+        n_prop = n_prop + active.to(torch.int32)
+        cur = _sel(ok_merge, [nq, npm, ng, cq, cp, ne, nlp], cur)
+        diverging = diverging | div
+
+        pending = int(sched[0, it])
+        sub_done = bool(sched[1, it])
+        w_idx = int(sched[2, it])
+
+        # binary-counter merges
+        leaf = torch.cat([npm, npm, npm, -d_energy[:, None], nq,
+                          ne[:, None], nlp[:, None]], dim=-1)
+        if pending > 0:
+            t1 = stack[0]
+            merged, mturn = _merge(u0, t1, leaf, 1, var, D)
+            inc = torch.where(ok_merge[:, None], merged, t1)
+            turned = ok_merge & mturn
+            for m in range(1, pending):
+                um = _uniforms(seed, it * (int(max_treedepth) + 1) + m, 3, 1,
+                               lane)[:, 0]
+                merged, mturn = _merge(um, stack[m], inc, m + 1, var, D)
+                ok = ok_merge & ~turned
+                inc = torch.where(ok[:, None], merged, inc)
+                turned = turned | (ok & mturn)
+            turning_sub = turned
+        else:
+            inc = leaf
+            turning_sub = torch.zeros_like(done)
+
+        abort = div | turning_sub
+        stack[w_idx] = inc
+        # depth counts completed doublings plus the aborted extension
+        depth = depth + (active & (abort | sub_done)).to(torch.int32)
+        done = done | (active & abort)
+
+        # subtree completion: once per doubling
+        if sub_done:
+            ok = active & ~abort
+            sub_ls = inc[:, 3 * D]
+            take = ok & (torch.log(u1).to(dtype) < sub_ls - log_size)
+            prop = torch.where(take[:, None], inc[:, 3 * D + 1:], prop)
+            log_size = torch.where(ok, _logaddexp(log_size, sub_ls),
+                                   log_size)
+            sub_p_sum = inc[:, 2 * D:3 * D]
+            p_sum_new = p_sum + sub_p_sum
+            new_left = _sel(go_right, left, cur)
+            new_right = _sel(go_right, cur, right)
+
+            # main-tree U-turn checks (halves in spatial order)
+            g = go_right[:, None]
+            inc_left_p = inc[:, :D]
+            inc_left_v = var * inc_left_p
+            left_v, right_v, cur_v = var * left[1], var * right[1], \
+                var * cur[1]
+            lm_psum = torch.where(g, p_sum, sub_p_sum)
+            rm_psum = torch.where(g, sub_p_sum, p_sum)
+            lm_begin_v = torch.where(g, left_v, cur_v)
+            lm_end_p = torch.where(g, right[1], inc_left_p)
+            lm_end_v = torch.where(g, right_v, inc_left_v)
+            rm_begin_p = torch.where(g, inc_left_p, left[1])
+            rm_begin_v = torch.where(g, inc_left_v, left_v)
+            rm_end_v = torch.where(g, cur_v, right_v)
+            p_sum1 = lm_psum + rm_begin_p
+            p_sum2 = lm_end_p + rm_psum
+            turning_full = (
+                (_dot(p_sum_new, var * new_left[1]) <= 0)
+                | (_dot(p_sum_new, var * new_right[1]) <= 0)
+                | (_dot(p_sum1, lm_begin_v) <= 0)
+                | (_dot(p_sum1, rm_begin_v) <= 0)
+                | (_dot(p_sum2, lm_end_v) <= 0)
+                | (_dot(p_sum2, rm_end_v) <= 0))
+
+            left = _sel(ok, new_left, left)
+            right = _sel(ok, new_right, right)
+            p_sum = torch.where(ok[:, None], p_sum_new, p_sum)
+            finished = ok & (turning_full | (depth >= max_treedepth))
+            done = done | finished
+
+            start_next = ok & ~finished
+            gr_new = u2 < 0.5
+            go_right = torch.where(start_next, gr_new, go_right)
+            eps = torch.where(start_next, torch.where(gr_new, step, -step),
+                              eps)
+            cur = _sel(start_next, _sel(gr_new, right, left), cur)
+        it += 1
+
+    q_prop, en, lp = prop[:, :D], prop[:, D], prop[:, D + 1]
+    return (q_prop, en, lp, en - e0, depth, n_prop, accept_sum, max_de,
+            diverging.to(torch.int32))
+
+
+_ROW_NAMES = ('q', 'energy', 'logp', 'energy_change', 'tree_depth',
+              'tree_size', 'accept_sum', 'max_de', 'diverging')
+
+
+def _lanes(C, chain_start, device):
+    return (torch.arange(C, dtype=torch.int64, device=device)
+            + int(chain_start)) & _M32
+
+
+def nuts_chunk_plain(seed, q0, var, step, n_steps, max_treedepth,
+                     max_change, lpg, i0=0, chain_start=0):
+    """Plain torch version of the frozen chunk kernel: ``n_steps``
+    transitions with momenta drawn per transition under
+    ``seed ^ fmix32(i0 + t + 0x9E3779B9)``. ``var`` (C, D), ``step`` (C,).
+    Returns a dict of rows (K, C, D) / (K, C) plus ``q_final`` (C, D)."""
+    C, D = q0.shape
+    lane = _lanes(C, chain_start, q0.device)
+    sqrt_var = torch.sqrt(var)
+    rows = {k: [] for k in _ROW_NAMES}
+    q = q0
+    for t in range(int(n_steps)):
+        seed_t = _transition_seed(seed, i0, t)
+        p0 = _gauss_from_uniforms(seed_t, -9, 16, D, lane).to(q0.dtype) \
+            / sqrt_var
+        out = _transition_core_plain(seed_t, q, p0, step, var, lpg, lane,
+                                     max_treedepth, max_change)
+        for k, v in zip(_ROW_NAMES, out):
+            rows[k].append(v)
+        q = out[0]
+    res = {k: torch.stack(v) for k, v in rows.items()}
+    res['q_final'] = q
+    return res
+
+
+_FINAL_NAMES = ('log_step', 'log_bar', 'hbar', 'count', 'var', 'fg_mean',
+                'fg_raw', 'fg_w', 'bg_mean', 'bg_raw', 'bg_w')
+
+
+def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
+                            max_treedepth, max_change, target, gamma, k_exp,
+                            t_0, adapt_step, adapt_metric, wsched, lpg,
+                            i0=0, chain_start=0):
+    """Plain torch version of the warmup chunk kernel: the frozen chunk's
+    transitions plus per-transition dual averaging (``count^-k`` as
+    ``exp(-k log count)``) and windowed diag Welford with the
+    ``(raw + 5e-3) / (w + 5)`` refresh, the window flags read from the host
+    table ``wsched`` (2, K).
+
+    ``step_leaves`` = (log_step, log_bar, hbar, count, mu), each (C,);
+    ``metric_leaves`` = (var, fg_mean, fg_raw, fg_w, bg_mean, bg_raw,
+    bg_w), (C, D) or (C,). Returns the rows (plus ``step_size`` and
+    ``step_size_bar``), ``q_final`` and the final adaptation state."""
+    C, D = q0.shape
+    dtype = q0.dtype
+    lane = _lanes(C, chain_start, q0.device)
+    log_step, log_bar, hbar, count, mu = step_leaves
+    var, fgm, fgr, fgw, bgm, bgr, bgw = metric_leaves
+    wsched = np.asarray(wsched)
+    # a tensor divisor: torch on the card divides by a Python scalar as a
+    # multiplication by its reciprocal, the kernel divides
+    gamma_t = torch.as_tensor(gamma, dtype=dtype, device=q0.device)
+    rows = {k: [] for k in _ROW_NAMES + ('step_size', 'step_size_bar')}
+    q = q0
+    for t in range(int(n_steps)):
+        seed_t = _transition_seed(seed, i0, t)
+        eps = torch.exp(log_step)
+        p0 = _gauss_from_uniforms(seed_t, -9, 16, D, lane).to(dtype) \
+            / torch.sqrt(var)
+        out = _transition_core_plain(seed_t, q, p0, eps, var, lpg, lane,
+                                     max_treedepth, max_change)
+        q_prop, size, asum = out[0], out[5], out[6]
+        accept = asum / torch.clamp(size.to(dtype), min=1.0)
+        if adapt_step:
+            w = 1.0 / (count + t_0)
+            hbar = (1.0 - w) * hbar + w * (target - accept)
+            log_step = mu - hbar * torch.sqrt(count) / gamma_t
+            mk = torch.exp(-k_exp * torch.log(count))
+            log_bar = mk * log_step + (1.0 - mk) * log_bar
+            count = count + 1.0
+        if adapt_metric:
+            n_f = fgw + 1.0
+            od = q_prop - fgm
+            fgm = fgm + od / n_f[:, None]
+            fgr = fgr + od * (q_prop - fgm)
+            fgw = n_f
+            n_b = bgw + 1.0
+            od_b = q_prop - bgm
+            bgm = bgm + od_b / n_b[:, None]
+            bgr = bgr + od_b * (q_prop - bgm)
+            bgw = n_b
+            if wsched[0, t] == 1:
+                var = (fgr + 5e-3) / (fgw[:, None] + 5.0)
+            if wsched[1, t] == 1:
+                fgm, fgr, fgw = bgm, bgr, bgw
+                bgm, bgr = torch.zeros_like(bgm), torch.zeros_like(bgr)
+                bgw = torch.zeros_like(bgw)
+        for k, v in zip(_ROW_NAMES, out):
+            rows[k].append(v)
+        # recorded AFTER the update, as in the JAX scan path
+        rows['step_size'].append(torch.exp(log_step))
+        rows['step_size_bar'].append(torch.exp(log_bar))
+        q = q_prop
+    res = {k: torch.stack(v) for k, v in rows.items()}
+    res['q_final'] = q
+    res.update(zip(_FINAL_NAMES, (log_step, log_bar, hbar, count, var, fgm,
+                                  fgr, fgw, bgm, bgr, bgw)))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+
+_MAX_D = 64
+_SCHED_CACHE = {}
+
+
+def _sched_on(device, max_treedepth):
+    key = (str(device), int(max_treedepth))
+    if key not in _SCHED_CACHE:
+        _SCHED_CACHE[key] = torch.as_tensor(
+            _schedule_table(int(max_treedepth)), device=device)
+    return _SCHED_CACHE[key]
+
+
+def _spec_for(density, like):
+    """The density's kernel spec with its tensors cast to ``like``'s dtype
+    and device (``NotImplementedError`` for a density without one)."""
+    from ..ops.densities import DENSITY_IDS
+    if not getattr(density, 'has_kernel_spec', False):
+        raise NotImplementedError(
+            'the CUDA NUTS kernels need a density with kernel_spec() '
+            '(ops/densities.py); the XLA-tree twin for other densities is '
+            'not ported yet.')
+    spec = density.kernel_spec()
+    if spec['dim'] != like.shape[1]:
+        raise ValueError(f"the density has dimension {spec['dim']}, the "
+                         f'chains {like.shape[1]}.')
+    tf = spec['transform']
+    tf_mat = torch.stack([tf[k].to(like) for k in
+                          ('lo', 'width', 'm_lohi', 'm_lo', 'm_hi')])
+    dpar = spec['params'][0].to(like).contiguous()
+    return (DENSITY_IDS[spec['density']], tf_mat.contiguous(), dpar,
+            float(tf['logw']), spec['scalars'])
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f'{name}: expected {dtype} {shape} on {device}, got '
+                         f'{t.dtype} {tuple(t.shape)} on {t.device}.')
+    if not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous.')
+
+
+def _launch(warmup, seed, i0, chain_start, q0, n_steps, max_treedepth,
+            max_change, density, inputs, adapt=None, wsched=None):
+    """Allocate outputs and scratch, launch ``nuts_chunk_launch`` and raise
+    on a non-zero return. ``inputs`` is the ordered list of input tensors
+    after ``q0`` (the pointer table of ``csrc/nuts.cu``); ``adapt`` is
+    (target, gamma, k, t_0, adapt_step, adapt_metric) for a warmup chunk."""
+    from .._build import load_library
+    C, D = q0.shape
+    K = int(n_steps)
+    dev, dt = q0.device, q0.dtype
+    if D > _MAX_D:
+        raise ValueError(f'the CUDA NUTS kernels take D <= {_MAX_D}, got {D}.')
+    if dt not in (torch.float32, torch.float64):
+        raise ValueError(f'unsupported dtype {dt}.')
+    dens_id, tf_mat, dpar, logw, dscal = _spec_for(density, q0)
+    _check('q0', q0, (C, D), dt, dev)
+    sched = _sched_on(dev, max_treedepth)
+    n_lvl = max(int(max_treedepth) - 1, 1)
+
+    def emp(*shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    rows = dict(q=emp(K, C, D), logp=emp(K, C), energy=emp(K, C),
+                energy_change=emp(K, C), tree_depth=emp(K, C, dtype=i32),
+                tree_size=emp(K, C, dtype=i32), accept_sum=emp(K, C),
+                max_de=emp(K, C), diverging=emp(K, C, dtype=i32),
+                q_final=emp(C, D))
+    stack = emp(C, n_lvl + 1, 4 * D + 3)
+    ptrs = [q0, *inputs[:2], sched, tf_mat, dpar,
+            *(rows[k] for k in ('q', 'logp', 'energy', 'energy_change',
+                                'tree_depth', 'tree_size', 'accept_sum',
+                                'max_de', 'diverging', 'q_final')), stack]
+    if warmup:
+        fin = dict(step_size=emp(K, C), step_size_bar=emp(K, C),
+                   log_step=emp(C), log_bar=emp(C), hbar=emp(C),
+                   count=emp(C), var=emp(C, D), fg_mean=emp(C, D),
+                   fg_raw=emp(C, D), fg_w=emp(C), bg_mean=emp(C, D),
+                   bg_raw=emp(C, D), bg_w=emp(C))
+        ws = torch.as_tensor(np.ascontiguousarray(wsched, np.int32),
+                             device=dev)
+        if tuple(ws.shape) != (2, K):
+            raise ValueError(f'wsched: expected (2, {K}).')
+        ptrs += [ws, *inputs[2:], *(fin[k] for k in (
+            'step_size', 'step_size_bar', 'log_step', 'log_bar', 'hbar',
+            'count', 'var', 'fg_mean', 'fg_raw', 'fg_w', 'bg_mean',
+            'bg_raw', 'bg_w'))]
+        rows.update(fin)
+    lib = load_library()
+    target, gamma, k_exp, t_0, adapt_step, adapt_metric = \
+        adapt or (0., 0., 0., 0., False, False)
+    fargs = (ctypes.c_double * 8)(float(max_change), logw,
+                                  float(dscal[0]), float(dscal[1]),
+                                  float(target), float(gamma), float(k_exp),
+                                  float(t_0))
+    parr = (ctypes.c_void_p * len(ptrs))(
+        *[0 if p is None else p.data_ptr() for p in ptrs])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.nuts_chunk_launch(
+        int(warmup), 1 if dt == torch.float64 else 0, dens_id, C, D, K,
+        int(max_treedepth), int(seed) & _M32, int(i0) & _M32,
+        int(chain_start) & _M32, int(bool(adapt_step)),
+        int(bool(adapt_metric)), fargs, parr, len(ptrs), stream)
+    if err != 0:
+        raise RuntimeError(
+            f'nuts_chunk_launch failed: CUDA error {err} '
+            f'({lib.nuts_error_string(err).decode()}).')
+    return rows
+
+
+def _row(a, C, like):
+    """(C,) or scalar -> contiguous (C,) of ``like``'s dtype/device."""
+    return torch.as_tensor(a).to(like).expand(C).contiguous()
+
+
+def _mat(a, C, D, like):
+    """(C, D) or (D,) -> contiguous (C, D) of ``like``'s dtype/device."""
+    return torch.as_tensor(a).to(like).expand(C, D).contiguous()
+
+
+def plain_lpg(density):
+    """The plain versions' ``(C, D) -> (logp, grad)`` in transformed space:
+    for a density with a kernel spec, its analytic form in the kernels'
+    order of operations (``ops.densities.spec_logp_and_grad``); otherwise
+    autograd through the density's torch logp."""
+    if getattr(density, 'has_kernel_spec', False):
+        spec = density.kernel_spec()
+        return lambda x: spec_logp_and_grad(spec, x)
+    f = density.device_logp_and_grad(original_space=False)
+    return lambda x: f((), x)
+
+
+def _chunk_stats(o, dtype):
+    """``NutsStats`` with (K, C) leaves from a chunk's output rows."""
+    n_prop = torch.clamp(o['tree_size'], min=1).to(dtype)
+    return NutsStats(
+        logp=o['logp'], energy=o['energy'], tree_depth=o['tree_depth'],
+        tree_size=o['tree_size'], mean_tree_accept=o['accept_sum'] / n_prop,
+        energy_change=o['energy_change'], max_energy_change=o['max_de'],
+        diverging=o['diverging'].to(torch.bool))
+
+
+def _warmup_leaves(q0, step_state, metric):
+    """The warmup chunk's per-chain input leaves, as contiguous (C,) and
+    (C, D) tensors of ``q0``'s dtype and device."""
+    C, D = q0.shape
+    steps = [_row(x, C, q0) for x in (step_state.log_step,
+                                      step_state.log_bar, step_state.hbar,
+                                      step_state.count, step_state.mu)]
+    mets = [_mat(metric.var, C, D, q0), _mat(metric.fg.mean, C, D, q0),
+            _mat(metric.fg.raw, C, D, q0), _row(metric.fg.weight, C, q0),
+            _mat(metric.bg.mean, C, D, q0), _mat(metric.bg.raw, C, D, q0),
+            _row(metric.bg.weight, C, q0)]
+    return steps, mets
+
+
+def nuts_chunk_batched(seed, q0, metric, step_size, n_steps, max_treedepth,
+                       max_change, density=None, lpg=None, i0=0,
+                       chain_start=0, kernel='auto'):
+    """Run ``n_steps`` frozen-configuration NUTS transitions in one launch.
+
+    The JAX ``nuts_chunk_batched_pallas`` contract with an explicit int32
+    ``seed`` in place of the jax key, and the density object in place of
+    ``lpg_pb``/``params`` (its ``kernel_spec()`` on CUDA; ``lpg`` or
+    ``plain_lpg(density)`` on the CPU). Returns ``(q_chunk (K, C, D),
+    q_last (C, D), NutsStats with (K, C) leaves)``.
+    """
+    if not isinstance(metric, DiagMetricState):
+        raise ValueError('the NUTS chunk kernels support the diagonal '
+                         'metric only.')
+    C, D = q0.shape
+    var = _mat(metric.var, C, D, q0)
+    step = _row(step_size, C, q0)
+    if q0.is_cuda:
+        o = _launch(False, seed, i0, chain_start, q0.contiguous(), n_steps,
+                    max_treedepth, max_change, density, [var, step])
+        nuts_chunk_batched.launches += 1
+    elif kernel == 'cuda':
+        raise RuntimeError("nuts_kernel='cuda' needs CUDA tensors.")
+    else:
+        o = nuts_chunk_plain(seed, q0, var, step, n_steps, max_treedepth,
+                             max_change, lpg or plain_lpg(density), i0,
+                             chain_start)
+    return o['q'], o['q_final'], _chunk_stats(o, q0.dtype)
+
+
+nuts_chunk_batched.launches = 0
+
+
+def nuts_warmup_chunk_batched(seed, q0, step_state, metric, n_steps,
+                              max_treedepth, max_change, target, gamma,
+                              k_exp, t_0, adapt_step, adapt_metric, wsched,
+                              density=None, lpg=None, i0=0, chain_start=0,
+                              kernel='auto'):
+    """Run ``n_steps`` WARMUP transitions (live dual averaging + windowed
+    diag Welford) in one launch; the JAX
+    ``nuts_warmup_chunk_batched_pallas`` contract with an explicit int32
+    ``seed``. ``wsched`` is the (2, n_steps) table from
+    ``_window_schedule``. Returns the dict of rows and final states."""
+    if not isinstance(metric, DiagMetricState):
+        raise ValueError('the NUTS warmup kernel supports the diagonal '
+                         'metric only.')
+    steps, mets = _warmup_leaves(q0, step_state, metric)
+    adapt = (target, gamma, k_exp, t_0, adapt_step, adapt_metric)
+    if q0.is_cuda:
+        # input order of csrc/nuts.cu's pointer table: var, eps (unused),
+        # then the step leaves and the remaining metric leaves
+        o = _launch(True, seed, i0, chain_start, q0.contiguous(), n_steps,
+                    max_treedepth, max_change, density,
+                    [mets[0], None, *steps, *mets[1:]], adapt, wsched)
+        nuts_warmup_chunk_batched.launches += 1
+        return o
+    if kernel == 'cuda':
+        raise RuntimeError("nuts_kernel='cuda' needs CUDA tensors.")
+    return nuts_warmup_chunk_plain(
+        seed, q0, steps, mets, n_steps, max_treedepth, max_change, target,
+        gamma, k_exp, t_0, adapt_step, adapt_metric, wsched,
+        lpg or plain_lpg(density), i0, chain_start)
+
+
+nuts_warmup_chunk_batched.launches = 0
