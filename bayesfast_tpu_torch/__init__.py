@@ -1,10 +1,12 @@
 """bayesfast_tpu_torch: the PyTorch / CUDA port of ``bayesfast_tpu``.
 
-NUTS posterior sampling on one NVIDIA GPU: the same API and numerics as the
-JAX package's sampling path, with its two Pallas chunk kernels rewritten as
-hand-written CUDA C++ for Hopper (``csrc/nuts.cu``, built at first use).
-On CPU tensors every kernel runs as its plain torch version. This package
-imports torch, numpy and scipy, never jax.
+NUTS posterior sampling and Gaussianized evidence (GBS, GIS, GHM on the
+SIT flow) on one NVIDIA GPU: the same API and numerics as the JAX
+package's paths, with its Pallas kernels rewritten as hand-written CUDA
+C++ for Hopper (``csrc/nuts.cu``, ``csrc/kde.cu``, built at first use).
+The entry points run on the GPU unless ``config.set_device('cpu')`` asks
+for the CPU, where every kernel runs as its plain torch version. This
+package imports torch, numpy and scipy, never jax.
 """
 
 __version__ = '0.1.0'
@@ -14,5 +16,7 @@ from . import utils
 from . import ops
 from . import samplers
 from . import core
+from . import transforms
+from . import evidence
 from .core import *        # noqa: F401,F403
 from .samplers import *    # noqa: F401,F403

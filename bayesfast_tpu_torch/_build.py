@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels (``csrc/*.cu``).
 
-The kernels are compiled by ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
-seconds, not minutes). The library is built at first use into
-``bayesfast_tpu_torch/build/``, named by a hash of the sources and flags,
-so an edited source is rebuilt and an unchanged one is reused. A failed
-build raises with the compiler's output.
+Each source is compiled by ``nvcc`` into a shared library of its own with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build takes
+seconds, not minutes). The libraries are built at first use into
+``bayesfast_tpu_torch/build/``, named by a hash of the source, the headers
+and the flags, so an edited source is rebuilt and an unchanged one is
+reused. ``build_library`` starts one ``nvcc`` for each source that needs it,
+all at once. A failed build raises with the compiler's output.
 """
 
 import ctypes
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ['load_library', 'build_library', 'NVCC_FLAGS']
+__all__ = ['load_library', 'build_library', 'NVCC_FLAGS', 'LIBRARIES']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, 'csrc')
@@ -27,14 +28,11 @@ BUILD_DIR = os.path.join(_HERE, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false',
               '-lineinfo']
+#: library name -> its source in csrc/
+LIBRARIES = {'nuts': 'nuts.cu', 'kde': 'kde.cu'}
 
-_lib = None
+_libs = {}
 last_build_seconds = None
-
-
-def _sources():
-    return sorted(glob.glob(os.path.join(_SRC_DIR, '*.cu'))
-                  + glob.glob(os.path.join(_SRC_DIR, '*.cuh')))
 
 
 def _nvcc():
@@ -47,57 +45,83 @@ def _nvcc():
     raise RuntimeError('nvcc not found: set CUDA_HOME to the CUDA toolkit.')
 
 
-def _lib_path():
+def _lib_path(name):
+    src = os.path.join(_SRC_DIR, LIBRARIES[name])
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in [src] + sorted(glob.glob(os.path.join(_SRC_DIR, '*.cuh'))):
         with open(s, 'rb') as f:
             h.update(os.path.basename(s).encode() + f.read())
-    return os.path.join(BUILD_DIR, f'libbf_nuts_{h.hexdigest()[:16]}.so')
+    return src, os.path.join(BUILD_DIR,
+                             f'libbf_{name}_{h.hexdigest()[:16]}.so')
 
 
-def build_library(verbose=False):
-    """Compile the sources if the hashed library is missing; returns its
-    path. Sets ``last_build_seconds`` (0.0 when the library existed)."""
+def build_library(names=None, verbose=False):
+    """Compile the libraries ``names`` (default: all) whose hashed file is
+    missing, one ``nvcc`` each, all started together; returns
+    ``{name: path}``. Sets ``last_build_seconds`` (the wall of the parallel
+    build; 0.0 when every library existed)."""
     global last_build_seconds
-    out = _lib_path()
-    if os.path.exists(out):
-        last_build_seconds = 0.0
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [s for s in _sources() if s.endswith('.cu')]
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp, *cu]
+    names = list(LIBRARIES) if names is None else list(names)
+    paths, jobs = {}, []
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_seconds = time.time() - t0
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError('nvcc failed:\n' + ' '.join(cmd) + '\n'
-                           + res.stdout + res.stderr)
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
+    for name in names:
+        src, out = _lib_path(name)
+        paths[name] = out
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp, src]
+        jobs.append((name, out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(' '.join(cmd) + '\n' + log)
+            continue
+        if verbose:
+            print(f'[{name}] ' + log)
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    last_build_seconds = time.time() - t0 if jobs else 0.0
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+    return paths
 
 
-def load_library(verbose=False):
-    """The loaded kernel library (built at first use)."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build_library(verbose))
+def _bind(name, lib):
     c_int, c_uint, vp = ctypes.c_int, ctypes.c_uint, ctypes.c_void_p
-    lib.nuts_chunk_launch.restype = c_int
-    lib.nuts_chunk_launch.argtypes = [
-        c_int, c_int, c_int,              # warmup, f64, density id
-        c_int, c_int, c_int, c_int,       # C, D, K, max_treedepth
-        c_uint, c_uint, c_uint,           # seed, i0, chain_start
-        c_int, c_int,                     # adapt_step, adapt_metric
-        ctypes.POINTER(ctypes.c_double),  # fargs[8]
-        ctypes.POINTER(vp), c_int,        # pointer table, its length
-        vp]                               # cudaStream_t
-    lib.nuts_error_string.restype = ctypes.c_char_p
-    lib.nuts_error_string.argtypes = [c_int]
-    _lib = lib
-    return lib
+    if name == 'nuts':
+        lib.nuts_chunk_launch.restype = c_int
+        lib.nuts_chunk_launch.argtypes = [
+            c_int, c_int, c_int,              # warmup, f64, density id
+            c_int, c_int, c_int, c_int,       # C, D, K, max_treedepth
+            c_uint, c_uint, c_uint,           # seed, i0, chain_start
+            c_int, c_int,                     # adapt_step, adapt_metric
+            ctypes.POINTER(ctypes.c_double),  # fargs[8]
+            ctypes.POINTER(vp), c_int,        # pointer table, its length
+            vp]                               # cudaStream_t
+        lib.nuts_error_string.restype = ctypes.c_char_p
+        lib.nuts_error_string.argtypes = [c_int]
+    elif name == 'kde':
+        lib.kde_cdf_launch.restype = c_int
+        lib.kde_cdf_launch.argtypes = [
+            c_int, c_int,                     # f64, exact erf
+            c_int, c_int, c_int, c_int,       # D, M, N, splits
+            vp, vp, vp, vp,                   # x, data, w, h
+            vp, vp,                           # float64 scratch, out
+            vp]                               # cudaStream_t
+        lib.kde_error_string.restype = ctypes.c_char_p
+        lib.kde_error_string.argtypes = [c_int]
+
+
+def load_library(name, verbose=False):
+    """The loaded kernel library ``name`` (built at first use)."""
+    if name not in _libs:
+        lib = ctypes.CDLL(build_library([name], verbose)[name])
+        _bind(name, lib)
+        _libs[name] = lib
+    return _libs[name]

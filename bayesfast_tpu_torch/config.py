@@ -4,7 +4,9 @@ Counterpart of ``bayesfast_tpu/config.py``. Three knobs:
 
 * the floating dtype (``torch.float64`` by default, as the reference
   numpy package; the bench runs ``torch.float32``);
-* the device new tensors land on (``'cpu'`` unless set);
+* the device the entry points run on: the first CUDA device unless
+  ``set_device('cpu')`` asks for the CPU. Without a CUDA device,
+  ``get_device()`` raises rather than run on the CPU unasked;
 * which NUTS transition kernel the driver uses:
     'auto'  — CUDA tensors launch the hand-written kernels
               (``samplers/nuts_cuda.py``), CPU tensors run their plain
@@ -27,7 +29,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 _dtype = torch.float64
-_device = torch.device('cpu')
+_DEFAULT_DEVICE = torch.device('cuda')
+_device = _DEFAULT_DEVICE
 _nuts_kernel = 'auto'
 
 
@@ -46,14 +49,24 @@ def set_dtype(dtype):
 
 
 def get_device():
-    """Device that the sampler's tensors live on."""
+    """Device that the entry points' tensors live on. Raises when it is a
+    CUDA device and CUDA is unavailable: nothing moves to the CPU unless
+    ``set_device('cpu')`` asked for it."""
+    if _device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'bayesfast_tpu_torch runs on the GPU by default, and no CUDA '
+            'device is available: call '
+            "bayesfast_tpu_torch.config.set_device('cpu') to run on the CPU.")
     return _device
 
 
 def set_device(device):
-    """Set the sampler device (``None`` restores the CPU)."""
+    """Set the device (``None`` restores the default, ``'cuda'``); returns
+    the previous setting."""
     global _device
-    _device = torch.device('cpu' if device is None else device)
+    old = _device
+    _device = _DEFAULT_DEVICE if device is None else torch.device(device)
+    return old
 
 
 def set_nuts_kernel(mode):

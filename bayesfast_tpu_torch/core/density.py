@@ -14,7 +14,7 @@ evaluate a compiled-in density and its analytic gradient.
 import numpy as np
 import torch
 
-from ..config import get_dtype
+from ..config import get_device, get_dtype
 from ..ops import constraint as _con
 
 __all__ = ['DensityLite']
@@ -198,13 +198,16 @@ class DensityLite(_PipelineBase, _DensityBase):
 
     # ------------- host-facing vectorized API -------------
 
+    # numpy in and out; the evaluation runs on ``get_device()`` in
+    # ``get_dtype()``
     def _host(self, x):
-        return torch.as_tensor(np.asarray(x), dtype=get_dtype())
+        return torch.as_tensor(np.asarray(x), dtype=get_dtype(),
+                               device=get_device())
 
     def logp(self, x, original_space=None):
         original_space = self._check_os(original_space)
         with torch.no_grad():
-            return self._logp_b(self._host(x), original_space).numpy()
+            return self._logp_b(self._host(x), original_space).cpu().numpy()
 
     __call__ = logp
 
@@ -214,7 +217,7 @@ class DensityLite(_PipelineBase, _DensityBase):
     def logp_and_grad(self, x, original_space=None):
         original_space = self._check_os(original_space)
         lp, g = self._logp_and_grad_b(self._host(x), original_space)
-        return lp.numpy(), g.numpy()
+        return lp.cpu().numpy(), g.cpu().numpy()
 
     @property
     def input_size(self):

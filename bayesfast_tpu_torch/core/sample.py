@@ -40,7 +40,7 @@ def _trace_stream(trace, salt):
     return np.random.SeedSequence([root, int(salt)])
 
 
-def _descend_x0(density, x_0, trace, dtype, device='cpu'):
+def _descend_x0(density, x_0, trace, dtype, device=None):
     """Batched Adam ascent of the starting points on the transformed logp;
     each chain freezes once its per-step gain drops below ``gain_tol``.
     Returns ``(x_opt, n_evals)``, ``n_evals`` the per-chain count of density
@@ -51,6 +51,7 @@ def _descend_x0(density, x_0, trace, dtype, device='cpu'):
     lr = float(opts.get('lr', 0.3))
     gain_tol = float(opts.get('gain_tol', 0.1))
     b1, b2, eps_adam = 0.9, 0.999, 1e-8
+    device = device or get_device()
 
     lpg = density.device_logp_and_grad(original_space=False)
     params = density.current_params()
@@ -88,7 +89,7 @@ def _descend_x0(density, x_0, trace, dtype, device='cpu'):
     return x.cpu().numpy(), t + 1
 
 
-def _find_reasonable_step(density, x_0, trace, dtype, step0, device='cpu',
+def _find_reasonable_step(density, x_0, trace, dtype, step0, device=None,
                           p0=None):
     """Per-chain 'find reasonable epsilon' probe (Stan's initialization):
     one leapfrog per chain measures the single-step acceptance; the step
@@ -97,6 +98,7 @@ def _find_reasonable_step(density, x_0, trace, dtype, step0, device='cpu',
     from the trace's generator. Returns ``(eps, n_evals)``."""
     metric = trace.metric
     dim = x_0.shape[-1]
+    device = device or get_device()
     metric_arr = (np.ones(dim) if isinstance(metric, str)
                   else np.asarray(metric))
     x = torch.as_tensor(np.asarray(x_0), dtype=dtype, device=device)
@@ -155,9 +157,10 @@ def _resolve_trace(sample_trace, sampler):
     raise ValueError('unexpected value for sample_trace.')
 
 
-def _init_carry(trace, x_0, dtype, eps_0=None, device='cpu'):
+def _init_carry(trace, x_0, dtype, eps_0=None, device=None):
     """Build the batched per-chain carry: one int32 kernel seed, q, the
     step-size state and the diag metric state."""
+    device = device or get_device()
     n_chain = trace.n_chain
     dim = x_0.shape[-1]
     ss = _trace_stream(trace, 0x5b)

@@ -16,7 +16,7 @@ from .samplers.chain import ChainCarry
 from .samplers.metrics import DiagMetricState, _Welford
 from .samplers.step_size import StepSizeState
 
-__all__ = ['banana_density', 'carry_from_numpy']
+__all__ = ['banana_density', 'carry_from_numpy', 'sit_from_numpy']
 
 
 def banana_density(A, Q=0.01, bounds=None, const=0.0, hard_bounds=True,
@@ -58,3 +58,37 @@ def carry_from_numpy(seed, q, step, metric, dtype=None, device=None):
         n_samples=i(metric.n_samples), prev_update=i(metric.prev_update),
         adapt_window=i(metric.adapt_window))
     return ChainCarry(int(seed), t(q), st, ms)
+
+
+def sit_from_numpy(A, B, m, logdetA, splines, data=None, flow_dtype=None,
+                   **options):
+    """A fitted ``transforms.SIT`` from a JAX ``SIT``'s layers as numpy
+    arrays: ``A``, ``B`` (L, D, D), ``m`` (L, D), ``logdetA`` (L,) (its
+    ``_A``, ``_B``, ``_m``, ``_logdetA``) and ``splines``, one list per
+    layer of ``(x, y, c)`` per dimension (each spline's ``_x``, ``_y``,
+    ``_c``). ``data`` (n, D) becomes the SIT's data (default: none, an
+    empty (0, D) array); ``options`` go to ``SIT``."""
+    from .transforms import SIT
+    from .utils.cubic import CubicSplineSet, cubic_spline
+    A = np.asarray(A, np.float64)
+    L, D = A.shape[0], A.shape[-1]
+    sit = SIT(n_iter=L, flow_dtype=flow_dtype, **options)
+    sit._data = (np.zeros((0, D)) if data is None
+                 else np.asarray(data, np.float64))
+    sit._data_init = sit._data.copy()
+    sit._weights = np.ones(sit._data.shape[0]) / max(sit._data.shape[0], 1)
+    sit._A = A
+    sit._B = np.asarray(B, np.float64)
+    sit._m = np.asarray(m, np.float64)
+    sit._logdetA = np.asarray(logdetA, np.float64)
+    for layer in splines:
+        objs = []
+        for x, y, c in layer:
+            s = cubic_spline.__new__(cubic_spline)
+            s._x = np.asarray(x, np.float64)
+            s._y = np.asarray(y, np.float64)
+            s._c = np.asarray(c, np.float64)
+            s._n = s._x.shape[0]
+            objs.append(s)
+        sit._spline_sets.append(CubicSplineSet(objs, dtype=sit.flow_dtype))
+    return sit

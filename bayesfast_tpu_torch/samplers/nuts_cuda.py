@@ -545,7 +545,7 @@ def _launch(warmup, seed, i0, chain_start, q0, n_steps, max_treedepth,
             'count', 'var', 'fg_mean', 'fg_raw', 'fg_w', 'bg_mean',
             'bg_raw', 'bg_w'))]
         rows.update(fin)
-    lib = load_library()
+    lib = load_library('nuts')
     target, gamma, k_exp, t_0, adapt_step, adapt_metric = \
         adapt or (0., 0., 0., 0., False, False)
     fargs = (ctypes.c_double * 8)(float(max_change), logw,

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 from scipy import stats as _sp_stats
 
+from ..config import get_device
+
 __all__ = ['StepSizeState', 'init_step_size', 'check_acceptance']
 
 
@@ -25,10 +27,11 @@ class StepSizeState(NamedTuple):
     accept_count: Any
 
 
-def init_step_size(initial_step, dtype=torch.float64, device='cpu'):
+def init_step_size(initial_step, dtype=torch.float64, device=None):
     """State for per-chain initial steps (a tensor of shape (C,) or a
-    scalar)."""
-    step = torch.as_tensor(initial_step, dtype=dtype, device=device)
+    scalar), on ``device`` (default: ``config.get_device()``)."""
+    step = torch.as_tensor(initial_step, dtype=dtype,
+                           device=device or get_device())
     log_step = torch.log(step)
     zero = torch.zeros_like(step)
     return StepSizeState(

@@ -12,7 +12,7 @@ import os
 import numpy as np
 import torch
 
-from ..config import get_dtype
+from ..config import get_device, get_dtype
 
 __all__ = ['uniform', 'multivariate_normal', 'sobol_uint32',
            'direction_numbers']
@@ -92,10 +92,18 @@ def _sobol_kernel(V, i0, n):
     return X
 
 
-def sobol_uint32(n, d, skip=0, device='cpu'):
-    """Raw Sobol integers (scaled by 2^32), as an int64 tensor (n, d)."""
-    V = torch.as_tensor(direction_numbers(d).astype(np.int64), device=device)
+def sobol_uint32(n, d, skip=0, device=None):
+    """Raw Sobol integers (scaled by 2^32), as an int64 tensor (n, d) on
+    ``device`` (default: ``config.get_device()``)."""
+    V = torch.as_tensor(direction_numbers(d).astype(np.int64),
+                        device=device or get_device())
     return _sobol_kernel(V, skip, int(n))
+
+
+def _unit_points(size, d, skip, dtype):
+    """Sobol points in ``[0, 1)`` as a (size, d) tensor of ``dtype`` on the
+    configured device, the first ``skip`` points dropped."""
+    return sobol_uint32(size, d, skip).to(dtype) * (2.0 ** -32)
 
 
 def uniform(low, high, size, skip=1):
@@ -117,10 +125,11 @@ def uniform(low, high, size, skip=1):
         raise ValueError(f'skip should be a non-negative int, instead of '
                          f'{skip}.')
     dtype = get_dtype()
-    pts = sobol_uint32(size, d, skip).to(dtype) * (2.0 ** -32)
-    pts = (torch.as_tensor(low, dtype=dtype)
-           + torch.as_tensor(high - low, dtype=dtype) * pts)
-    return pts.numpy()
+    pts = _unit_points(size, d, skip, dtype)
+    pts = (torch.as_tensor(low, dtype=dtype, device=pts.device)
+           + torch.as_tensor(high - low, dtype=dtype, device=pts.device)
+           * pts)
+    return pts.cpu().numpy()
 
 
 def multivariate_normal(mean, cov, size, skip=1, chunk=1 << 18):
@@ -135,14 +144,15 @@ def multivariate_normal(mean, cov, size, skip=1, chunk=1 << 18):
     size = int(size)
     a, w = np.linalg.eigh(np.asarray(cov, np.float64))
     a = np.clip(a, 0.0, None)
-    dtype = get_dtype()
+    dtype, device = get_dtype(), get_device()
+
+    def t(v):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
     out = np.empty((size, d), torch.empty((), dtype=dtype).numpy().dtype)
     for off in range(0, size, chunk):
         n = min(chunk, size - off)
-        pts = torch.as_tensor(uniform(np.zeros(d), np.ones(d), n, skip + off))
-        z = torch.special.ndtri(pts)
-        res = (torch.as_tensor(mean, dtype=dtype)
-               + (z * torch.as_tensor(a ** 0.5, dtype=dtype))
-               @ torch.as_tensor(w.T, dtype=dtype))
-        out[off:off + n] = res.numpy()
+        z = torch.special.ndtri(_unit_points(n, d, skip + off, dtype))
+        res = t(mean) + (z * t(a ** 0.5)) @ t(w.T)
+        out[off:off + n] = res.cpu().numpy()
     return out

@@ -1,12 +1,20 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``bayesfast_tpu_torch/csrc``, holds each
-against its plain torch version on the card, drives the main path
-(``bayesfast_tpu_torch.sample`` on the bench's 32-d bounded rotated banana
-with 1024 chains, float32, through warmup and post-warmup chunks on the two
-kernels) and checks what comes out. Every phase that fails makes the script
-exit non-zero; without a CUDA device it exits non-zero before printing any
-result. Run from the repository root, with no arguments:
+Builds the port's CUDA kernels from ``bayesfast_tpu_torch/csrc`` (one nvcc
+per source, in parallel), holds each against its plain torch version on the
+card, drives the port's two paths and checks what comes out:
+
+* sampling: ``bayesfast_tpu_torch.sample`` on the bench's 32-d bounded
+  rotated banana with 1024 chains, float32, through warmup and post-warmup
+  chunks on the two NUTS kernels;
+* evidence: ``bayesfast_tpu_torch.evidence.GBS`` on that run's post-warmup
+  draws (the SIT flow fit runs its KDE sums on the KDE-cdf kernel), held
+  against the banana's exact logz.
+
+Each path runs with every launch count set to 0 just before it and read
+just after. Every phase that fails makes the script exit non-zero; without
+a CUDA device it exits non-zero before printing any result. Run from the
+repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -31,6 +39,15 @@ _REPO = os.path.dirname(os.path.abspath(__file__))
 N_CHAIN, D, Q, N_WARMUP, N_POST = 1024, 32, 0.01, 400, 300
 K_CMP = 4          # transitions per chunk in the kernel-vs-plain checks
 MAX_TREEDEPTH, MAX_CHANGE = 10, 1000.
+# GBS as benchmarks/suite.py:197 runs it, and the banana's exact logz
+# (benchmarks/results.jsonl, "fiducial")
+F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
+KDE_M = 512        # queries per column in the KDE kernel-vs-plain checks
+# one NVIDIA H100 SXM: fp32 outside the tensor cores, device memory
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# operations per Phi evaluation of the KDE kernel (csrc/kde.cu's note):
+# difference, divide, scale, some 20 for the erf, the multiply-add of the sum
+KDE_OPS_PER_PHI = 25
 
 
 def _nvidia_smi():
@@ -42,6 +59,52 @@ def _nvidia_smi():
         return out.stdout.strip().splitlines()[0]
     except (OSError, IndexError, subprocess.SubprocessError) as exc:
         return f'nvidia-smi unavailable ({exc!r})'
+
+
+def _nbytes(*objs):
+    """Bytes of every tensor in ``objs`` (tensors, tuples, dicts)."""
+    import torch
+    n = 0
+    for o in objs:
+        if torch.is_tensor(o):
+            n += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            n += _nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            n += _nbytes(*o)
+    return n
+
+
+def _bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the operations over the fp32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else \
+        (t_bytes, 'bytes')
+
+
+def _leapfrog_ops(dim):
+    """Operations of one leapfrog of the banana behind the fused bound
+    transform, read off csrc/nuts.cu: two D x D matvecs (4 D^2) and about
+    85 elementwise operations per dimension (the transform and its
+    log-Jacobian, the banana terms and their gradient, the momentum and
+    position updates, the energy and U-turn sums)."""
+    return 4 * dim * dim + 85 * dim
+
+
+def _time_ms(torch, fn, n):
+    """Mean ms of ``n`` calls after a warm one (CUDA events); returns
+    (ms, the warm call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n, out
 
 
 def _bench_density(dtype):
@@ -178,10 +241,11 @@ def _kernel_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     return errs
 
 
-def _time_chunks(torch, den, carry, device):
+def _time_chunks(torch, den, carry):
     """One K=4 chunk of each kernel beside its plain version, at the main
     path's shapes and final state (CUDA events; the kernel warmed up
-    first)."""
+    first), and the chunk's bound from the leapfrogs its trees took.
+    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     plain_lpg = nc.plain_lpg(den)
     q, metric, step = carry.q, carry.metric, carry.step
@@ -198,31 +262,147 @@ def _time_chunks(torch, den, carry, device):
                                           MAX_TREEDEPTH, MAX_CHANGE,
                                           density=den, i0=700),
             lambda: nc.nuts_chunk_plain(5, q, var, eps, K_CMP, MAX_TREEDEPTH,
-                                        MAX_CHANGE, plain_lpg, 700)),
+                                        MAX_CHANGE, plain_lpg, 700),
+            (q, var, eps)),
         'nuts_warmup': (
             lambda: nc.nuts_warmup_chunk_batched(5, q, step, metric, *args,
                                                  density=den, i0=700),
             lambda: nc.nuts_warmup_chunk_plain(5, q, steps, mets, *args,
-                                               plain_lpg, 700)),
+                                               plain_lpg, 700),
+            (q, steps, mets)),
     }
     times = {}
-    for name, (kern, plain) in runs.items():
-        def timed(fn, n):
-            fn()
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(n):
-                fn()
-            t1.record()
-            torch.cuda.synchronize()
-            return t0.elapsed_time(t1) / n
-        times[name] = (timed(kern, 5), timed(plain, 1))
+    for name, (kern, plain, inputs) in runs.items():
+        ms, out = _time_ms(torch, kern, 5)
+        plain_ms, _ = _time_ms(torch, plain, 1)
+        sizes = (out[2].tree_size if name == 'nuts_multi'
+                 else out['tree_size'])
+        leapfrogs = int(sizes.sum())
+        bound = _bound(leapfrogs * _leapfrog_ops(D), _nbytes(inputs, out))
+        times[name] = (ms, plain_ms) + bound
         print(f'  {name}: one K={K_CMP} chunk at C={C}, D={D}, float32: '
-              f'kernel {times[name][0]:.3f} ms, plain torch '
-              f'{times[name][1]:.3f} ms')
+              f'kernel {ms:.3f} ms, plain torch {plain_ms:.3f} ms; '
+              f'{leapfrogs} leapfrogs, bound {bound[0]:.4f} ms '
+              f'({bound[1]})')
     return times
+
+
+def _gbs_on_trace(bt, tt, den):
+    """[6] GBS on the main path's post-warmup draws, its launch count read
+    just after it; returns the kde_cdf launches."""
+    from bayesfast_tpu_torch.ops import kde as tk
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    n_half = N_CHAIN // 2
+    nc.nuts_chunk_batched.launches = 0
+    nc.nuts_warmup_chunk_batched.launches = 0
+    tk.kde_cdf_batch.launches = 0
+    t0 = time.time()
+    gbs = bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)
+    logz, err = gbs(tt, den.logp)
+    wall = time.time() - t0
+    launches = tk.kde_cdf_batch.launches
+    prof = {k: round(v, 3) for k, v in gbs.last_profile.items()}
+    print(f'[6] GBS(f_call={F_CALL}, n_q_max={N_Q_MAX}) on {n_half} x '
+          f'{N_POST} fit rows x {D} dims, {gbs.sit.i_iter} SIT layers, '
+          f'float32: logz {logz:.4f} +- {err:.4f} (exact {LOGZ_EXACT}); '
+          f'wall {wall:.3f} s')
+    print(f'    phases (s): {prof}; kde_cdf launches {launches}')
+    if not (np.isfinite(logz) and abs(logz - LOGZ_EXACT) <= LOGZ_TOL
+            and 0 < err < 0.1):
+        raise AssertionError(f'GBS logz {logz} +- {err} is off')
+    if launches == 0:
+        raise AssertionError('the SIT fit did not launch the KDE kernel')
+    fit = {k: round(v, 3) for k, v in gbs.sit.last_profile.items()}
+    print(f'    SIT fit stages (s): {fit}')
+    return launches
+
+
+def _gbs_device_share(torch, bt, tt, den):
+    """[6b] A repeat of the GBS run under torch.profiler: the device's
+    kernel time (its busy time, one stream) over the run's host wall, and
+    the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)(tt, den.logp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    if busy == 0:
+        print('[6b] profiled GBS: the profiler recorded no device time; '
+              'device busy share not measured')
+        return
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    print(f'[6b] profiled GBS: wall {wall:.3f} s, device busy {busy:.3f} s '
+          f'({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} '
+          '%; top device kernels:')
+    for e in top:
+        print(f'    {e.self_device_time_total / 1e3:9.2f} ms  '
+              f'{e.count:6d} x  {e.key[:90]}')
+
+
+def _kde_vs_plain(torch, tt):
+    """[7] The KDE kernel against its plain version at the SIT fit's shape
+    (D = 32 columns of the main path's draws, M = 512 queries, N = 153,600
+    points), both forms of Phi, float32 and float64, and D = 1 through
+    kde_cdf_device; then its time beside its bound, the plain version and
+    the blocked ndtr + matmul formulation. Returns the float32 max abs
+    error and (ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    from bayesfast_tpu_torch.ops import kde as tk
+    dev = torch.device('cuda', 0)
+    y = tt.get(flatten=False)[:N_CHAIN // 2].reshape(-1, D)
+    y = (y - y.mean(0)) / y.std(0)
+    N = y.shape[0]
+    rng = np.random.default_rng(7)
+    xq = np.sort(rng.normal(size=(D, KDE_M)) * 1.5, axis=1)
+    h = y.std(0) * N ** -0.2
+    tols = {torch.float32: 1e-5, torch.float64: 1e-12}
+    err32 = 0.0
+    for dt, tol in tols.items():
+        x, data, w, hd = (torch.as_tensor(a, dtype=dt, device=dev)
+                          for a in (xq, y.T.copy(), np.full(N, 1.0 / N), h))
+        for erf in ('exact', 'as'):
+            k = tk.kde_cdf_batch(x, data, w, hd, erf)
+            torch.cuda.synchronize()
+            p = tk.kde_cdf_batch_plain(x, data, w, hd, erf)
+            e = (k.double() - p.double()).abs().max().item()
+            k1 = tk.kde_cdf_device(x[3], data[3], w, hd[3], erf)
+            p1 = tk.kde_cdf_batch_plain(x[3:4], data[3:4], w, hd[3:4],
+                                        erf)[0]
+            e1 = (k1.double() - p1.double()).abs().max().item()
+            tag = str(dt).replace('torch.', '')
+            print(f'  kde_cdf {tag} {erf}: D={D} max abs err {e:.3e}, '
+                  f'D=1 {e1:.3e} (tolerance {tol:g})')
+            if not (e <= tol and e1 <= tol):
+                raise AssertionError(f'kde_cdf {tag} {erf} disagrees with '
+                                     'its plain version')
+            if dt == torch.float32:
+                err32 = max(err32, e, e1)
+    x, data, w, hd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                      for a in (xq, y.T.copy(), np.full(N, 1.0 / N), h))
+
+    def library():
+        acc = torch.zeros((D, KDE_M), dtype=torch.float32, device=dev)
+        for j in range(0, N, 1024):
+            z = (x[:, :, None] - data[:, None, j:j + 1024]) / hd[:, None,
+                                                                   None]
+            acc += torch.matmul(torch.special.ndtr(z), w[j:j + 1024])
+        return acc
+
+    ms, _ = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, hd), 10)
+    plain_ms, _ = _time_ms(torch, lambda: tk.kde_cdf_batch_plain(
+        x, data, w, hd), 2)
+    lib_ms, _ = _time_ms(torch, library, 2)
+    bound = _bound(KDE_OPS_PER_PHI * D * KDE_M * N,
+                   _nbytes(x, data, w, hd) + D * KDE_M * 4)
+    print(f'  kde_cdf float32 exact at D={D}, M={KDE_M}, N={N}: kernel '
+          f'{ms:.3f} ms, plain {plain_ms:.3f} ms, blocked ndtr + matmul '
+          f'{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})')
+    return err32, (ms, plain_ms) + bound + (lib_ms,)
 
 
 def main():
@@ -233,27 +413,28 @@ def main():
     sys.path.insert(0, _REPO)
     import bayesfast_tpu_torch as bt
     from bayesfast_tpu_torch import _build, config
+    from bayesfast_tpu_torch.ops import kde as tk
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.utils.acor import effective_sample_size
 
     # sample() warns once per chain whose post-warmup acceptance is off
     # target (1024 lines a call); the divergence and depth warnings stay
     warnings.filterwarnings('ignore', message='for chain #')
-    device = torch.device('cuda', 0)
     name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f'[1] device: {name}; nvidia-smi: {smi}')
     print(f'    torch {torch.__version__}, CUDA {torch.version.cuda}')
 
-    # ---- [2] build ----
-    path = _build.build_library(verbose=True)
-    print(f'[2] built {os.path.relpath(path, _REPO)} in '
-          f'{_build.last_build_seconds:.1f} s')
-    _build.load_library()
+    # ---- [2] build: one nvcc per source, in parallel ----
+    paths = _build.build_library(verbose=True)
+    print(f'[2] built {[os.path.relpath(p, _REPO) for p in paths.values()]}'
+          f' in {_build.last_build_seconds:.1f} s')
+    for lib in paths:
+        _build.load_library(lib)
 
-    # ---- [3] the main path at bench.py's configuration ----
+    # ---- [3] the sampling path at bench.py's configuration (the port's
+    # default device is the card) ----
     config.set_dtype(torch.float32)
-    config.set_device(device)
     config.set_nuts_kernel('cuda')
     A, den = _bench_density(torch.float32)
     bt.utils.set_generator(32)
@@ -261,6 +442,7 @@ def main():
                       n_warmup=N_WARMUP)
     nc.nuts_chunk_batched.launches = 0
     nc.nuts_warmup_chunk_batched.launches = 0
+    tk.kde_cdf_batch.launches = 0
     t0 = time.time()
     tt = bt.sample(den, trace, n_run=2, verbose=False, n_update=2)
     t_start = time.time() - t0
@@ -279,6 +461,8 @@ def main():
         dt_post += time.time() - t0
     launches = {'nuts_warmup': nc.nuts_warmup_chunk_batched.launches,
                 'nuts_multi': nc.nuts_chunk_batched.launches}
+    if tk.kde_cdf_batch.launches:
+        raise AssertionError('the sampling path launched the KDE kernel')
     expect = {'nuts_warmup': 1 + 4 * 2, 'nuts_multi': 3 * 2}
     print(f'[3] main path: launches {launches} (driver chunks {expect})')
     if launches != expect:
@@ -348,18 +532,36 @@ def main():
 
     # ---- [5] one chunk: kernel time beside the plain version's ----
     print('[5] chunk timing (CUDA events)')
-    times = _time_chunks(torch, den, tt.trace._carry, device)
-
-    src = 'bayesfast_tpu_torch/csrc/nuts.cu'
-    replaces = {'nuts_multi': 'bayesfast_tpu/samplers/nuts_pallas.py:462',
-                'nuts_warmup': 'bayesfast_tpu/samplers/nuts_pallas.py:746'}
+    times = _time_chunks(torch, den, tt.trace._carry)
     print(f'    max abs err float64 {errs64}, float32 {errs32}')
+
+    # ---- [6] the evidence path: GBS on the sampling path's trace ----
+    launches['kde_cdf'] = _gbs_on_trace(bt, tt, den)
+    _gbs_device_share(torch, bt, tt, den)
+
+    # ---- [7] the KDE kernel against its plain version ----
+    print('[7] KDE kernel vs plain, SIT fit shape')
+    errs32['kde_cdf'], times['kde_cdf'] = _kde_vs_plain(torch, tt)
+
+    meta = {
+        'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                       'bayesfast_tpu/samplers/nuts_pallas.py:462'),
+        'nuts_warmup': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                        'bayesfast_tpu/samplers/nuts_pallas.py:746'),
+        'kde_cdf': ('bayesfast_tpu_torch/csrc/kde.cu',
+                    'bayesfast_tpu/ops/kde_pallas.py:50')}
+    rows = []
+    for k, (src, replaces) in meta.items():
+        ms, plain_ms, bound_ms, bound_by = times[k][:4]
+        # no single PyTorch call computes a NUTS transition
+        lib_ms = times[k][4] if len(times[k]) > 4 else None
+        rows.append({'name': k, 'route': 'cuda', 'source': src,
+                     'replaces': replaces, 'launches': launches[k],
+                     'max_abs_err': errs32[k], 'ms': ms,
+                     'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                     'bound_by': bound_by, 'library_ms': lib_ms})
     print(smi)
-    print(json.dumps({'kernels': [
-        {'name': k, 'route': 'cuda', 'source': src, 'replaces': replaces[k],
-         'launches': launches[k], 'max_abs_err': errs32[k],
-         'ms': times[k][0], 'plain_ms': times[k][1]}
-        for k in ('nuts_multi', 'nuts_warmup')]}))
+    print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

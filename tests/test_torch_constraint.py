@@ -7,7 +7,17 @@ import pytest
 import torch
 
 from bayesfast_tpu.ops import constraint as jcon
+from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.ops import constraint as tcon
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
+
 
 _D = 6
 _SCALES = np.array([[-2., 3.], [0., 1.], [-15., 15.], [1., 4.],

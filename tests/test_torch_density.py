@@ -9,10 +9,19 @@ import torch
 from scipy.stats import special_ortho_group
 
 import bayesfast_tpu as bf
+from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.core.density import DensityLite
 from bayesfast_tpu_torch.interop import banana_density
 from bayesfast_tpu_torch.ops.densities import (DiagGaussian,
                                                spec_logp_and_grad)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
 
 
 def _bench_banana_jax(A, Q, bounds, const):

@@ -28,10 +28,20 @@ from scipy.stats import special_ortho_group
 
 import bayesfast_tpu as bf
 from bayesfast_tpu.samplers import nuts_pallas as jnpl
+from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.interop import banana_density
 from bayesfast_tpu_torch.samplers import nuts_cuda as tnc
 from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
 from bayesfast_tpu_torch.samplers.step_size import init_step_size
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
+
 
 D, C, K, MAXDEPTH, Q = 4, 16, 3, 6, 0.1
 MAX_CHANGE = 1000.

@@ -14,7 +14,17 @@ import pytest
 import torch
 
 from bayesfast_tpu.samplers import nuts_pallas as jnpl
+from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.samplers import nuts_cuda as tnc
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
+
 
 _C = 24
 

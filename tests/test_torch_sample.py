@@ -31,6 +31,15 @@ from bayesfast_tpu_torch.samplers import chain as tchain
 from bayesfast_tpu_torch.samplers import nuts_cuda as tnc
 from test_torch_nuts_kernel import use_rounded_momenta
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
+
+
 # the modules (the packages re-export the function under the same name)
 jsample = importlib.import_module('bayesfast_tpu.core.sample')
 tsample = importlib.import_module('bayesfast_tpu_torch.core.sample')
@@ -190,16 +199,46 @@ def test_sample_end_to_end_matches_jax():
         assert 2 <= (tr._descent_calls - C * n_j) // C <= 62
 
 
+def _is_jax_side(name):
+    return name.split('.')[0] in ('jax', 'jaxlib', 'bayesfast_tpu')
+
+
 def test_import_leaves_jax_out():
-    code = ('import sys, bayesfast_tpu_torch; '
-            'bad = [m for m in sys.modules if m == "jax" '
-            'or m.startswith("jax.") or m == "bayesfast_tpu" '
-            'or m.startswith("bayesfast_tpu.")]; '
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter, loads nothing of JAX or of the JAX package."""
+    code = ('import sys, importlib, pkgutil, bayesfast_tpu_torch as bt; '
+            '[importlib.import_module(m.name) for m in '
+            'pkgutil.walk_packages(bt.__path__, "bayesfast_tpu_torch.")]; '
+            'import chip_smoke; '
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "bayesfast_tpu")]; '
             'print(bad); sys.exit(1 if bad else 0)')
     env = dict(os.environ, PYTHONPATH=_REPO)
     res = subprocess.run([sys.executable, '-c', code], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_import_no_jax():
+    """No import statement of the port or of chip_smoke.py, at any level
+    (chip_smoke imports inside its functions), names JAX or the JAX
+    package."""
+    import ast
+    import glob
+    files = glob.glob(os.path.join(_REPO, 'bayesfast_tpu_torch', '**',
+                                   '*.py'), recursive=True)
+    files.append(os.path.join(_REPO, 'chip_smoke.py'))
+    for f in files:
+        with open(f) as fh:
+            tree = ast.parse(fh.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert not any(_is_jax_side(n) for n in names), (f, names)
 
 
 def test_cuda_kernel_mode_on_cpu_raises():

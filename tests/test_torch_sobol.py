@@ -4,7 +4,16 @@ import numpy as np
 import pytest
 
 from bayesfast_tpu.utils import sobol as jsobol
+from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.utils import sobol as tsobol
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
 
 
 @pytest.mark.parametrize('n,d,skip', [(64, 1, 0), (1000, 5, 1),
