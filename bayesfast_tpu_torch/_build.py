@@ -104,6 +104,14 @@ def _bind(name, lib):
             ctypes.POINTER(ctypes.c_double),  # fargs[8]
             ctypes.POINTER(vp), c_int,        # pointer table, its length
             vp]                               # cudaStream_t
+        lib.nuts_block_launch.restype = c_int
+        lib.nuts_block_launch.argtypes = [
+            c_int, c_int,                     # f64, density id
+            c_int, c_int, c_int,              # C, D, max_treedepth
+            c_uint, c_uint,                   # seed, chain_start
+            ctypes.POINTER(ctypes.c_double),  # fargs[8]
+            ctypes.POINTER(vp), c_int,        # pointer table, its length
+            vp]                               # cudaStream_t
         lib.nuts_error_string.restype = ctypes.c_char_p
         lib.nuts_error_string.argtypes = [c_int]
     elif name == 'kde':

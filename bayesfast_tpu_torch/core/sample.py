@@ -1,12 +1,22 @@
 """The parallel-sampling entry point, for NUTS.
 
 Counterpart of ``bayesfast_tpu/core/sample.py``. All chains advance
-together on one device; warmup and post-warmup run in chunks of at most 64
-transitions, each one launch of the chunk kernels (``samplers/nuts_cuda``).
-Before the chains start: Sobol start points, a batched Adam ascent of the
-starts (``_descend_x0``) and a per-chain reasonable-step probe
-(``_find_reasonable_step``). The JAX package's other samplers, its mesh
-paths and its XLA tree fallback are not part of this module.
+together on one device. Before the chains start: Sobol start points, a
+batched Adam ascent of the starts (``_descend_x0``) and a per-chain
+reasonable-step probe (``_find_reasonable_step``). Then, as the JAX
+package dispatches (``core/sample.py:580-602``):
+
+* a diag metric on the kernels, adapted per chain: warmup in chunks of at
+  most 64 transitions, each one launch of the warmup chunk kernel;
+* a pooled diag metric: warmup on the per-transition path
+  (``ChainDriver.run``), one block-kernel launch per transition with the
+  shared Welford update between launches;
+* either diag case after warmup: frozen chunks, one launch each;
+* a full metric, or a density without ``kernel_spec()``: every transition
+  on the per-transition path through the torch tree loop.
+
+The JAX package's other samplers and its mesh paths are not part of this
+module.
 """
 
 import time
@@ -17,7 +27,8 @@ import torch
 
 from ..config import get_device, get_dtype, get_nuts_kernel
 from ..samplers.chain import ChainCarry, ChainDriver
-from ..samplers.metrics import init_diag_metric, sample_momentum_b
+from ..samplers.metrics import (init_diag_metric, init_full_metric,
+                                sample_momentum_b)
 from ..samplers.sample_trace import NTrace, TraceTuple
 from ..samplers.step_size import init_step_size, check_acceptance
 from ..samplers import nuts as _nuts
@@ -96,16 +107,12 @@ def _find_reasonable_step(density, x_0, trace, dtype, step0, device=None,
     doubles (acceptance > 0.5) or halves until it crosses 0.5, per chain in
     lockstep. ``p0`` (C, D) overrides the momenta, which are otherwise drawn
     from the trace's generator. Returns ``(eps, n_evals)``."""
-    metric = trace.metric
     dim = x_0.shape[-1]
     device = device or get_device()
-    metric_arr = (np.ones(dim) if isinstance(metric, str)
-                  else np.asarray(metric))
     x = torch.as_tensor(np.asarray(x_0), dtype=dtype, device=device)
     C = x.shape[0]
-    mstate = init_diag_metric(torch.zeros(dim, dtype=dtype, device=device),
-                              torch.as_tensor(metric_arr, dtype=dtype,
-                                              device=device))
+    mstate = _init_metric(trace, torch.zeros(dim, dtype=dtype,
+                                             device=device))
     metric_t = _nuts._metric_t(mstate)
     lpg = density.device_logp_and_grad(original_space=False)
     params = density.current_params()
@@ -157,9 +164,23 @@ def _resolve_trace(sample_trace, sampler):
     raise ValueError('unexpected value for sample_trace.')
 
 
+def _init_metric(trace, mean, initial_weight=10., adapt_window=60):
+    """The trace's initial metric state around ``mean`` (D,) or (C, D):
+    diag for 'diag' or a 1-D array, full for 'full' or a 2-D array."""
+    metric = trace.metric
+    dim = mean.shape[-1]
+    if isinstance(metric, str):
+        metric = np.ones(dim) if metric == 'diag' else np.eye(dim)
+    metric = torch.as_tensor(np.asarray(metric), dtype=mean.dtype,
+                             device=mean.device)
+    init = init_diag_metric if metric.dim() == 1 else init_full_metric
+    return init(mean, metric, initial_weight, adapt_window)
+
+
 def _init_carry(trace, x_0, dtype, eps_0=None, device=None):
-    """Build the batched per-chain carry: one int32 kernel seed, q, the
-    step-size state and the diag metric state."""
+    """Build the batched carry: one int32 kernel seed, q, the per-chain
+    step-size state and the metric state (per chain, or one shared state
+    from the mean of the starts when ``pooled_metric``)."""
     device = device or get_device()
     n_chain = trace.n_chain
     dim = x_0.shape[-1]
@@ -173,14 +194,13 @@ def _init_carry(trace, x_0, dtype, eps_0=None, device=None):
     step = init_step_size(torch.as_tensor(np.asarray(eps_0), dtype=dtype),
                           dtype, device)
 
-    metric = trace.metric
-    metric_arr = (np.ones(dim) if isinstance(metric, str)
-                  else np.asarray(metric))
     init_mean = (np.asarray(x_0) if trace.initial_mean is None
                  else np.broadcast_to(trace.initial_mean, (n_chain, dim)))
-    ms = init_diag_metric(
-        torch.as_tensor(np.asarray(init_mean), dtype=dtype, device=device),
-        torch.as_tensor(metric_arr, dtype=dtype, device=device),
+    if trace.pooled_metric:
+        init_mean = np.mean(init_mean, axis=0)
+    ms = _init_metric(
+        trace, torch.as_tensor(np.asarray(init_mean), dtype=dtype,
+                               device=device),
         trace.initial_weight, trace.adapt_window)
     return ChainCarry(seed, q, step, ms)
 
@@ -265,7 +285,10 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
     # ------- driver + carry -------
     kernel_mode = get_nuts_kernel()
     cached = getattr(trace, '_driver_cache', None)
-    cache_key = (id(density), kernel_mode)
+    m = trace.metric
+    metric_kind = m if isinstance(m, str) else ('diag' if m.ndim == 1
+                                                else 'full')
+    cache_key = (id(density), kernel_mode, metric_kind, trace.pooled_metric)
     if cached is not None and cached[0] == cache_key:
         driver = cached[1]
     else:
@@ -275,7 +298,8 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
             gamma=trace.gamma, k=trace.k, t_0=trace.t_0,
             adapt_step_size=trace.adapt_step_size,
             update_window=trace.update_window, doubling=trace.doubling,
-            adapt_metric=trace.adapt_metric, nuts_kernel=kernel_mode)
+            adapt_metric=trace.adapt_metric,
+            pooled_metric=trace.pooled_metric, nuts_kernel=kernel_mode)
         trace._driver_cache = (cache_key, driver)
 
     if trace._carry is not None:
@@ -310,11 +334,16 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
         if it0 < trace.n_warmup < it0 + n_step:
             n_step = trace.n_warmup - it0
         warm = it0 < trace.n_warmup
+        kernels = driver.uses_kernels(carry.metric)
         t_i = time.time()
-        if warm:
+        if warm and kernels and not trace.pooled_metric:
             carry, (samples, (stats, extras)), warm_ints = \
                 driver.run_warmup_chunk(carry, n_step, i0=it0,
                                         win_ints=warm_ints)
+            samples, stats_np = _to_host(samples, stats, extras)
+        elif not kernels or warm:
+            carry, (samples, (stats, extras)) = driver.run(
+                carry, [warm] * n_step, i0=it0)
             samples, stats_np = _to_host(samples, stats, extras)
         else:
             carry, (samples, (stats, _)) = driver.run_frozen_chunk(

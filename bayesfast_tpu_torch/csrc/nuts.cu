@@ -1,12 +1,16 @@
-// Whole-chunk NUTS kernels for Hopper (sm_90a), one warp per chain.
+// NUTS kernels for Hopper (sm_90a), one warp per chain.
 //
-// Replaces the two Pallas TPU kernels of the post-warmup and warmup chunks:
+// Replaces the three Pallas TPU kernels of the NUTS transitions:
 //   nuts_multi   <- bayesfast_tpu/samplers/nuts_pallas.py:462
 //                   (_nuts_multi_kernel: K frozen NUTS transitions)
 //   nuts_warmup  <- bayesfast_tpu/samplers/nuts_pallas.py:746
 //                   (_nuts_warmup_kernel: K transitions plus dual averaging
 //                   and windowed diag-Welford adaptation)
-// Both share `transition`, the port of _transition_core
+//   nuts_block   <- bayesfast_tpu/samplers/nuts_pallas.py:431
+//                   (_nuts_block_kernel: one transition under the bare seed;
+//                   the per-transition path, ChainDriver.run, adapts
+//                   between launches)
+// All share `transition`, the port of _transition_core
 // (nuts_pallas.py:120-415), and the counter RNG of nuts_pallas.py:54-88 and
 // :418-428, reproduced bit for bit.
 //
@@ -254,7 +258,8 @@ struct TDensity {
 };
 
 // ---- kernel arguments ------------------------------------------------------
-// Pointer table order (the wrapper in samplers/nuts_cuda.py builds it):
+// Pointer table order (the wrapper in samplers/nuts_cuda.py builds it; the
+// block kernel takes the frozen table, with K = 1 rows and q_final unused):
 //  0 q0 (C,D)  1 var (C,D)  2 eps (C,)  3 sched (4,L) i32  4 tf (5,D)
 //  5 density params  6 q (K,C,D)  7 logp  8 energy  9 energy_change
 //  10 depth i32  11 size i32  12 accept_sum  13 max_de  14 diverging i32
@@ -591,19 +596,16 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
   out.div = diverging ? 1 : 0;
 }
 
-template <typename T, int NE, class Dens, bool WARM>
-__global__ void __launch_bounds__(kWarps * 32)
-    nuts_chunk_kernel(Args<T> a, Dens dens) {
+// the density behind the fused transform, with this lane's dimensions of
+// the transform parameters
+template <typename T, int NE, class Dens>
+__device__ __forceinline__ TDensity<T, NE, Dens> make_lpg(const Args<T>& a,
+                                                          const Dens& dens) {
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (c >= a.C) return;  // the whole warp leaves together
-  const int D = a.D, C = a.C;
-  const uint32_t chain = a.chain_start + (uint32_t)c;
-
+  const int D = a.D;
   TDensity<T, NE, Dens> lpg;
   lpg.dens = dens;
   lpg.logw = a.logw;
-  T q[NE], var[NE], fgm[NE], fgr[NE], bgm[NE], bgr[NE];
 #pragma unroll
   for (int e = 0; e < NE; ++e) {
     const int d = lane + 32 * e;
@@ -614,6 +616,32 @@ __global__ void __launch_bounds__(kWarps * 32)
     lpg.m_lohi[e] = ok ? a.tf[2 * D + d] : T(0);
     lpg.m_lo[e] = ok ? a.tf[3 * D + d] : T(0);
     lpg.m_hi[e] = ok ? a.tf[4 * D + d] : T(0);
+  }
+  return lpg;
+}
+
+// chain c's checkpoint stack: max(maxdepth - 1, 1) + 1 frames
+template <typename T>
+__device__ __forceinline__ T* stack_of(const Args<T>& a, int c) {
+  return a.stack + (size_t)c * (size_t)(a.maxdepth > 2 ? a.maxdepth : 2) *
+                       (4 * a.D + 3);
+}
+
+template <typename T, int NE, class Dens, bool WARM>
+__global__ void __launch_bounds__(kWarps * 32)
+    nuts_chunk_kernel(Args<T> a, Dens dens) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= a.C) return;  // the whole warp leaves together
+  const int D = a.D, C = a.C;
+  const uint32_t chain = a.chain_start + (uint32_t)c;
+
+  const TDensity<T, NE, Dens> lpg = make_lpg<T, NE>(a, dens);
+  T q[NE], var[NE], fgm[NE], fgr[NE], bgm[NE], bgr[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    const int d = lane + 32 * e;
+    const bool ok = d < D;
     const size_t i = (size_t)c * D + d;
     q[e] = ok ? a.q0[i] : T(0);
     var[e] = ok ? a.var[i] : T(0);
@@ -637,8 +665,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   } else {
     step = a.eps[c];
   }
-  T* stk = a.stack + (size_t)c * (size_t)(a.maxdepth > 2 ? a.maxdepth : 2) *
-                         (4 * D + 3);
+  T* stk = stack_of(a, c);
 
   for (int t = 0; t < a.K; ++t) {
     const uint32_t seed_t = a.seed ^ fmix32(a.i0 + (uint32_t)t + 0x9E3779B9u);
@@ -739,6 +766,59 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// One NUTS transition for this warp's chain under the bare seed (the port of
+// _nuts_block_kernel, nuts_pallas.py:431-459): momenta gauss(seed, d, chain)
+// and the tree's draws all under `seed`, no iteration fold. A launch with
+// seed ^ fmix32(i0 + t + 0x9E3779B9) is therefore transition t of a chunk
+// launch from the same start, bit for bit. The design is the chunk kernels'
+// (one warp per chain, `transition` unchanged); the per-transition path
+// adapts between launches. What bounds it: a launch lasts as long as its
+// slowest chain's tree, up to 2^maxdepth - 1 dependent leapfrogs, where a
+// K-transition chunk lets a chain's short trees make up for its long ones;
+// so per transition it takes longer than a chunk.
+template <typename T, int NE, class Dens>
+__global__ void __launch_bounds__(kWarps * 32)
+    nuts_block_kernel(Args<T> a, Dens dens) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= a.C) return;  // the whole warp leaves together
+  const int D = a.D;
+  const uint32_t chain = a.chain_start + (uint32_t)c;
+
+  const TDensity<T, NE, Dens> lpg = make_lpg<T, NE>(a, dens);
+  T q[NE], var[NE], p0[NE];
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    const int d = lane + 32 * e;
+    const bool ok = d < D;
+    const size_t i = (size_t)c * D + d;
+    q[e] = ok ? a.q0[i] : T(0);
+    var[e] = ok ? a.var[i] : T(0);
+    // p ~ N(0, var^-1): p = z / sqrt(var)
+    p0[e] = ok ? T(gauss(a.seed, (uint32_t)d, chain)) / m_sqrt(var[e]) : T(0);
+  }
+  Result<T, NE> r;
+  transition<T, NE>(a, lpg, a.seed, chain, q, p0, a.eps[c], var,
+                    stack_of(a, c), r);
+#pragma unroll
+  for (int e = 0; e < NE; ++e) {
+    const int d = lane + 32 * e;
+    if (d < D) a.q[(size_t)c * D + d] = r.q[e];
+  }
+  if (lane == 0) {
+    a.logp[c] = r.logp;
+    a.energy[c] = r.energy;
+    a.de[c] = r.de;
+    a.depth[c] = r.depth;
+    a.size[c] = r.size;
+    a.asum[c] = r.asum;
+    a.mde[c] = r.mde;
+    a.div[c] = r.div;
+  }
+}
+
+enum Kind { kFrozen = 0, kWarmup = 1, kBlock = 2 };
+
 template <typename T>
 Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
                   uint32_t i0, uint32_t chain_start, int adapt_step,
@@ -810,34 +890,65 @@ Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
   return a;
 }
 
-template <typename T, int NE, bool WARM>
-cudaError_t launch_t(const Args<T>& a, int dens, cudaStream_t s) {
+template <typename T, int NE, int KIND, class Dens>
+void launch_kernel(const Args<T>& a, const Dens& d, cudaStream_t s) {
   const dim3 grid((a.C + kWarps - 1) / kWarps), block(kWarps * 32);
+  if constexpr (KIND == kBlock)
+    nuts_block_kernel<T, NE, Dens><<<grid, block, 0, s>>>(a, d);
+  else
+    nuts_chunk_kernel<T, NE, Dens, KIND == kWarmup>
+        <<<grid, block, 0, s>>>(a, d);
+}
+
+template <typename T, int NE, int KIND>
+cudaError_t launch_t(const Args<T>& a, int dens, cudaStream_t s) {
   if (dens == 0) {
-    Banana<T, NE> b{a.dpar, a.dpar + (size_t)a.D * a.D, a.D, a.d0, a.d1};
-    nuts_chunk_kernel<T, NE, Banana<T, NE>, WARM><<<grid, block, 0, s>>>(a, b);
+    launch_kernel<T, NE, KIND>(
+        a, Banana<T, NE>{a.dpar, a.dpar + (size_t)a.D * a.D, a.D, a.d0, a.d1},
+        s);
   } else if (dens == 1) {
-    Gaussian<T, NE> g{a.dpar, a.dpar + a.D, a.D};
-    nuts_chunk_kernel<T, NE, Gaussian<T, NE>, WARM>
-        <<<grid, block, 0, s>>>(a, g);
+    launch_kernel<T, NE, KIND>(a, Gaussian<T, NE>{a.dpar, a.dpar + a.D, a.D},
+                               s);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+template <typename T, int NE>
+cudaError_t launch_ne(int kind, const Args<T>& a, int dens, cudaStream_t s) {
+  if (kind == kBlock) return launch_t<T, NE, kBlock>(a, dens, s);
+  if (kind == kWarmup) return launch_t<T, NE, kWarmup>(a, dens, s);
+  return launch_t<T, NE, kFrozen>(a, dens, s);
+}
+
 template <typename T>
-cudaError_t launch_dtype(bool warm, int dens, int C, int D, int K,
+cudaError_t launch_dtype(int kind, int dens, int C, int D, int K,
                          int maxdepth, uint32_t seed, uint32_t i0,
                          uint32_t cs, int as, int am, const double* f,
                          void* const* p, cudaStream_t s) {
-  const Args<T> a =
-      make_args<T>(C, D, K, maxdepth, seed, i0, cs, as, am, f, p, warm);
-  if (D <= 32)
-    return warm ? launch_t<T, 1, true>(a, dens, s)
-                : launch_t<T, 1, false>(a, dens, s);
-  return warm ? launch_t<T, 2, true>(a, dens, s)
-              : launch_t<T, 2, false>(a, dens, s);
+  const Args<T> a = make_args<T>(C, D, K, maxdepth, seed, i0, cs, as, am, f,
+                                 p, kind == kWarmup);
+  return D <= 32 ? launch_ne<T, 1>(kind, a, dens, s)
+                 : launch_ne<T, 2>(kind, a, dens, s);
+}
+
+// the checks both entry points share; cudaErrorInvalidValue for arguments
+// the kernels do not take
+cudaError_t launch(int kind, int f64, int dens, int C, int D, int K,
+                   int maxdepth, uint32_t seed, uint32_t i0, uint32_t cs,
+                   int as, int am, const double* f, void* const* p,
+                   int n_ptrs, void* stream) {
+  if (C < 1 || D < 1 || D > 64 || K < 1 || maxdepth < 1 || maxdepth > 24)
+    return cudaErrorInvalidValue;
+  if (n_ptrs != (kind == kWarmup ? kPtrsWarmup : kPtrsFrozen))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (f64)
+    return launch_dtype<double>(kind, dens, C, D, K, maxdepth, seed, i0, cs,
+                                as, am, f, p, s);
+  return launch_dtype<float>(kind, dens, C, D, K, maxdepth, seed, i0, cs, as,
+                             am, f, p, s);
 }
 
 }  // namespace
@@ -851,18 +962,20 @@ extern "C" int nuts_chunk_launch(int warmup, int f64, int dens, int C, int D,
                                  int adapt_step, int adapt_metric,
                                  const double* fargs, void* const* ptrs,
                                  int n_ptrs, void* stream) {
-  if (C < 1 || D < 1 || D > 64 || K < 1 || maxdepth < 1 || maxdepth > 24)
-    return (int)cudaErrorInvalidValue;
-  if (n_ptrs != (warmup ? kPtrsWarmup : kPtrsFrozen))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (f64)
-    return (int)launch_dtype<double>(warmup != 0, dens, C, D, K, maxdepth,
-                                     seed, i0, chain_start, adapt_step,
-                                     adapt_metric, fargs, ptrs, s);
-  return (int)launch_dtype<float>(warmup != 0, dens, C, D, K, maxdepth, seed,
-                                  i0, chain_start, adapt_step, adapt_metric,
-                                  fargs, ptrs, s);
+  return (int)launch(warmup ? kWarmup : kFrozen, f64, dens, C, D, K, maxdepth,
+                     seed, i0, chain_start, adapt_step, adapt_metric, fargs,
+                     ptrs, n_ptrs, stream);
+}
+
+// One NUTS transition for C chains under the bare seed (the frozen pointer
+// table, K = 1 rows). Returns a cudaError_t, as nuts_chunk_launch.
+extern "C" int nuts_block_launch(int f64, int dens, int C, int D,
+                                 int maxdepth, unsigned seed,
+                                 unsigned chain_start, const double* fargs,
+                                 void* const* ptrs, int n_ptrs,
+                                 void* stream) {
+  return (int)launch(kBlock, f64, dens, C, D, 1, maxdepth, seed, 0u,
+                     chain_start, 0, 0, fargs, ptrs, n_ptrs, stream);
 }
 
 extern "C" const char* nuts_error_string(int err) {

@@ -13,10 +13,11 @@ from .config import get_device, get_dtype
 from .core.density import DensityLite
 from .ops.densities import RotatedBanana
 from .samplers.chain import ChainCarry
-from .samplers.metrics import DiagMetricState, _Welford
+from .samplers.metrics import DiagMetricState, FullMetricState, _Welford
 from .samplers.step_size import StepSizeState
 
-__all__ = ['banana_density', 'carry_from_numpy', 'sit_from_numpy']
+__all__ = ['banana_density', 'carry_from_numpy', 'metric_from_numpy',
+           'sit_from_numpy']
 
 
 def banana_density(A, Q=0.01, bounds=None, const=0.0, hard_bounds=True,
@@ -32,32 +33,43 @@ def banana_density(A, Q=0.01, bounds=None, const=0.0, hard_bounds=True,
         hard_bounds=hard_bounds)
 
 
+def _tensor(a, dtype, device):
+    return torch.as_tensor(np.asarray(a), dtype=dtype or get_dtype(),
+                           device=device or get_device())
+
+
+def metric_from_numpy(metric, dtype=None, device=None):
+    """A ``DiagMetricState`` or, for an object with a ``cov`` field, a
+    ``FullMetricState`` from numpy leaves (per-chain or pooled); the window
+    counters may be per-chain arrays, all equal, and become host ints."""
+    def t(a):
+        return _tensor(a, dtype, device)
+
+    def i(a):
+        return int(np.asarray(a).ravel()[0])
+
+    fg = _Welford(t(metric.fg.mean), t(metric.fg.raw), t(metric.fg.weight))
+    bg = _Welford(t(metric.bg.mean), t(metric.bg.raw), t(metric.bg.weight))
+    ints = (i(metric.n_samples), i(metric.prev_update),
+            i(metric.adapt_window))
+    if hasattr(metric, 'cov'):
+        return FullMetricState(t(metric.cov), t(metric.chol), fg, bg, *ints)
+    return DiagMetricState(t(metric.var), fg, bg, *ints)
+
+
 def carry_from_numpy(seed, q, step, metric, dtype=None, device=None):
     """A ``ChainCarry`` from numpy leaves.
 
     ``seed`` is the int32 kernel seed (the JAX package derives it from the
     carry's first key, ``nuts_pallas.py:1152-1153``); ``q`` is (C, D);
-    ``step`` has the ``StepSizeState`` fields and ``metric`` the
-    ``DiagMetricState`` fields as attributes (per-chain leaves, numpy); the
-    window counters may be per-chain arrays, all equal.
+    ``step`` has the ``StepSizeState`` fields as attributes (the JAX state
+    under ``np.asarray``) and ``metric`` is as ``metric_from_numpy`` takes
+    it.
     """
-    dtype = dtype or get_dtype()
-    device = device or get_device()
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    def i(a):
-        return int(np.asarray(a).ravel()[0])
-
-    st = StepSizeState(*[t(getattr(step, f)) for f in StepSizeState._fields])
-    ms = DiagMetricState(
-        var=t(metric.var),
-        fg=_Welford(t(metric.fg.mean), t(metric.fg.raw), t(metric.fg.weight)),
-        bg=_Welford(t(metric.bg.mean), t(metric.bg.raw), t(metric.bg.weight)),
-        n_samples=i(metric.n_samples), prev_update=i(metric.prev_update),
-        adapt_window=i(metric.adapt_window))
-    return ChainCarry(int(seed), t(q), st, ms)
+    st = StepSizeState(*[_tensor(getattr(step, f), dtype, device)
+                         for f in StepSizeState._fields])
+    return ChainCarry(int(seed), _tensor(q, dtype, device), st,
+                      metric_from_numpy(metric, dtype, device))
 
 
 def sit_from_numpy(A, B, m, logdetA, splines, data=None, flow_dtype=None,

@@ -1,22 +1,38 @@
-"""Chunked multi-chain NUTS driver.
+"""Multi-chain NUTS: ``ChainDriver``'s chunk paths and per-transition path.
 
-Counterpart of ``bayesfast_tpu/samplers/chain.py``: ``ChainDriver``'s chunk
-paths (``run_warmup_chunk``, ``run_frozen_chunk``, ``_CHUNK_CAP``, and the
-host threading of the Welford window ints, ``chain.py:443-518``). All chains
-advance together; every chunk of up to ``_CHUNK_CAP`` transitions is one
-kernel launch (``nuts_cuda.py``). The carry holds one int32 kernel seed in
-place of the JAX per-chain keys: the kernels' randomness is keyed by
-(seed, global iteration, global chain), so the seed never advances.
+Counterpart of ``bayesfast_tpu/samplers/chain.py``. All chains advance
+together. Two kinds of path:
+
+* the chunk paths (``run_warmup_chunk``, ``run_frozen_chunk``,
+  ``_CHUNK_CAP``, and the host threading of the Welford window ints,
+  ``chain.py:443-518``): every chunk of up to ``_CHUNK_CAP`` transitions is
+  one kernel launch (``nuts_cuda.py``), its adaptation inside the kernel;
+* the per-transition path (``run``, ``_batched_step``, ``chain.py:109-216``
+  and ``:520-530``): a Python loop over transitions, each one launch of the
+  block kernel (or, for a full metric or a density without
+  ``kernel_spec()``, one pass of the torch tree loop, ``nuts.py``), then the
+  dual-averaging update and the pooled or per-chain Welford update as
+  batched torch ops. The window decisions are host ints, so the loop reads
+  nothing back from the device.
+
+The carry holds one int32 seed in place of the JAX per-chain keys: the
+kernels' randomness is keyed by (seed, global iteration, global chain), and
+the tree loop's generator by (seed, global iteration), so the seed never
+advances and chunk boundaries never change the stream.
 """
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from . import nuts_cuda
-from .metrics import DiagMetricState, _Welford
+from . import nuts as _nuts
+from .metrics import (DiagMetricState, _Welford, update_metric,
+                      update_metric_pooled)
 from .nuts import NutsStats
-from .step_size import StepSizeState
+from .step_size import StepSizeState, current_step_size, update_step_size
+from ..utils.random import generator_from_seed
 
 __all__ = ['ChainCarry', 'ChainDriver']
 
@@ -25,15 +41,17 @@ class ChainCarry(NamedTuple):
     seed: int     # int32 kernel seed
     q: Any        # (n_chain, dim)
     step: Any     # StepSizeState, leaves (n_chain,)
-    metric: Any   # DiagMetricState, leaves (n_chain, dim) / (n_chain,)
+    metric: Any   # Diag/FullMetricState, per-chain or pooled (shared)
 
 
 class ChainDriver:
-    """Runs the chunked NUTS kernels for one configuration.
+    """Runs the NUTS transitions and their adaptation for one
+    configuration.
 
     ``nuts_kernel`` is 'auto' (the CUDA kernels on CUDA tensors, their plain
     torch versions on CPU tensors), 'cuda' (CPU tensors raise) or 'torch'
-    (the plain versions on any device).
+    (the plain versions on any device). ``pooled_metric`` adapts one metric
+    from all chains' samples in ``run``.
     """
 
     # transitions per kernel launch, as in the JAX package
@@ -42,7 +60,7 @@ class ChainDriver:
     def __init__(self, density, max_treedepth=10, max_change=1000.,
                  target_accept=0.8, gamma=0.05, k=0.75, t_0=10.,
                  adapt_step_size=True, update_window=1, doubling=True,
-                 adapt_metric=True, nuts_kernel='auto'):
+                 adapt_metric=True, pooled_metric=False, nuts_kernel='auto'):
         if nuts_kernel not in ('auto', 'cuda', 'torch'):
             raise ValueError("nuts_kernel should be 'auto', 'cuda' or "
                              "'torch'.")
@@ -58,23 +76,75 @@ class ChainDriver:
         self._update_window = int(update_window)
         self._doubling = bool(doubling)
         self._adapt_metric = bool(adapt_metric)
+        self._pooled_metric = bool(pooled_metric)
         self._lpg = nuts_cuda.plain_lpg(density)
+
+    def uses_kernels(self, metric):
+        """Whether transitions under ``metric`` run on the NUTS kernels (or
+        their plain versions) rather than the tree loop: a diag metric, and
+        a density with ``kernel_spec()`` or ``nuts_kernel='cuda'`` (which
+        raises for a density without one)."""
+        return isinstance(metric, DiagMetricState) and (
+            self._density.has_kernel_spec or self._nuts_kernel == 'cuda')
+
+    def _batched_step(self, carry, warmup, i0, i):
+        """One transition of every chain at global iteration ``i0 + i``;
+        returns ``(q_new, NutsStats)``."""
+        eps = current_step_size(carry.step, warmup)
+        if not self.uses_kernels(carry.metric):
+            gen = generator_from_seed(
+                np.random.SeedSequence([int(carry.seed), i0 + i]),
+                carry.q.device)
+            return _nuts.nuts_transition_batched(
+                gen, carry.q, carry.metric, eps, self._lpg,
+                self._max_treedepth, self._max_change)
+        return nuts_cuda.nuts_transition_batched(
+            nuts_cuda._transition_seed(carry.seed, i0, i), carry.q,
+            carry.metric, eps, self._max_treedepth, self._max_change,
+            density=self._density, lpg=self._lpg, kernel=self._nuts_kernel)
+
+    def run(self, carry, warmup_flags, params=(), i0=0):
+        """``len(warmup_flags)`` transitions, one at a time: transition
+        ``i`` (global iteration ``i0 + i``) then the step-size update on its
+        mean tree acceptance and the metric update (pooled or per chain) on
+        its positions, each masked by its host flag. Returns ``(carry, (q
+        (K, C, D), (NutsStats, extras)))`` with (K, C) stat leaves; the
+        extras' step sizes are recorded after the update. ``params`` is
+        accepted for the JAX signature and unused."""
+        qs, stats, extras = [], [], []
+        for i, w in enumerate(warmup_flags):
+            w = bool(w)
+            q, st = self._batched_step(carry, w, i0, i)
+            step = update_step_size(
+                carry.step, st.mean_tree_accept, w, self._target_accept,
+                self._gamma, self._k, self._t_0, self._adapt_step_size)
+            metric = carry.metric
+            if self._adapt_metric:
+                upd = (update_metric_pooled if self._pooled_metric
+                       else update_metric)
+                metric = upd(metric, q, w, self._update_window,
+                             self._doubling)
+            carry = ChainCarry(carry.seed, q, step, metric)
+            qs.append(q)
+            stats.append(st)
+            extras.append((torch.exp(step.log_step),
+                           torch.exp(step.log_bar)))
+        ss, ssb = (torch.stack(x) for x in zip(*extras))
+        flags = torch.as_tensor(np.asarray(warmup_flags, bool),
+                                device=ss.device)
+        return carry, (torch.stack(qs), (
+            NutsStats(*[torch.stack(x) for x in zip(*stats)]),
+            {'step_size': ss, 'step_size_bar': ssb,
+             'warmup': flags[:, None].expand(ss.shape)}))
 
     def _warmup_chunk(self, carry, n_steps, i0, wsched, ints_new):
         adapt = (self._max_treedepth, self._max_change, self._target_accept,
                  self._gamma, self._k, self._t_0, self._adapt_step_size,
                  self._adapt_metric, wsched)
-        if self._nuts_kernel == 'torch':
-            steps, mets = nuts_cuda._warmup_leaves(carry.q, carry.step,
-                                                   carry.metric)
-            o = nuts_cuda.nuts_warmup_chunk_plain(
-                carry.seed, carry.q, steps, mets, n_steps, *adapt,
-                self._lpg, i0)
-        else:
-            o = nuts_cuda.nuts_warmup_chunk_batched(
-                carry.seed, carry.q, carry.step, carry.metric, n_steps,
-                *adapt, density=self._density, lpg=self._lpg, i0=i0,
-                kernel=self._nuts_kernel)
+        o = nuts_cuda.nuts_warmup_chunk_batched(
+            carry.seed, carry.q, carry.step, carry.metric, n_steps, *adapt,
+            density=self._density, lpg=self._lpg, i0=i0,
+            kernel=self._nuts_kernel)
         extras = {'step_size': o['step_size'],
                   'step_size_bar': o['step_size_bar'],
                   'warmup': torch.ones_like(o['logp'], dtype=torch.bool)}
@@ -96,21 +166,10 @@ class ChainDriver:
     def _frozen_chunk(self, carry, n_steps, i0):
         # frozen post-warmup step size: the dual-averaged one
         eps = torch.exp(carry.step.log_bar)
-        if self._nuts_kernel == 'torch':
-            C, D = carry.q.shape
-            o = nuts_cuda.nuts_chunk_plain(
-                carry.seed, carry.q,
-                nuts_cuda._mat(carry.metric.var, C, D, carry.q),
-                nuts_cuda._row(eps, C, carry.q), n_steps,
-                self._max_treedepth, self._max_change, self._lpg, i0)
-            q_chunk, q_last = o['q'], o['q_final']
-            stats = nuts_cuda._chunk_stats(o, carry.q.dtype)
-        else:
-            q_chunk, q_last, stats = nuts_cuda.nuts_chunk_batched(
-                carry.seed, carry.q, carry.metric, eps, n_steps,
-                self._max_treedepth, self._max_change,
-                density=self._density, lpg=self._lpg, i0=i0,
-                kernel=self._nuts_kernel)
+        q_chunk, q_last, stats = nuts_cuda.nuts_chunk_batched(
+            carry.seed, carry.q, carry.metric, eps, n_steps,
+            self._max_treedepth, self._max_change, density=self._density,
+            lpg=self._lpg, i0=i0, kernel=self._nuts_kernel)
         # the only live adaptation state post-warmup is the acceptance
         # diagnostic accumulator
         step = carry.step._replace(

@@ -1,22 +1,27 @@
-"""Chunked NUTS transitions: hand-written CUDA kernels and their plain
-torch versions.
+"""NUTS transitions: hand-written CUDA kernels and their plain torch
+versions.
 
-Counterpart of ``bayesfast_tpu/samplers/nuts_pallas.py``. Two entry points
-run ``n_steps`` (K) whole NUTS transitions for every chain in one launch:
+Counterpart of ``bayesfast_tpu/samplers/nuts_pallas.py``. Three entry
+points, each one kernel launch for every chain:
 
-* ``nuts_chunk_batched``: frozen step size and metric (post-warmup);
-  replaces ``_nuts_multi_kernel`` (``nuts_pallas.py:462``);
-* ``nuts_warmup_chunk_batched``: the same plus per-transition dual
+* ``nuts_transition_batched``: one transition under the bare seed, the
+  per-transition path (``ChainDriver.run``); replaces
+  ``_nuts_block_kernel`` (``nuts_pallas.py:431``);
+* ``nuts_chunk_batched``: ``n_steps`` (K) transitions with frozen step size
+  and metric (post-warmup); replaces ``_nuts_multi_kernel``
+  (``nuts_pallas.py:462``);
+* ``nuts_warmup_chunk_batched``: K transitions plus per-transition dual
   averaging and windowed diag-Welford adaptation; replaces
   ``_nuts_warmup_kernel`` (``nuts_pallas.py:746``).
 
 A wrapper given CUDA tensors launches its kernel (``csrc/nuts.cu``, built at
 first use by ``_build.py``) and counts the launch in its ``launches``
 attribute; given CPU tensors it runs the plain torch version beside it
-(``nuts_chunk_plain``, ``nuts_warmup_chunk_plain``), unless asked for
-``kernel='cuda'``, which then raises. There is no fallback: a density without
-``kernel_spec()`` on a CUDA tensor raises ``NotImplementedError``, and a
-failed build or launch raises.
+(``nuts_block_plain``, ``nuts_chunk_plain``, ``nuts_warmup_chunk_plain``),
+unless asked for ``kernel='cuda'``, which then raises. ``kernel='torch'``
+asks for the plain version on any device. There is no fallback:
+a density without ``kernel_spec()`` on a CUDA tensor raises
+``NotImplementedError``, and a failed build or launch raises.
 
 Randomness is the JAX package's counter RNG, reproduced bit for bit:
 ``_fmix32``/``_uniforms`` (murmur3 finalizer over golden-ratio-spread
@@ -44,8 +49,9 @@ from ..ops.densities import spec_logp_and_grad, warp_sum
 from .metrics import DiagMetricState
 from .nuts import NutsStats, _kahan_add
 
-__all__ = ['nuts_chunk_batched', 'nuts_warmup_chunk_batched',
-           'nuts_chunk_plain', 'nuts_warmup_chunk_plain', 'plain_lpg']
+__all__ = ['nuts_transition_batched', 'nuts_chunk_batched',
+           'nuts_warmup_chunk_batched', 'nuts_block_plain', 'nuts_chunk_plain',
+           'nuts_warmup_chunk_plain', 'plain_lpg']
 
 _M32 = 0xFFFFFFFF
 # float32(2 pi), the Box-Muller angle constant as the float32 kernels use it
@@ -353,26 +359,34 @@ def _lanes(C, chain_start, device):
             + int(chain_start)) & _M32
 
 
-def nuts_chunk_plain(seed, q0, var, step, n_steps, max_treedepth,
-                     max_change, lpg, i0=0, chain_start=0):
-    """Plain torch version of the frozen chunk kernel: ``n_steps``
-    transitions with momenta drawn per transition under
-    ``seed ^ fmix32(i0 + t + 0x9E3779B9)``. ``var`` (C, D), ``step`` (C,).
-    Returns a dict of rows (K, C, D) / (K, C) plus ``q_final`` (C, D)."""
+def nuts_block_plain(seed, q0, var, step, max_treedepth, max_change, lpg,
+                     chain_start=0):
+    """Plain torch version of the block kernel: one transition with momenta
+    ``gauss(seed, it=-9, salt=16)`` and every tree draw under the bare
+    ``seed`` (``nuts_pallas.py:438-446``). ``var`` (C, D), ``step`` (C,).
+    Returns a dict of (C, D) / (C,) rows."""
     C, D = q0.shape
     lane = _lanes(C, chain_start, q0.device)
-    sqrt_var = torch.sqrt(var)
+    p0 = _gauss_from_uniforms(seed, -9, 16, D, lane).to(q0.dtype) \
+        / torch.sqrt(var)
+    return dict(zip(_ROW_NAMES, _transition_core_plain(
+        seed, q0, p0, step, var, lpg, lane, max_treedepth, max_change)))
+
+
+def nuts_chunk_plain(seed, q0, var, step, n_steps, max_treedepth,
+                     max_change, lpg, i0=0, chain_start=0):
+    """Plain torch version of the frozen chunk kernel: ``n_steps`` block
+    transitions, transition ``t`` under ``seed ^ fmix32(i0 + t +
+    0x9E3779B9)``. ``var`` (C, D), ``step`` (C,). Returns a dict of rows
+    (K, C, D) / (K, C) plus ``q_final`` (C, D)."""
     rows = {k: [] for k in _ROW_NAMES}
     q = q0
     for t in range(int(n_steps)):
-        seed_t = _transition_seed(seed, i0, t)
-        p0 = _gauss_from_uniforms(seed_t, -9, 16, D, lane).to(q0.dtype) \
-            / sqrt_var
-        out = _transition_core_plain(seed_t, q, p0, step, var, lpg, lane,
-                                     max_treedepth, max_change)
-        for k, v in zip(_ROW_NAMES, out):
-            rows[k].append(v)
-        q = out[0]
+        out = nuts_block_plain(_transition_seed(seed, i0, t), q, var, step,
+                               max_treedepth, max_change, lpg, chain_start)
+        for k in _ROW_NAMES:
+            rows[k].append(out[k])
+        q = out['q']
     res = {k: torch.stack(v) for k, v in rows.items()}
     res['q_final'] = q
     return res
@@ -396,9 +410,7 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
     ``metric_leaves`` = (var, fg_mean, fg_raw, fg_w, bg_mean, bg_raw,
     bg_w), (C, D) or (C,). Returns the rows (plus ``step_size`` and
     ``step_size_bar``), ``q_final`` and the final adaptation state."""
-    C, D = q0.shape
     dtype = q0.dtype
-    lane = _lanes(C, chain_start, q0.device)
     log_step, log_bar, hbar, count, mu = step_leaves
     var, fgm, fgr, fgw, bgm, bgr, bgw = metric_leaves
     wsched = np.asarray(wsched)
@@ -408,13 +420,10 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
     rows = {k: [] for k in _ROW_NAMES + ('step_size', 'step_size_bar')}
     q = q0
     for t in range(int(n_steps)):
-        seed_t = _transition_seed(seed, i0, t)
-        eps = torch.exp(log_step)
-        p0 = _gauss_from_uniforms(seed_t, -9, 16, D, lane).to(dtype) \
-            / torch.sqrt(var)
-        out = _transition_core_plain(seed_t, q, p0, eps, var, lpg, lane,
-                                     max_treedepth, max_change)
-        q_prop, size, asum = out[0], out[5], out[6]
+        out = nuts_block_plain(_transition_seed(seed, i0, t), q, var,
+                               torch.exp(log_step), max_treedepth,
+                               max_change, lpg, chain_start)
+        q_prop, size, asum = out['q'], out['tree_size'], out['accept_sum']
         accept = asum / torch.clamp(size.to(dtype), min=1.0)
         if adapt_step:
             w = 1.0 / (count + t_0)
@@ -440,8 +449,8 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
                 fgm, fgr, fgw = bgm, bgr, bgw
                 bgm, bgr = torch.zeros_like(bgm), torch.zeros_like(bgr)
                 bgw = torch.zeros_like(bgw)
-        for k, v in zip(_ROW_NAMES, out):
-            rows[k].append(v)
+        for k in _ROW_NAMES:
+            rows[k].append(out[k])
         # recorded AFTER the update, as in the JAX scan path
         rows['step_size'].append(torch.exp(log_step))
         rows['step_size_bar'].append(torch.exp(log_bar))
@@ -497,12 +506,14 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f'{name} must be contiguous.')
 
 
-def _launch(warmup, seed, i0, chain_start, q0, n_steps, max_treedepth,
+def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
             max_change, density, inputs, adapt=None, wsched=None):
-    """Allocate outputs and scratch, launch ``nuts_chunk_launch`` and raise
-    on a non-zero return. ``inputs`` is the ordered list of input tensors
-    after ``q0`` (the pointer table of ``csrc/nuts.cu``); ``adapt`` is
-    (target, gamma, k, t_0, adapt_step, adapt_metric) for a warmup chunk."""
+    """Allocate outputs and scratch, launch ``nuts_chunk_launch`` (``kind``
+    'frozen' or 'warmup') or ``nuts_block_launch`` ('block': one transition,
+    K = 1 rows, no ``q_final``) and raise on a non-zero return. ``inputs``
+    is the ordered list of input tensors after ``q0`` (the pointer table of
+    ``csrc/nuts.cu``); ``adapt`` is (target, gamma, k, t_0, adapt_step,
+    adapt_metric) for a warmup chunk."""
     from .._build import load_library
     C, D = q0.shape
     K = int(n_steps)
@@ -524,13 +535,13 @@ def _launch(warmup, seed, i0, chain_start, q0, n_steps, max_treedepth,
                 energy_change=emp(K, C), tree_depth=emp(K, C, dtype=i32),
                 tree_size=emp(K, C, dtype=i32), accept_sum=emp(K, C),
                 max_de=emp(K, C), diverging=emp(K, C, dtype=i32),
-                q_final=emp(C, D))
+                q_final=None if kind == 'block' else emp(C, D))
     stack = emp(C, n_lvl + 1, 4 * D + 3)
     ptrs = [q0, *inputs[:2], sched, tf_mat, dpar,
             *(rows[k] for k in ('q', 'logp', 'energy', 'energy_change',
                                 'tree_depth', 'tree_size', 'accept_sum',
                                 'max_de', 'diverging', 'q_final')), stack]
-    if warmup:
+    if kind == 'warmup':
         fin = dict(step_size=emp(K, C), step_size_bar=emp(K, C),
                    log_step=emp(C), log_bar=emp(C), hbar=emp(C),
                    count=emp(C), var=emp(C, D), fg_mean=emp(C, D),
@@ -555,14 +566,22 @@ def _launch(warmup, seed, i0, chain_start, q0, n_steps, max_treedepth,
     parr = (ctypes.c_void_p * len(ptrs))(
         *[0 if p is None else p.data_ptr() for p in ptrs])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.nuts_chunk_launch(
-        int(warmup), 1 if dt == torch.float64 else 0, dens_id, C, D, K,
-        int(max_treedepth), int(seed) & _M32, int(i0) & _M32,
-        int(chain_start) & _M32, int(bool(adapt_step)),
-        int(bool(adapt_metric)), fargs, parr, len(ptrs), stream)
+    f64 = 1 if dt == torch.float64 else 0
+    if kind == 'block':
+        fn = 'nuts_block_launch'
+        err = lib.nuts_block_launch(
+            f64, dens_id, C, D, int(max_treedepth), int(seed) & _M32,
+            int(chain_start) & _M32, fargs, parr, len(ptrs), stream)
+    else:
+        fn = 'nuts_chunk_launch'
+        err = lib.nuts_chunk_launch(
+            int(kind == 'warmup'), f64, dens_id, C, D, K, int(max_treedepth),
+            int(seed) & _M32, int(i0) & _M32, int(chain_start) & _M32,
+            int(bool(adapt_step)), int(bool(adapt_metric)), fargs, parr,
+            len(ptrs), stream)
     if err != 0:
         raise RuntimeError(
-            f'nuts_chunk_launch failed: CUDA error {err} '
+            f'{fn} failed: CUDA error {err} '
             f'({lib.nuts_error_string(err).decode()}).')
     return rows
 
@@ -590,7 +609,7 @@ def plain_lpg(density):
 
 
 def _chunk_stats(o, dtype):
-    """``NutsStats`` with (K, C) leaves from a chunk's output rows."""
+    """``NutsStats`` from a kernel's output rows, (K, C) or (C,)."""
     n_prop = torch.clamp(o['tree_size'], min=1).to(dtype)
     return NutsStats(
         logp=o['logp'], energy=o['energy'], tree_depth=o['tree_depth'],
@@ -613,6 +632,36 @@ def _warmup_leaves(q0, step_state, metric):
     return steps, mets
 
 
+def nuts_transition_batched(seed, q0, metric, step_size, max_treedepth,
+                            max_change, density=None, lpg=None,
+                            chain_start=0, kernel='auto'):
+    """One NUTS transition for every chain in one launch of the block
+    kernel: the JAX ``nuts_transition_batched_pallas`` contract with an
+    explicit int32 ``seed`` in place of the jax key. ``metric`` is a diag
+    state with per-chain (C, D) or shared (D,) ``var``; ``step_size`` (C,)
+    or a scalar. Returns ``(q_new (C, D), NutsStats with (C,) leaves)``."""
+    if not isinstance(metric, DiagMetricState):
+        raise ValueError('the NUTS block kernel supports the diagonal '
+                         'metric only.')
+    C, D = q0.shape
+    var = _mat(metric.var, C, D, q0)
+    step = _row(step_size, C, q0)
+    if q0.is_cuda and kernel != 'torch':
+        o = _launch('block', seed, 0, chain_start, q0.contiguous(), 1,
+                    max_treedepth, max_change, density, [var, step])
+        o = {k: o[k][0] for k in _ROW_NAMES}
+        nuts_transition_batched.launches += 1
+    elif kernel == 'cuda':
+        raise RuntimeError("nuts_kernel='cuda' needs CUDA tensors.")
+    else:
+        o = nuts_block_plain(seed, q0, var, step, max_treedepth, max_change,
+                             lpg or plain_lpg(density), chain_start)
+    return o['q'], _chunk_stats(o, q0.dtype)
+
+
+nuts_transition_batched.launches = 0
+
+
 def nuts_chunk_batched(seed, q0, metric, step_size, n_steps, max_treedepth,
                        max_change, density=None, lpg=None, i0=0,
                        chain_start=0, kernel='auto'):
@@ -630,8 +679,8 @@ def nuts_chunk_batched(seed, q0, metric, step_size, n_steps, max_treedepth,
     C, D = q0.shape
     var = _mat(metric.var, C, D, q0)
     step = _row(step_size, C, q0)
-    if q0.is_cuda:
-        o = _launch(False, seed, i0, chain_start, q0.contiguous(), n_steps,
+    if q0.is_cuda and kernel != 'torch':
+        o = _launch('frozen', seed, i0, chain_start, q0.contiguous(), n_steps,
                     max_treedepth, max_change, density, [var, step])
         nuts_chunk_batched.launches += 1
     elif kernel == 'cuda':
@@ -661,10 +710,10 @@ def nuts_warmup_chunk_batched(seed, q0, step_state, metric, n_steps,
                          'metric only.')
     steps, mets = _warmup_leaves(q0, step_state, metric)
     adapt = (target, gamma, k_exp, t_0, adapt_step, adapt_metric)
-    if q0.is_cuda:
+    if q0.is_cuda and kernel != 'torch':
         # input order of csrc/nuts.cu's pointer table: var, eps (unused),
         # then the step leaves and the remaining metric leaves
-        o = _launch(True, seed, i0, chain_start, q0.contiguous(), n_steps,
+        o = _launch('warmup', seed, i0, chain_start, q0.contiguous(), n_steps,
                     max_treedepth, max_change, density,
                     [mets[0], None, *steps, *mets[1:]], adapt, wsched)
         nuts_warmup_chunk_batched.launches += 1

@@ -175,8 +175,8 @@ class _HTrace(SampleTrace):
                  metric='diag', adapt_metric=True, max_change=1000.,
                  target_accept=0.8, gamma=0.05, k=0.75, t_0=10.,
                  initial_mean=None, initial_weight=10., adapt_window=60,
-                 update_window=1, doubling=True, x_0_descent='auto',
-                 step_probe=True):
+                 update_window=1, doubling=True, pooled_metric=False,
+                 x_0_descent='auto', step_probe=True):
         super().__init__(n_chain, n_iter, n_warmup, x_0, random_generator)
         # batched gradient-ascent start refinement (core.sample._descend_x0):
         # 'auto' = on for auto-drawn Sobol starts, off for user-supplied x_0;
@@ -185,6 +185,8 @@ class _HTrace(SampleTrace):
         # per-chain 'find reasonable epsilon' probe before dual averaging
         self.step_probe = bool(step_probe)
         self._descent_calls = 0
+        # one metric adapted from all chains' samples (ChainDriver.run)
+        self.pooled_metric = bool(pooled_metric)
         self.max_change = max_change
         self.step_size = step_size
         self.adapt_step_size = bool(adapt_step_size)
@@ -235,13 +237,15 @@ class _HTrace(SampleTrace):
 
     @metric.setter
     def metric(self, m):
+        """'diag', 'full', a (D,) diagonal or a (D, D) covariance."""
         if isinstance(m, str):
-            if m != 'diag':
-                raise ValueError("the port supports metric='diag' only.")
+            if m not in ('diag', 'full'):
+                raise ValueError('invalid value for metric.')
         else:
             m = np.asarray(m)
-            if m.ndim != 1:
-                raise ValueError('the port supports a diagonal metric only.')
+            n = m.shape[0]
+            if not (m.shape == (n,) or m.shape == (n, n)):
+                raise ValueError('invalid value for metric.')
         self._metric = m
 
     @property
@@ -324,12 +328,13 @@ class NTrace(_HTrace):
                  max_treedepth=10, target_accept=0.8, gamma=0.05, k=0.75,
                  t_0=10., initial_mean=None, initial_weight=10.,
                  adapt_window=60, update_window=1, doubling=True,
-                 x_0_descent='auto', step_probe=True):
+                 pooled_metric=False, x_0_descent='auto', step_probe=True):
         super().__init__(n_chain, n_iter, n_warmup, x_0, random_generator,
                          step_size, adapt_step_size, metric, adapt_metric,
                          max_change, target_accept, gamma, k, t_0,
                          initial_mean, initial_weight, adapt_window,
-                         update_window, doubling, x_0_descent, step_probe)
+                         update_window, doubling, pooled_metric,
+                         x_0_descent, step_probe)
         self.max_treedepth = int(max_treedepth)
 
     @property

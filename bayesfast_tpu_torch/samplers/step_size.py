@@ -1,9 +1,11 @@
 """Nesterov dual-averaging step-size state, in torch.
 
-Counterpart of ``bayesfast_tpu/samplers/step_size.py``. The per-transition
-update runs inside the warmup chunk (``nuts_cuda.py``); this module holds
-the state, its initialisation and the host-side post-warmup acceptance
-check.
+Counterpart of ``bayesfast_tpu/samplers/step_size.py``: the state, its
+initialisation, the per-transition update of the per-transition path
+(``ChainDriver.run``; the warmup chunk kernel runs the same update inside
+``nuts_cuda.py``) and the host-side post-warmup acceptance check. The state's
+leaves are per-chain tensors ``(C,)``; ``warmup`` is a host bool (the JAX
+package masks with a traced one), so the update reads nothing back.
 """
 
 from typing import Any, NamedTuple
@@ -14,7 +16,8 @@ from scipy import stats as _sp_stats
 
 from ..config import get_device
 
-__all__ = ['StepSizeState', 'init_step_size', 'check_acceptance']
+__all__ = ['StepSizeState', 'init_step_size', 'current_step_size',
+           'update_step_size', 'check_acceptance']
 
 
 class StepSizeState(NamedTuple):
@@ -38,6 +41,29 @@ def init_step_size(initial_step, dtype=torch.float64, device=None):
         log_step=log_step, log_bar=log_step.clone(), hbar=zero.clone(),
         count=torch.ones_like(step), mu=torch.log(10.0 * step),
         accept_sum=zero.clone(), accept_count=zero.clone())
+
+
+def current_step_size(state, warmup):
+    """The noisy step during warmup, the averaged one after it."""
+    return torch.exp(state.log_step if warmup else state.log_bar)
+
+
+def update_step_size(state, accept_stat, warmup, target=0.8, gamma=0.05,
+                     k=0.75, t_0=10., adapt=True):
+    """One dual-averaging update in warmup (``step_size.py:45-66``); after
+    warmup only the acceptance accumulators move."""
+    if not warmup:
+        return state._replace(accept_sum=state.accept_sum + accept_stat,
+                              accept_count=state.accept_count + 1)
+    if not adapt:
+        return state
+    w = 1.0 / (state.count + t_0)
+    hbar = (1.0 - w) * state.hbar + w * (target - accept_stat)
+    log_step = state.mu - hbar * torch.sqrt(state.count) / gamma
+    mk = state.count ** (-k)
+    log_bar = mk * log_step + (1.0 - mk) * state.log_bar
+    return state._replace(log_step=log_step, log_bar=log_bar, hbar=hbar,
+                          count=state.count + 1)
 
 
 def check_acceptance(state, target, chain_id=None):

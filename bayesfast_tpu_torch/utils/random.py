@@ -17,11 +17,12 @@ __all__ = ['get_generator', 'set_generator', 'spawn_generator',
 _gen = None
 
 
-def generator_from_seed(seed):
-    """A CPU ``torch.Generator`` seeded from an int or a ``SeedSequence``."""
+def generator_from_seed(seed, device='cpu'):
+    """A ``torch.Generator`` on ``device`` (default the CPU) seeded from an
+    int or a ``SeedSequence``."""
     ss = (seed if isinstance(seed, np.random.SeedSequence)
           else np.random.SeedSequence(int(seed)))
-    g = torch.Generator()
+    g = torch.Generator(device=device)
     g.manual_seed(int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1)))
     return g
 

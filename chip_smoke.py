@@ -2,14 +2,20 @@
 
 Builds the port's CUDA kernels from ``bayesfast_tpu_torch/csrc`` (one nvcc
 per source, in parallel), holds each against its plain torch version on the
-card, drives the port's two paths and checks what comes out:
+card, drives the port's paths and checks what comes out:
 
 * sampling: ``bayesfast_tpu_torch.sample`` on the bench's 32-d bounded
   rotated banana with 1024 chains, float32, through warmup and post-warmup
-  chunks on the two NUTS kernels;
+  chunks on the two NUTS chunk kernels ([3]);
 * evidence: ``bayesfast_tpu_torch.evidence.GBS`` on that run's post-warmup
   draws (the SIT flow fit runs its KDE sums on the KDE-cdf kernel), held
-  against the banana's exact logz.
+  against the banana's exact logz ([6]);
+* pooled-metric sampling: the same configuration with
+  ``pooled_metric=True``, every warmup transition one launch of the NUTS
+  block kernel with the shared Welford update between launches, then the
+  frozen chunks ([8]);
+* the full metric on the torch tree loop: a correlated 8-d Gaussian with a
+  pooled full metric, held against its known covariance ([9]).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Every phase that fails makes the script exit non-zero; without
@@ -39,6 +45,8 @@ _REPO = os.path.dirname(os.path.abspath(__file__))
 N_CHAIN, D, Q, N_WARMUP, N_POST = 1024, 32, 0.01, 400, 300
 K_CMP = 4          # transitions per chunk in the kernel-vs-plain checks
 MAX_TREEDEPTH, MAX_CHANGE = 10, 1000.
+# [9]: the tree loop on a correlated Gaussian
+TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 300, 300, 0.2
 # GBS as benchmarks/suite.py:197 runs it, and the banana's exact logz
 # (benchmarks/results.jsonl, "fiducial")
 F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
@@ -173,6 +181,87 @@ def _compare(name, ker, ref, rtol, min_agree):
     return max_err
 
 
+def _counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from bayesfast_tpu_torch.ops import kde as tk
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    return {'nuts_warmup': nc.nuts_warmup_chunk_batched,
+            'nuts_multi': nc.nuts_chunk_batched,
+            'nuts_block': nc.nuts_transition_batched,
+            'kde_cdf': tk.kde_cdf_batch}
+
+
+def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
+    """The bench configuration through ``sample``: a 2-iteration start-up
+    call, the rest of warmup, then post-warmup in three calls; every launch
+    count set to 0 just before and read just after. Checks the counts
+    against ``expect``, the samples and the banana's moments; returns
+    (trace tuple, launches)."""
+    from bayesfast_tpu_torch.utils.acor import effective_sample_size
+    bt.utils.set_generator(32)
+    trace = bt.NTrace(n_chain=N_CHAIN, n_iter=N_WARMUP + N_POST,
+                      n_warmup=N_WARMUP, **trace_kw)
+    for f in _counters().values():
+        f.launches = 0
+    t0 = time.time()
+    tt = bt.sample(den, trace, n_run=2, verbose=False, n_update=2)
+    t_start = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tt = bt.sample(den, tt, n_run=N_WARMUP - 2, verbose=False, n_update=100)
+    torch.cuda.synchronize()
+    dt_warm = time.time() - t0
+    dt_post = 0.0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tt = bt.sample(den, tt, n_run=N_POST // 3, verbose=False,
+                       n_update=N_POST // 3)
+        torch.cuda.synchronize()
+        dt_post += time.time() - t0
+    launches = {k: f.launches for k, f in _counters().items()}
+    print(f'{tag}: launches {launches} (expected {expect})')
+    if any(launches[k] != expect.get(k, 0) for k in launches):
+        raise AssertionError('the main path did not run every transition '
+                             'on the kernels')
+    s_t = tt.trace.samples
+    s = tt.get(flatten=False)
+    if not (np.isfinite(s_t).all() and np.isfinite(s).all()
+            and s.shape == (N_CHAIN, N_POST, D)):
+        raise AssertionError(f'non-finite or misshapen samples {s.shape}')
+    st = tt.trace._stats_arrays
+    div_post = float(np.mean(st['diverging'][:, N_WARMUP:]))
+    size_post = float(np.mean(st['tree_size'][:, N_WARMUP:]))
+    depth_post = float(np.mean(st['tree_depth'][:, N_WARMUP:]))
+    acc_post = float(np.mean(st['mean_tree_accept'][:, N_WARMUP:]))
+    n_grp = 8
+    gs = N_CHAIN // n_grp
+    ess = float(sum(np.sum(effective_sample_size(s[g * gs:(g + 1) * gs]))
+                    / D for g in range(n_grp)))
+    print(f'    start-up call (Sobol, descent, probe, 2 iterations) '
+          f'{t_start:.2f} s')
+    print(f'    warmup {N_CHAIN * (N_WARMUP - 2) / dt_warm:.1f} it/s, post '
+          f'{N_CHAIN * N_POST / dt_post:.1f} it/s, ESS/s {ess / dt_post:.1f}'
+          f' (ESS {ess:.1f})')
+    print(f'    post-warmup: mean tree size {size_post:.2f}, depth '
+          f'{depth_post:.3f}, accept {acc_post:.4f}, divergent '
+          f'{div_post:.4f}, leapfrogs/s '
+          f'{N_CHAIN * N_POST * size_post / dt_post:.4g}')
+    if not div_post < 0.05:
+        raise AssertionError(f'post-warmup divergence fraction {div_post}')
+    if not acc_post > 0.5:
+        raise AssertionError(f'post-warmup acceptance {acc_post}')
+    # the banana's own moments: z = A x has E[z_even] = 1 and
+    # E[z_odd] = E[z_even^2] = 1.5
+    z = s.reshape(-1, D) @ A.T
+    zm = (z[:, 0::2].mean(), z[:, 1::2].mean())
+    print(f'    posterior E[z_even] {zm[0]:.4f} (1), E[z_odd] {zm[1]:.4f} '
+          f'(1.5)')
+    if not (abs(zm[0] - 1.0) < 0.1 and abs(zm[1] - 1.5) < 0.2):
+        raise AssertionError(f'banana moments off: {zm}')
+    return tt, launches
+
+
 def _kernel_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     """Both kernels against their plain versions at C=1024, D=32, K=4 on
     the main path's final state (positions, adapted metric and step size)
@@ -287,15 +376,139 @@ def _time_chunks(torch, den, carry):
     return times
 
 
+def _block_inputs(torch, carry, dtype):
+    """The block kernel's inputs on a pooled carry, cast to ``dtype``: the
+    positions, the shared (D,) variance as a diag state and the per-chain
+    warmup step sizes."""
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    q = carry.q.to(dtype).contiguous()
+    var = carry.metric.var.to(dtype)
+    return (q, init_diag_metric(torch.zeros_like(var), var),
+            torch.exp(carry.step.log_step).to(dtype))
+
+
+def _block_vs_plain(torch, den, carry, dtype, rtol, min_agree):
+    """[8b] The block kernel against its plain version at C=1024, D=32 on
+    the pooled path's final state, and 4 block launches under
+    ``_transition_seed`` seeds against one K=4 chunk launch (bitwise).
+    Returns the max abs error."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    den = den if dtype == torch.float32 else _bench_density(dtype)[1]
+    q, metric, eps = _block_inputs(torch, carry, dtype)
+    var = nc._mat(metric.var, N_CHAIN, D, q)
+    seed, i0 = 20240601, 37
+    tag = str(dtype).replace('torch.', '')
+
+    def rows(q_new, stats):
+        d = dict(stats._asdict(), q=q_new)
+        d['diverging'] = d['diverging'].int()
+        return d
+
+    ker = rows(*nc.nuts_transition_batched(seed, q, metric, eps,
+                                           MAX_TREEDEPTH, MAX_CHANGE,
+                                           density=den))
+    torch.cuda.synchronize()
+    o = nc.nuts_block_plain(seed, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE,
+                            nc.plain_lpg(den))
+    ref = rows(o['q'], nc._chunk_stats(o, dtype))
+    print(f'  block {tag}: mean tree depth '
+          f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
+          f'{ref["diverging"].float().mean().item():.4f}')
+    err = _compare(f'nuts_block {tag}', ker, ref, rtol, min_agree)
+
+    # transition t of a chunk is a block launch under the folded seed
+    qc, qf, sc = nc.nuts_chunk_batched(seed, q, metric, eps, K_CMP,
+                                       MAX_TREEDEPTH, MAX_CHANGE,
+                                       density=den, i0=i0)
+    qb, same = q, True
+    for t in range(K_CMP):
+        qb, sb = nc.nuts_transition_batched(
+            nc._transition_seed(seed, i0, t), qb, metric, eps,
+            MAX_TREEDEPTH, MAX_CHANGE, density=den)
+        same &= torch.equal(qb, qc[t]) and all(
+            torch.equal(a, b[t]) for a, b in zip(sb, sc))
+    same &= torch.equal(qb, qf)
+    print(f'  {K_CMP} block launches vs one K={K_CMP} chunk {tag}: '
+          f'{"bitwise equal" if same else "FAIL"}')
+    if not same:
+        raise AssertionError('block launches differ from the chunk')
+    return err
+
+
+def _time_block(torch, den, carry):
+    """[8c] One block launch at the pooled path's shapes and final state
+    beside its plain version (CUDA events), and its bound from the
+    leapfrogs its trees took. Returns (ms, plain_ms, bound_ms,
+    bound_by)."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    q, metric, eps = _block_inputs(torch, carry, torch.float32)
+    var = nc._mat(metric.var, N_CHAIN, D, q)
+    ms, out = _time_ms(torch, lambda: nc.nuts_transition_batched(
+        5, q, metric, eps, MAX_TREEDEPTH, MAX_CHANGE, density=den), 10)
+    plain_ms, _ = _time_ms(torch, lambda: nc.nuts_block_plain(
+        5, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, nc.plain_lpg(den)), 1)
+    leapfrogs = int(out[1].tree_size.sum())
+    bound = _bound(leapfrogs * _leapfrog_ops(D),
+                   _nbytes(q, metric.var, eps, out))
+    print(f'[8c] one block transition at C={N_CHAIN}, D={D}, float32: '
+          f'kernel {ms:.3f} ms, plain torch {plain_ms:.3f} ms; {leapfrogs} '
+          f'leapfrogs, bound {bound[0]:.4f} ms ({bound[1]})')
+    return (ms, plain_ms) + bound
+
+
+def _tree_loop(torch, bt):
+    """[9] The full metric on the torch tree loop, on the card: a
+    correlated Gaussian (no kernel spec) with a pooled full metric, its
+    sample covariance held against the known one. Returns the launch
+    counts of the run (all 0: the tree loop is plain torch)."""
+    from bayesfast_tpu_torch.samplers.metrics import FullMetricState
+    rng = np.random.default_rng(9)
+    L = np.tril(rng.normal(size=(TREE_D, TREE_D)) * 0.4) + np.diag(
+        np.linspace(0.5, 1.5, TREE_D))
+    cov = L @ L.T
+    prec = torch.as_tensor(np.linalg.inv(cov), dtype=torch.float32,
+                           device=bt.config.get_device())
+    den = bt.DensityLite(
+        logp=lambda x: -0.5 * torch.sum((x @ prec) * x, -1),
+        input_size=TREE_D)
+    for f in _counters().values():
+        f.launches = 0
+    t0 = time.time()
+    tt = bt.sample(den, bt.NTrace(n_chain=TREE_CHAINS,
+                                  n_iter=TREE_WARMUP + TREE_POST,
+                                  n_warmup=TREE_WARMUP, metric='full',
+                                  pooled_metric=True, random_generator=9),
+                   verbose=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: f.launches for k, f in _counters().items()}
+    s = tt.get()
+    err = float(np.abs(np.cov(s, rowvar=False) - cov).max())
+    ms = tt.trace._carry.metric
+    st = tt.trace._stats_arrays
+    print(f'[9] tree loop, full pooled metric, Gaussian D={TREE_D}, '
+          f'{TREE_CHAINS} chains, {TREE_WARMUP} + {TREE_POST} iterations, '
+          f'float32: wall {wall:.2f} s, post-warmup mean tree size '
+          f'{st["tree_size"][:, TREE_WARMUP:].mean():.2f}; max |sample cov '
+          f'- cov| {err:.4f} (gate {TREE_COV_TOL}); launches {launches}')
+    if not (isinstance(ms, FullMetricState) and ms.cov.is_cuda
+            and tuple(ms.cov.shape) == (TREE_D, TREE_D)):
+        raise AssertionError('the run did not keep a pooled full metric on '
+                             'the card')
+    if not (np.isfinite(s).all() and err < TREE_COV_TOL):
+        raise AssertionError(f'tree-loop covariance off by {err}')
+    if any(launches.values()):
+        raise AssertionError('the tree loop launched a kernel')
+    return launches
+
+
 def _gbs_on_trace(bt, tt, den):
     """[6] GBS on the main path's post-warmup draws, its launch count read
     just after it; returns the kde_cdf launches."""
     from bayesfast_tpu_torch.ops import kde as tk
-    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     n_half = N_CHAIN // 2
-    nc.nuts_chunk_batched.launches = 0
-    nc.nuts_warmup_chunk_batched.launches = 0
-    tk.kde_cdf_batch.launches = 0
+    for f in _counters().values():
+        f.launches = 0
     t0 = time.time()
     gbs = bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)
     logz, err = gbs(tt, den.logp)
@@ -317,32 +530,51 @@ def _gbs_on_trace(bt, tt, den):
     return launches
 
 
-def _gbs_device_share(torch, bt, tt, den):
-    """[6b] A repeat of the GBS run under torch.profiler: the device's
-    kernel time (its busy time, one stream) over the run's host wall, and
-    the kernels that take the most of it."""
+def _device_share(torch, tag, fn):
+    """``fn()`` under torch.profiler: the device's kernel time (its busy
+    time, one stream) over the run's host wall, and the kernels that take
+    the most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)(tt, den.logp)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     if busy == 0:
-        print('[6b] profiled GBS: the profiler recorded no device time; '
-              'device busy share not measured')
+        print(f'{tag}: the profiler recorded no device time; device busy '
+              'share not measured')
         return
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    print(f'[6b] profiled GBS: wall {wall:.3f} s, device busy {busy:.3f} s '
+    print(f'{tag}: wall {wall:.3f} s, device busy {busy:.3f} s '
           f'({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} '
           '%; top device kernels:')
     for e in top:
         print(f'    {e.self_device_time_total / 1e3:9.2f} ms  '
               f'{e.count:6d} x  {e.key[:90]}')
+
+
+def _pooled_step_share(torch, den, carry, n):
+    """[8d] ``n`` pooled warmup transitions of ``ChainDriver.run`` from the
+    pooled path's final state: host ms per transition without the
+    profiler, then the device busy share under it."""
+    from bayesfast_tpu_torch.config import get_nuts_kernel
+    from bayesfast_tpu_torch.samplers.chain import ChainDriver
+    drv = ChainDriver(den, max_treedepth=MAX_TREEDEPTH, pooled_metric=True,
+                      nuts_kernel=get_nuts_kernel())
+    drv.run(carry, [True] * 2)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    drv.run(carry, [True] * n)
+    torch.cuda.synchronize()
+    print(f'[8d] {n} pooled warmup transitions (ChainDriver.run, no '
+          f'back-transform): {1e3 * (time.time() - t0) / n:.3f} ms each')
+    _device_share(torch, f'[8d] profiled {n} transitions',
+                  lambda: drv.run(carry, [True] * n))
 
 
 def _kde_vs_plain(torch, tt):
@@ -413,9 +645,6 @@ def main():
     sys.path.insert(0, _REPO)
     import bayesfast_tpu_torch as bt
     from bayesfast_tpu_torch import _build, config
-    from bayesfast_tpu_torch.ops import kde as tk
-    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
-    from bayesfast_tpu_torch.utils.acor import effective_sample_size
 
     # sample() warns once per chain whose post-warmup acceptance is off
     # target (1024 lines a call); the divergence and depth warnings stay
@@ -437,72 +666,9 @@ def main():
     config.set_dtype(torch.float32)
     config.set_nuts_kernel('cuda')
     A, den = _bench_density(torch.float32)
-    bt.utils.set_generator(32)
-    trace = bt.NTrace(n_chain=N_CHAIN, n_iter=N_WARMUP + N_POST,
-                      n_warmup=N_WARMUP)
-    nc.nuts_chunk_batched.launches = 0
-    nc.nuts_warmup_chunk_batched.launches = 0
-    tk.kde_cdf_batch.launches = 0
-    t0 = time.time()
-    tt = bt.sample(den, trace, n_run=2, verbose=False, n_update=2)
-    t_start = time.time() - t0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    tt = bt.sample(den, tt, n_run=N_WARMUP - 2, verbose=False, n_update=100)
-    torch.cuda.synchronize()
-    dt_warm = time.time() - t0
-    dt_post = 0.0
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        tt = bt.sample(den, tt, n_run=N_POST // 3, verbose=False,
-                       n_update=N_POST // 3)
-        torch.cuda.synchronize()
-        dt_post += time.time() - t0
-    launches = {'nuts_warmup': nc.nuts_warmup_chunk_batched.launches,
-                'nuts_multi': nc.nuts_chunk_batched.launches}
-    if tk.kde_cdf_batch.launches:
-        raise AssertionError('the sampling path launched the KDE kernel')
-    expect = {'nuts_warmup': 1 + 4 * 2, 'nuts_multi': 3 * 2}
-    print(f'[3] main path: launches {launches} (driver chunks {expect})')
-    if launches != expect:
-        raise AssertionError('the main path did not run every chunk on the '
-                             'kernels')
-    s_t = tt.trace.samples
-    s = tt.get(flatten=False)
-    if not (np.isfinite(s_t).all() and np.isfinite(s).all()
-            and s.shape == (N_CHAIN, N_POST, D)):
-        raise AssertionError(f'non-finite or misshapen samples {s.shape}')
-    st = tt.trace._stats_arrays
-    div_post = float(np.mean(st['diverging'][:, N_WARMUP:]))
-    size_post = float(np.mean(st['tree_size'][:, N_WARMUP:]))
-    depth_post = float(np.mean(st['tree_depth'][:, N_WARMUP:]))
-    acc_post = float(np.mean(st['mean_tree_accept'][:, N_WARMUP:]))
-    n_grp = 8
-    gs = N_CHAIN // n_grp
-    ess = float(sum(np.sum(effective_sample_size(s[g * gs:(g + 1) * gs]))
-                    / D for g in range(n_grp)))
-    print(f'    start-up call (Sobol, descent, probe, 2 iterations) '
-          f'{t_start:.2f} s')
-    print(f'    warmup {N_CHAIN * (N_WARMUP - 2) / dt_warm:.1f} it/s, post '
-          f'{N_CHAIN * N_POST / dt_post:.1f} it/s, ESS/s {ess / dt_post:.1f}'
-          f' (ESS {ess:.1f})')
-    print(f'    post-warmup: mean tree size {size_post:.2f}, depth '
-          f'{depth_post:.3f}, accept {acc_post:.4f}, divergent '
-          f'{div_post:.4f}, leapfrogs/s '
-          f'{N_CHAIN * N_POST * size_post / dt_post:.4g}')
-    if not div_post < 0.05:
-        raise AssertionError(f'post-warmup divergence fraction {div_post}')
-    if not acc_post > 0.5:
-        raise AssertionError(f'post-warmup acceptance {acc_post}')
-    # the banana's own moments: z = A x has E[z_even] = 1 and
-    # E[z_odd] = E[z_even^2] = 1.5
-    z = s.reshape(-1, D) @ A.T
-    zm = (z[:, 0::2].mean(), z[:, 1::2].mean())
-    print(f'    posterior E[z_even] {zm[0]:.4f} (1), E[z_odd] {zm[1]:.4f} '
-          f'(1.5)')
-    if not (abs(zm[0] - 1.0) < 0.1 and abs(zm[1] - 1.5) < 0.2):
-        raise AssertionError(f'banana moments off: {zm}')
+    tt, launches = _sample_path(torch, bt, den, A, '[3] main path',
+                                {'nuts_warmup': 1 + 4 * 2,
+                                 'nuts_multi': 3 * 2})
 
     # ---- [3b] known moments: a bounded diag Gaussian through the kernels
     mean = np.linspace(-2., 2., 8)
@@ -537,11 +703,41 @@ def main():
 
     # ---- [6] the evidence path: GBS on the sampling path's trace ----
     launches['kde_cdf'] = _gbs_on_trace(bt, tt, den)
-    _gbs_device_share(torch, bt, tt, den)
+    _device_share(torch, '[6b] profiled GBS',
+                  lambda: bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)(
+                      tt, den.logp))
 
     # ---- [7] the KDE kernel against its plain version ----
     print('[7] KDE kernel vs plain, SIT fit shape')
     errs32['kde_cdf'], times['kde_cdf'] = _kde_vs_plain(torch, tt)
+
+    # ---- [8] pooled-metric sampling: warmup on the block kernel, one
+    # launch per transition, post-warmup on the frozen chunks ----
+    tp, pooled = _sample_path(torch, bt, den, A, '[8] pooled main path',
+                              {'nuts_block': N_WARMUP, 'nuts_multi': 3 * 2},
+                              pooled_metric=True)
+    launches['nuts_block'] = pooled['nuts_block']
+    var_shape = tuple(tp.trace._carry.metric.var.shape)
+    print(f'    shared metric variance shape {var_shape}')
+    if var_shape != (D,):
+        raise AssertionError(f'pooled variance of shape {var_shape}')
+
+    # ---- [8b] the block kernel against its plain version ----
+    print('[8b] block kernel vs plain, C=1024, D=32, pooled final state')
+    carry = tp.trace._carry
+    errs64['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float64,
+                                           1e-9, 0.999)
+    errs32['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float32,
+                                           1e-4, 0.99)
+    print(f'    max abs err float64 {errs64["nuts_block"]}, float32 '
+          f'{errs32["nuts_block"]}')
+
+    # ---- [8c] one block launch: kernel time beside the plain version's
+    times['nuts_block'] = _time_block(torch, den, carry)
+    _pooled_step_share(torch, den, carry, 50)
+
+    # ---- [9] the full metric on the torch tree loop ----
+    _tree_loop(torch, bt)
 
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
@@ -549,7 +745,9 @@ def main():
         'nuts_warmup': ('bayesfast_tpu_torch/csrc/nuts.cu',
                         'bayesfast_tpu/samplers/nuts_pallas.py:746'),
         'kde_cdf': ('bayesfast_tpu_torch/csrc/kde.cu',
-                    'bayesfast_tpu/ops/kde_pallas.py:50')}
+                    'bayesfast_tpu/ops/kde_pallas.py:50'),
+        'nuts_block': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                       'bayesfast_tpu/samplers/nuts_pallas.py:431')}
     rows = []
     for k, (src, replaces) in meta.items():
         ms, plain_ms, bound_ms, bound_by = times[k][:4]

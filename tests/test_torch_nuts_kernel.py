@@ -47,7 +47,7 @@ D, C, K, MAXDEPTH, Q = 4, 16, 3, 6, 0.1
 MAX_CHANGE = 1000.
 
 
-def _setup():
+def _setup(D=D):
     A = special_ortho_group.rvs(D, random_state=1)
     bounds = np.stack([np.full(D, -15.), np.full(D, 15.)]).T
     Aj = jnp.asarray(A)
