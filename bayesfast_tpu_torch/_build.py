@@ -118,8 +118,9 @@ def _bind(name, lib):
         lib.kde_cdf_launch.restype = c_int
         lib.kde_cdf_launch.argtypes = [
             c_int, c_int,                     # f64, exact erf
-            c_int, c_int, c_int, c_int,       # D, M, N, splits
-            vp, vp, vp, vp,                   # x, data, w, h
+            c_int, c_int, c_int,              # D, M, N
+            c_int, c_int,                     # splits, points per split
+            vp, vp, vp, vp,                   # x, data, w / 2, sqrt(1/2) / h
             vp, vp,                           # float64 scratch, out
             vp]                               # cudaStream_t
         lib.kde_error_string.restype = ctypes.c_char_p

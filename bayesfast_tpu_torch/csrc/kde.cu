@@ -12,27 +12,30 @@
 // rational erf written as kde_pallas.py:27-39 writes it (the Pallas
 // kernel's form).
 //
-// What bounds it on the card: D*M*N evaluations of Phi, about 25
-// floating-point operations each (difference, divide, scale, some 20 for
-// the erf, the float64 multiply-add of the sum), against
-// sizeof(T) * (D*N + N + D*M) bytes of inputs read once and D*M outputs
-// written once. At the SIT fit's shape (D = 32, M = 512, N = 153,600,
-// float32) that is 2.5e9 evaluations, 6.3e10 operations (0.94 ms at
-// 67 TFLOP/s) against 20 MB (6 us at 3.35 TB/s): it is compute-bound.
+// What bounds it on the card: instruction issue. There are D*M*N terms
+// (2.5e9 at the SIT fit's shape: D = 32, M = 512, N = 153,600, float32),
+// each a difference, a scale, the erf and a multiply-add, against
+// sizeof(T) * (D*N + N + D*M) bytes of inputs read once (20 MB, 6 us at
+// 3.35 TB/s). Each term's instructions go through the SM's issue slots one
+// by one, so the time is the instructions per term over the issue rate.
 //
-// Design, simple first (no wgmma, no TMA): one thread per query, held in a
-// register; the block's 128 queries share one column, and the column's
-// points and the weights stream through shared memory in tiles of 128,
-// read by every thread at the same address (a broadcast). The sum runs in
-// float64 whatever T is: a float32 running sum over 153,600 terms would
-// lose digits in the cdf's upper tail, which the SIT fit's ndtri
-// amplifies. At the SIT shape a column has only 4 blocks of queries, so
-// the points are cut into S splits (grid z) to put enough blocks on 132
-// SMs; each split writes its float64 partial sums to scratch, and a second
-// kernel adds the S partials in split order, so the result does not
-// depend on scheduling. The plain torch version (ops/kde.py) computes each
-// Phi with the same operations in the same order and also sums in float64,
-// so the two differ only by the order of the float64 sum.
+// What the design does about it: it cuts the instructions per term. The
+// wrapper passes c[d] = sqrt(1/2) / h[d] and hw[n] = w[n] / 2, so a term is
+//   z = (x - data) * c,  t = hw * (1 + erf(z)),
+// with no divide; each thread holds kQ = 4 queries in registers, so one
+// broadcast read of a point and its weight from shared memory serves four
+// terms; and the terms are summed in T in groups of kG = 16 consecutive
+// points, in order, each group converted once and added into a float64 sum
+// (one conversion and one float64 add per kG terms instead of two
+// conversions, a multiply and an add per term). The float64 sum across
+// groups keeps the digits of the cdf's upper tail, which the SIT fit's
+// ndtri amplifies. The points are cut into S splits of P (the grid's z),
+// which puts many blocks on 132 SMs; each block stages its split's points
+// in shared memory, writes its float64 partial sums to scratch, and a
+// second kernel adds the S partials in split order, so the result does not
+// depend on scheduling. The plain torch version (ops/kde.py) computes every
+// term with the same operations and takes every sum in the same grouping
+// and order, so on the card the two agree bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (see ../_build.py)
@@ -42,7 +45,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // queries per block, and points per tile
+constexpr int kThreads = 128;  // threads per block
+constexpr int kQ = 4;          // queries per thread
+constexpr int kG = 16;         // terms summed in T before a float64 add
 constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float m_erf(float x) { return erff(x); }
@@ -65,41 +70,78 @@ __device__ __forceinline__ T erf_as(T x) {
   return sign * (T(1) - poly * m_exp(-ax * ax));
 }
 
-// grid (ceil(M / kThreads), D, S): block (mb, d, s) sums points
-// [s * per_split, (s + 1) * per_split) of column d for its 128 queries
+// one term: hw * (1 + erf((xq - dn) * c))
+template <typename T, bool kExact>
+__device__ __forceinline__ T term(T xq, T dn, T hwn, T c) {
+  const T z = (xq - dn) * c;
+  const T e = kExact ? m_erf(z) : erf_as(z);
+  return hwn * (T(1) + e);
+}
+
+// grid (ceil(M / (kThreads * kQ)), D, S): block (mb, d, s) sums points
+// [s * P, min(N, (s + 1) * P)) of column d for its kThreads * kQ queries;
+// thread i holds queries mb * kThreads * kQ + i + q * kThreads, q < kQ.
+// Dynamic shared memory: 2 * P values of T.
 template <typename T, bool kExact>
 __global__ void __launch_bounds__(kThreads)
 kde_cdf_partial(const T* __restrict__ x, const T* __restrict__ data,
-                const T* __restrict__ w, const T* __restrict__ h,
-                double* __restrict__ part, int M, int N, int per_split) {
-  __shared__ T s_d[kThreads];
-  __shared__ T s_w[kThreads];
+                const T* __restrict__ hw, const T* __restrict__ c,
+                double* __restrict__ part, int M, int N, int P) {
+  extern __shared__ __align__(16) unsigned char g_smem[];
+  T* s_d = reinterpret_cast<T*>(g_smem);
+  T* s_w = s_d + P;
   const int d = blockIdx.y;
-  const int m = blockIdx.x * kThreads + threadIdx.x;
-  const T hd = h[d];
-  const T xq = m < M ? x[(size_t)d * M + m] : T(0);
-  const T* row = data + (size_t)d * N;
-  const int n0 = blockIdx.z * per_split;
-  const int n1 = min(N, n0 + per_split);
-  const T sqrt1_2 = T(0.7071067811865476);
-  double acc = 0.0;
-  for (int base = n0; base < n1; base += kThreads) {
-    const int n = base + threadIdx.x;
-    __syncthreads();  // every thread is done with the previous tile
-    if (n < n1) {
-      s_d[threadIdx.x] = row[n];
-      s_w[threadIdx.x] = w[n];
-    }
-    __syncthreads();
-    const int cnt = min(kThreads, n1 - base);
-    for (int k = 0; k < cnt; ++k) {
-      const T z = (xq - s_d[k]) / hd;
-      const T e = kExact ? m_erf(z * sqrt1_2) : erf_as(z * sqrt1_2);
-      const T phi = T(0.5) * (T(1) + e);
-      acc += (double)s_w[k] * (double)phi;
-    }
+  const int n0 = blockIdx.z * P;
+  const int cnt = min(P, N - n0);
+  const T* row = data + (size_t)d * N + n0;
+  for (int i = threadIdx.x; i < cnt; i += kThreads) {
+    s_d[i] = row[i];
+    s_w[i] = hw[n0 + i];
   }
-  if (m < M) part[((size_t)blockIdx.z * gridDim.y + d) * M + m] = acc;
+  const T cd = c[d];
+  const int m0 = blockIdx.x * kThreads * kQ + threadIdx.x;
+  T xq[kQ];
+  double acc[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int m = m0 + q * kThreads;
+    xq[q] = m < M ? x[(size_t)d * M + m] : T(0);
+    acc[q] = 0.0;
+  }
+  __syncthreads();
+
+  const int full = cnt / kG * kG;
+  for (int n = 0; n < full; n += kG) {
+    T g[kQ];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) g[q] = T(0);
+#pragma unroll
+    for (int k = 0; k < kG; ++k) {
+      const T dn = s_d[n + k], hwn = s_w[n + k];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) g[q] += term<T, kExact>(xq[q], dn, hwn, cd);
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) acc[q] += (double)g[q];
+  }
+  if (full < cnt) {  // the split's last, short group
+    T g[kQ];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) g[q] = T(0);
+    for (int n = full; n < cnt; ++n) {
+      const T dn = s_d[n], hwn = s_w[n];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) g[q] += term<T, kExact>(xq[q], dn, hwn, cd);
+    }
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) acc[q] += (double)g[q];
+  }
+  double* out = part + ((size_t)blockIdx.z * gridDim.y + d) * M;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int m = m0 + q * kThreads;
+    if (m < M) out[m] = acc[q];
+  }
 }
 
 // out[i] = sum over splits s, in order, of part[s, i]
@@ -113,24 +155,38 @@ __global__ void kde_cdf_reduce(const double* __restrict__ part,
   out[i] = (T)s;
 }
 
+template <typename T, bool kExact>
+cudaError_t launch_partial(int D, int M, int N, int S, int P, const T* x,
+                           const T* data, const T* hw, const T* c,
+                           double* part, cudaStream_t stream) {
+  const size_t bytes = 2 * (size_t)P * sizeof(T);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        (const void*)kde_cdf_partial<T, kExact>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((M + kThreads * kQ - 1) / (kThreads * kQ), D, S);
+  kde_cdf_partial<T, kExact><<<grid, kThreads, bytes, stream>>>(
+      x, data, hw, c, part, M, N, P);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch(int exact, int D, int M, int N, int S, const void* x,
-                   const void* data, const void* w, const void* h,
-                   void* part, void* out, cudaStream_t stream) {
-  const int per_split = (N + S - 1) / S;
-  const dim3 grid((M + kThreads - 1) / kThreads, D, S);
+cudaError_t launch(int exact, int D, int M, int N, int S, int P,
+                   const void* x, const void* data, const void* hw,
+                   const void* c, void* part, void* out,
+                   cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* dt = static_cast<const T*>(data);
-  const T* wt = static_cast<const T*>(w);
-  const T* ht = static_cast<const T*>(h);
+  const T* wt = static_cast<const T*>(hw);
+  const T* ct = static_cast<const T*>(c);
   double* pt = static_cast<double*>(part);
-  if (exact)
-    kde_cdf_partial<T, true><<<grid, kThreads, 0, stream>>>(
-        xt, dt, wt, ht, pt, M, N, per_split);
-  else
-    kde_cdf_partial<T, false><<<grid, kThreads, 0, stream>>>(
-        xt, dt, wt, ht, pt, M, N, per_split);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      exact ? launch_partial<T, true>(D, M, N, S, P, xt, dt, wt, ct, pt,
+                                      stream)
+            : launch_partial<T, false>(D, M, N, S, P, xt, dt, wt, ct, pt,
+                                       stream);
   if (err != cudaSuccess) return err;
   const int DM = D * M;
   kde_cdf_reduce<T><<<(DM + kReduceThreads - 1) / kReduceThreads,
@@ -141,21 +197,25 @@ cudaError_t launch(int exact, int D, int M, int N, int S, const void* x,
 
 }  // namespace
 
-// x (D, M), data (D, N), w (N,), h (D,) of one dtype (f64 ? double :
-// float), contiguous; part is float64 scratch of (S, D, M); out (D, M).
-// Returns the cudaError_t of the launches (0 on success).
+// x (D, M), data (D, N), hw (N,) half-weights and c (D,) = sqrt(1/2) / h,
+// all of one dtype (f64 ? double : float), contiguous; part is float64
+// scratch of (S, D, M); out (D, M). The points go in S splits of P
+// (S * P >= N > (S - 1) * P), summed in groups of kG. Returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int kde_cdf_launch(int f64, int exact, int D, int M, int N, int S,
-                              const void* x, const void* data, const void* w,
-                              const void* h, void* part, void* out,
-                              void* stream) {
+                              int P, const void* x, const void* data,
+                              const void* hw, const void* c, void* part,
+                              void* out, void* stream) {
   if (D < 1 || D > 65535 || M < 1 || N < 1 || S < 1 || S > 65535 ||
-      (long long)D * M > 0x7fffffffLL)
+      P < 1 || (long long)S * P < N || (long long)(S - 1) * P >= N ||
+      2LL * P * (f64 ? 8 : 4) > 232448 || (long long)D * M > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (f64)
-    return (int)launch<double>(exact, D, M, N, S, x, data, w, h, part, out,
-                               s);
-  return (int)launch<float>(exact, D, M, N, S, x, data, w, h, part, out, s);
+    return (int)launch<double>(exact, D, M, N, S, P, x, data, hw, c,
+                               part, out, s);
+  return (int)launch<float>(exact, D, M, N, S, P, x, data, hw, c,
+                            part, out, s);
 }
 
 extern "C" const char* kde_error_string(int err) {

@@ -14,31 +14,52 @@
 // (nuts_pallas.py:120-415), and the counter RNG of nuts_pallas.py:54-88 and
 // :418-428, reproduced bit for bit.
 //
-// What bounds it on the card: a NUTS transition is a data-dependent chain of
-// up to 2^maxdepth - 1 leapfrogs, each needing the previous one, with
-// scalar-branched merges over a dynamically indexed checkpoint stack. At the
-// bench shape (1024 chains, D = 32, f32) the work per leapfrog is tiny
-// (two 32x32 matvecs, a handful of 32-wide dot products and one exp/log per
-// dimension), so the kernel is bound by the latency of that dependent chain
-// and by how many chains can hide it (1024 warps is under 8 warps per SM
-// on 132 SMs), not by device-memory bytes or FLOPs.
+// What bounds it on the card: the latency of one chain's serial chain of
+// leapfrogs. A NUTS transition is a data-dependent chain of up to
+// 2^maxdepth - 1 leapfrogs, each needing the previous one, with
+// scalar-branched merges over a checkpoint stack. At the bench shape (1024
+// chains, D = 32, f32) every chain is resident at once (8 warps on each of
+// 132 SMs), so a launch lasts as long as its slowest chain's leapfrogs, one
+// after the other; the work of a leapfrog (two 32x32 matvecs, a few 32-wide
+// dot products, one exp and one log per dimension) is tiny beside its
+// dependent latency. Neither device-memory bytes nor FLOPs bound it, and
+// putting several chains in one warp would lengthen the slowest chain's
+// path, not shorten it: the lever is fewer cycles per leapfrog.
 //
-// What the design does about it: one chain per warp, lanes over dimensions.
+// What the design does about it: one chain per warp, lanes over
+// dimensions, and a short dependent path for each leapfrog:
+// - the density's parameters (the banana's A and A^T, zero-padded, one
+//   row per lane) are staged in shared memory once per block, and the
+//   matvecs are unrolled with no predicate: each lane reads its row and
+//   the vector (through a per-warp buffer) 16 bytes at a time, all loads
+//   and products can be in flight at once, and only the adds, in order
+//   over k as ops/densities.py::_matvec_seq takes them, wait on each
+//   other;
+// - the checkpoint stacks live in shared memory beside them where a
+//   block's 227 KB hold them all (at depth 10: every dtype and D; deeper
+//   trees in f64 keep global scratch, chosen per launch in
+//   `launch_kernel`), and they are not zeroed: a merge reads only frames
+//   stored earlier in the same doubling (see `transition`);
+// - the tree schedule (merges pending, subtree done, stack slot) is a
+//   trailing-ones count of the leaf index, in registers;
+// - each lane's neighbour indices and parities are set once per launch,
+//   not taken modulo D at every evaluation;
+// - the logp sums (log-Jacobian, density) wait until the gradient is done
+//   and go through one butterfly with the kinetic energy's sum, and the
+//   first merge's frame and uniform are read before the leapfrog, so their
+//   latencies hide behind the leapfrog's instead of adding to it;
+// - the other tree uniforms are drawn only on the branches that use them.
+// Every value takes the operations, in the order, of the plain version
+// (samplers/nuts_cuda.py); only independent work is reordered.
 // Dot products are xor-butterfly shuffles (every lane ends with the same
-// bits, so every branch stays warp-uniform), the matvecs are shuffle
-// broadcasts against rows read from L1, and each chain retires on its own
-// when its tree ends, instead of waiting for the slowest chain of a
-// block-synchronous lane block as on the TPU. The checkpoint stack,
-// maxdepth x (4D+3) values per chain (5.2 KB at D = 32, depth 10, f32), is
-// global scratch that stays in L1/L2; it is zeroed at the start of every
-// transition, as the TPU kernel does. Raising the chains in flight
-// (several chains per warp), a shared-memory stack and tensor-core matvecs
-// are later work.
+// bits, so every branch stays warp-uniform), and each chain retires on its
+// own when its tree ends. Tensor-core matvecs are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (see ../_build.py)
 // --fmad=false and no fast math keep each elementwise operation rounded as
-// the plain torch version rounds it; only sums are taken in another order.
+// the plain torch version rounds it; the plain versions also take every sum
+// in the kernels' order, so the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,8 +67,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // chains (warps) per block
+constexpr int kWarps = 8;  // chains (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may use, sm_90
+constexpr size_t kDefaultSmem = 48 * 1024;  // without an opt-in attribute
 
 // ---- math overloads ------------------------------------------------------
 __device__ __forceinline__ float m_exp(float x) { return expf(x); }
@@ -101,6 +124,21 @@ __device__ __forceinline__ T warp_sum(T x) {
   return x;
 }
 
+// three warp_sums at once: the same bits as three calls, with the three
+// butterflies' shuffles in flight together
+template <typename T>
+__device__ __forceinline__ void warp_sum3(T& a, T& b, T& c) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T sa = __shfl_xor_sync(kFull, a, o);
+    const T sb = __shfl_xor_sync(kFull, b, o);
+    const T sc = __shfl_xor_sync(kFull, c, o);
+    a += sa;
+    b += sb;
+    c += sc;
+  }
+}
+
 // value of global dimension `idx` (per lane) of a lane-distributed vector
 template <typename T, int NE>
 __device__ __forceinline__ T fetch(const T (&v)[NE], int idx) {
@@ -121,102 +159,189 @@ __device__ __forceinline__ T logaddexp(T a, T b) {  // jnp.logaddexp
   return amax + m_log1p(m_exp(-m_abs(delta)));
 }
 
+// 16-byte vectors of T, for shared-memory loads of 4 floats or 2 doubles
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  __device__ static float at(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  __device__ static double at(const double2& v, int i) {
+    return i == 0 ? v.x : v.y;
+  }
+};
+
+// Row stride of a staged P x P matrix: 16 bytes of padding put the rows
+// that one 16-byte load phase reads (8 lanes) on distinct banks.
+template <typename T, int NE>
+__host__ __device__ constexpr int row_stride() {
+  return 32 * NE + 16 / (int)sizeof(T);
+}
+
+// y_j = sum_k M[j * S + k] x_k for this lane's j (lanes over j, S the row
+// stride), M a matrix in shared memory with zeros past D, x zero past D,
+// summed over k in order as ops/densities.py::_matvec_seq sums. x goes
+// through the warp's buffer `xbuf`, so every lane reads x and its own row
+// 16 bytes at a time; fully unrolled with no predicate, so every load and
+// product is independent of the sum. A padded term is a signed zero, and
+// adding one to a sum that started at +0 (it never becomes -0) changes no
+// bit.
+template <typename T, int NE>
+__device__ __forceinline__ void matvec(const T* __restrict__ M,
+                                       T* __restrict__ xbuf,
+                                       const T (&x)[NE], T (&y)[NE]) {
+  using V = Vec16<T>;
+  constexpr int P = 32 * NE, S = row_stride<T, NE>();
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // every lane is done reading the buffer's last vector
+#pragma unroll
+  for (int e = 0; e < NE; ++e) xbuf[lane + 32 * e] = x[e];
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < NE; ++e) y[e] = T(0);
+#pragma unroll
+  for (int k0 = 0; k0 < P; k0 += V::n) {
+    const typename V::type xv =
+        *reinterpret_cast<const typename V::type*>(xbuf + k0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const typename V::type mv = *reinterpret_cast<const typename V::type*>(
+          M + (lane + 32 * e) * S + k0);
+#pragma unroll
+      for (int i = 0; i < V::n; ++i) y[e] += V::at(mv, i) * V::at(xv, i);
+    }
+  }
+}
+
 // ---- compiled-in densities (ops/densities.py) ----------------------------
-// Each evaluates logp and its gradient at ORIGINAL-space x; lane `l` holds
-// dimensions l, l+32, ...; invalid dimensions (>= D) hold and return 0.
+// Each evaluates its gradient at ORIGINAL-space x and returns this lane's
+// part of the logp sum; `finish` turns the warp's sum of the parts into
+// logp. Lane `l` holds dimensions l, l+32, ...; invalid dimensions (>= D)
+// hold and return 0.
+// `stage` copies the density's parameters into the block's shared memory
+// (kSmem elements; every thread of the block takes part), `bind` points
+// this thread's functor at them and sets its per-lane constants.
 
 template <typename T, int NE>
 struct Banana {  // bench.py:139-145: z = A x, even-i banana terms
-  const T* A;    // (D, D) row-major
-  const T* AT;   // its transpose
+  static constexpr int P = 32 * NE, S = row_stride<T, NE>();
+  // A and A^T, zero-padded, row stride S; then each warp's x buffer
+  static constexpr int kSmem = 2 * P * S + kWarps * P;
+  const T* A;  // (D, D) row-major, device memory
   int D;
   T Q, cst;
+  const T* sA;   // staged A: lane j reads row j
+  const T* sAT;  // staged A^T: lane k reads row k, column k of A
+  T* xbuf;       // this warp's P values
+  int nxt[NE], prv[NE];  // this lane's wrapped neighbours j + 1, j - 1
+  bool even[NE], prv_even[NE];
 
-  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+  __device__ void stage(T* smem) const {
+    for (int i = threadIdx.x; i < P * P; i += blockDim.x) {
+      const int r = i / P, c = i % P;
+      const T v = (r < D && c < D) ? A[r * D + c] : T(0);
+      smem[r * S + c] = v;
+      smem[P * S + c * S + r] = v;
+    }
+  }
+
+  __device__ void bind(T* smem) {
     const int lane = threadIdx.x & 31;
-    T z[NE];
-#pragma unroll
-    for (int e = 0; e < NE; ++e) z[e] = T(0);
-    // z_j = sum_k A[j, k] x_k, lanes over j: AT[k, j] is coalesced
-#pragma unroll
-    for (int e2 = 0; e2 < NE; ++e2)
-      for (int kk = 0; kk < 32; ++kk) {
-        const int k = e2 * 32 + kk;
-        if (k >= D) break;  // uniform
-        const T xk = __shfl_sync(kFull, x[e2], kk);
-#pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          const int j = lane + 32 * e;
-          if (j < D) z[e] += AT[k * D + j] * xk;
-        }
-      }
-    T r[NE], part = T(0);
+    sA = smem;
+    sAT = smem + P * S;
+    xbuf = smem + 2 * P * S + (threadIdx.x >> 5) * P;
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const int j = lane + 32 * e;
-      const int n = j < D ? (j + 1) % D : 0;
-      const T zn = fetch<T, NE>(z, n);
-      r[e] = z[e] * z[e] - zn;
-      if (j < D && (j % 2) == 0) {
-        const T zm = z[e] - T(1);
-        part += r[e] * r[e] / Q + zm * zm;
-      }
+      nxt[e] = j < D ? (j + 1) % D : 0;
+      prv[e] = j < D ? (j + D - 1) % D : 0;
+      even[e] = j < D && (j % 2) == 0;
+      prv_even[e] = j < D && (prv[e] % 2) == 0;
     }
-    const T logp = -warp_sum(part) - cst;
+  }
+
+  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+    const int lane = threadIdx.x & 31;
+    T xm[NE], z[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) xm[e] = lane + 32 * e < D ? x[e] : T(0);
+    // z_j = sum_k A[j, k] x_k, lanes over j
+    matvec<T, NE>(sA, xbuf, xm, z);
+    T r[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) r[e] = z[e] * z[e] - fetch<T, NE>(z, nxt[e]);
     // d t_i/d z_i = 4 z_i r_i / Q + 2 (z_i - 1) and d t_i/d z_{i+1} =
     // -2 r_i / Q, for even i
     T gz[NE];
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
-      const int j = lane + 32 * e;
-      const int pv = j < D ? (j + D - 1) % D : 0;
-      const T rp = fetch<T, NE>(r, pv);
+      const T rp = fetch<T, NE>(r, prv[e]);
       T own = T(0), nb = T(0);
-      if (j < D && (j % 2) == 0)
-        own = T(4) * z[e] * r[e] / Q + T(2) * (z[e] - T(1));
-      if (j < D && (pv % 2) == 0) nb = T(-2) * rp / Q;
-      gz[e] = j < D ? -(own + nb) : T(0);
+      if (even[e]) own = T(4) * z[e] * r[e] / Q + T(2) * (z[e] - T(1));
+      if (prv_even[e]) nb = T(-2) * rp / Q;
+      gz[e] = lane + 32 * e < D ? -(own + nb) : T(0);
     }
-    // grad_k = sum_j A[j, k] gz_j, lanes over k: A[j, k] is coalesced
+    // grad_k = sum_j A^T[k, j] gz_j, lanes over k
+    matvec<T, NE>(sAT, xbuf, gz, g);
+    // the logp terms last: the gradient's path does not wait on them
+    T part = T(0);
 #pragma unroll
-    for (int e = 0; e < NE; ++e) g[e] = T(0);
-#pragma unroll
-    for (int e2 = 0; e2 < NE; ++e2)
-      for (int jj = 0; jj < 32; ++jj) {
-        const int j = e2 * 32 + jj;
-        if (j >= D) break;
-        const T gzj = __shfl_sync(kFull, gz[e2], jj);
-#pragma unroll
-        for (int e = 0; e < NE; ++e) {
-          const int k = lane + 32 * e;
-          if (k < D) g[e] += A[j * D + k] * gzj;
-        }
+    for (int e = 0; e < NE; ++e) {
+      if (even[e]) {
+        const T zm = z[e] - T(1);
+        part += r[e] * r[e] / Q + zm * zm;
       }
-    return logp;
+    }
+    return part;
   }
+
+  __device__ T finish(T sum) const { return -sum - cst; }
 };
 
 template <typename T, int NE>
 struct Gaussian {  // logp = -0.5 sum (x - mean)^2 / var
+  static constexpr int kSmem = 0;
   const T* mean;
   const T* var;
   int D;
+  T m[NE], v[NE];  // this lane's mean and variance
+
+  __device__ void stage(T*) const {}
+
+  __device__ void bind(T*) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int d = lane + 32 * e;
+      m[e] = d < D ? mean[d] : T(0);
+      v[e] = d < D ? var[d] : T(1);
+    }
+  }
 
   __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
     const int lane = threadIdx.x & 31;
     T part = T(0);
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
-      const int d = lane + 32 * e;
       g[e] = T(0);
-      if (d < D) {
-        const T dx = x[e] - mean[d];
-        part += dx * dx / var[d];
-        g[e] = -dx / var[d];
+      if (lane + 32 * e < D) {
+        const T dx = x[e] - m[e];
+        part += dx * dx / v[e];
+        g[e] = -dx / v[e];
       }
     }
-    return T(-0.5) * warp_sum(part);
+    return part;
   }
+
+  __device__ T finish(T sum) const { return T(-0.5) * sum; }
 };
 
 // ---- the fused bound transform (ops/constraint.py) plus a density ---------
@@ -227,9 +352,11 @@ struct TDensity {
   T logw;
   bool valid[NE];
 
-  // transformed-space logp and gradient: grad_t = grad_x * g + h
-  __device__ T operator()(const T (&x)[NE], T (&gt)[NE]) const {
-    T xo[NE], gg[NE], hh[NE], part = T(0);
+  // transformed-space gradient, grad_t = grad_x * g + h, and this lane's
+  // parts of the log-Jacobian and density sums (see `logp`)
+  __device__ void operator()(const T (&x)[NE], T (&gt)[NE], T& ld_part,
+                             T& d_part) const {
+    T xo[NE], gg[NE], hh[NE], arg[NE];
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const T m_none = T(1) - m_lohi[e] - m_lo[e] - m_hi[e];
@@ -242,41 +369,63 @@ struct TDensity {
                   m_none * x[e];
       xo[e] = lo[e] + t * width[e];
       const T s1s = s * (T(1) - s);
-      const T arg = m_lohi[e] * s1s + (T(1) - m_lohi[e]);
-      if (valid[e]) part += m_log(arg) + (m_lo[e] + m_hi[e]) * x[e];
+      arg[e] = m_lohi[e] * s1s + (T(1) - m_lohi[e]);
       gg[e] = (m_lohi[e] * s1s + (m_lo[e] - m_hi[e]) * ep + m_none) *
               width[e];
       hh[e] = m_lohi[e] * (T(1) - T(2) * s) + m_lo[e] + m_hi[e];
     }
-    const T logdet = warp_sum(part) + logw;
     T gx[NE];
-    const T logp = dens(xo, gx);
+    d_part = dens(xo, gx);
 #pragma unroll
     for (int e = 0; e < NE; ++e) gt[e] = valid[e] ? gx[e] * gg[e] + hh[e] : T(0);
-    return logp + logdet;
+    // the log-Jacobian last: the gradient's path does not wait on its log
+    ld_part = T(0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+      if (valid[e]) ld_part += m_log(arg[e]) + (m_lo[e] + m_hi[e]) * x[e];
+  }
+
+  // the transformed-space logp from the warp sums of the two parts
+  __device__ T logp(T ld_sum, T d_sum) const {
+    return dens.finish(d_sum) + (ld_sum + logw);
   }
 };
+
+// logp from the density's two lane parts (`lp`), and the energy
+// 0.5 p.(var p) - logp: the log-Jacobian, density and kinetic sums go
+// through one butterfly together, after the gradient's path
+template <typename T, int NE, class TD>
+__device__ __forceinline__ T energy(const TD& lpg, T ld, T dn,
+                                   const T (&p)[NE], const T (&var)[NE],
+                                   T& lp) {
+  T kin = T(0);
+#pragma unroll
+  for (int e = 0; e < NE; ++e) kin += p[e] * (var[e] * p[e]);
+  warp_sum3(ld, dn, kin);
+  lp = lpg.logp(ld, dn);
+  return T(0.5) * kin - lp;
+}
 
 // ---- kernel arguments ------------------------------------------------------
 // Pointer table order (the wrapper in samplers/nuts_cuda.py builds it; the
 // block kernel takes the frozen table, with K = 1 rows and q_final unused):
-//  0 q0 (C,D)  1 var (C,D)  2 eps (C,)  3 sched (4,L) i32  4 tf (5,D)
-//  5 density params  6 q (K,C,D)  7 logp  8 energy  9 energy_change
-//  10 depth i32  11 size i32  12 accept_sum  13 max_de  14 diverging i32
-//  15 q_final (C,D)  16 stack (C, n_lvl+1, 4D+3)
+//  0 q0 (C,D)  1 var (C,D)  2 eps (C,)  3 tf (5,D)  4 density params
+//  5 q (K,C,D)  6 logp  7 energy  8 energy_change  9 depth i32  10 size i32
+//  11 accept_sum  12 max_de  13 diverging i32  14 q_final (C,D)
+//  15 stack (C, n_lvl, 4D+3), global scratch for launches whose stacks do
+//     not fit in shared memory
 // warmup only:
-//  17 wsched (2,K) i32  18..22 log_step log_bar hbar count mu (C,)
-//  23 fg_mean 24 fg_raw (C,D) 25 fg_w (C,) 26 bg_mean 27 bg_raw 28 bg_w
-//  29 step_size (K,C) 30 step_size_bar (K,C)  31..34 final log_step
-//  log_bar hbar count  35 var 36 fg_mean 37 fg_raw 38 fg_w 39 bg_mean
-//  40 bg_raw 41 bg_w
-constexpr int kPtrsFrozen = 17;
-constexpr int kPtrsWarmup = 42;
+//  16 wsched (2,K) i32  17..21 log_step log_bar hbar count mu (C,)
+//  22 fg_mean 23 fg_raw (C,D) 24 fg_w (C,) 25 bg_mean 26 bg_raw 27 bg_w
+//  28 step_size (K,C) 29 step_size_bar (K,C)  30..33 final log_step
+//  log_bar hbar count  34 var 35 fg_mean 36 fg_raw 37 fg_w 38 bg_mean
+//  39 bg_raw 40 bg_w
+constexpr int kPtrsFrozen = 16;
+constexpr int kPtrsWarmup = 41;
 
 template <typename T>
 struct Args {
   const T *q0, *var, *eps;
-  const int* sched;
   const T *tf, *dpar;
   T *q, *logp, *energy, *de;
   int *depth, *size;
@@ -288,10 +437,17 @@ struct Args {
   T *ss, *ssb, *ls_f, *lb_f, *hb_f, *ct_f, *var_f, *fgm_f, *fgr_f, *fgw_f,
       *bgm_f, *bgr_f, *bgw_f;
   int C, D, K, maxdepth, L;
+  int stk_smem;  // 1: the checkpoint stacks are in shared memory
   uint32_t seed, i0, chain_start;
   T max_change, logw, d0, d1, target, gamma, kexp, t0;
   int adapt_step, adapt_metric;
 };
+
+// frames per chain: a frame is stored at level `pending` of a leaf that does
+// not finish its subtree, at most maxdepth - 2
+__host__ __device__ __forceinline__ int n_levels(int maxdepth) {
+  return maxdepth - 1 > 1 ? maxdepth - 1 : 1;
+}
 
 // lane-distributed checkpoint frame:
 // [left_p | right_p | p_sum | log_size | q | energy | logp]
@@ -366,9 +522,10 @@ __device__ __forceinline__ T vdot(const T (&a)[NE], const T (&var)[NE],
   return warp_sum(s);
 }
 
-// join older/left t1 with newer/right t2 (nuts_pallas.py:180-209)
+// join older/left t1 with newer/right t2 (nuts_pallas.py:180-209); log_u is
+// the float32 log of the merge's uniform, in T
 template <typename T, int NE>
-__device__ __forceinline__ Frame<T, NE> merge(float u, const Frame<T, NE>& t1,
+__device__ __forceinline__ Frame<T, NE> merge(T log_u, const Frame<T, NE>& t1,
                                               const Frame<T, NE>& t2,
                                               int merged_depth,
                                               const T (&var)[NE],
@@ -393,7 +550,7 @@ __device__ __forceinline__ Frame<T, NE> merge(float u, const Frame<T, NE>& t1,
     turning = turning | extra;
   }
   m.ls = logaddexp(t1.ls, t2.ls);
-  const bool take2 = T(logf(u)) < t2.ls - m.ls;
+  const bool take2 = log_u < t2.ls - m.ls;
 #pragma unroll
   for (int e = 0; e < NE; ++e) m.q[e] = take2 ? t2.q[e] : t1.q[e];
   m.e = take2 ? t2.e : t1.e;
@@ -410,20 +567,25 @@ struct Result {
 
 // One full NUTS transition for this warp's chain (nuts_pallas.py:120-415),
 // sequential per chain: a chain stops when its tree ends.
+//
+// The stack `stk` is not cleared between transitions: no frame is merged
+// before it is stored in the same doubling (level 0 is read at every leaf,
+// and merged only when pending > 0). Within a doubling, leaf k
+// merges with the frames at levels 0 .. pending - 1, where pending is the
+// count of trailing ones of k, and a leaf that does not end the doubling
+// stores its merged frame at level `pending`. For m < pending, leaf
+// k - 2^m (k with bit m cleared) has count m and comes earlier in the same
+// doubling, so the frame at level m was stored in this doubling (leaf 0 of
+// a doubling has count 0 and merges nothing). A leaf that ends its
+// doubling, or aborts the tree, stores nothing.
 template <typename T, int NE, class TD>
 __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
                            uint32_t chain, const T (&q0)[NE],
                            const T (&p0)[NE], T step, const T (&var)[NE],
                            T* stk, Result<T, NE>& out) {
   const int D = a.D;
-  const int lane = threadIdx.x & 31;
   const int F = 4 * D + 3;
-  const int n_lvl = a.maxdepth - 1 > 1 ? a.maxdepth - 1 : 1;
   const T max_change = a.max_change;
-
-  // stale frames from the previous transition never leak: zero the stack
-  for (int i = lane; i < (n_lvl + 1) * F; i += 32) stk[i] = T(0);
-  __syncwarp();
 
   State<T, NE> cur;
 #pragma unroll
@@ -433,9 +595,10 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
     cur.cq[e] = T(0);
     cur.cp[e] = T(0);
   }
-  cur.lp = lpg(cur.q, cur.g);
-  const T e0 = T(0.5) * vdot(cur.p, var, cur.p) - cur.lp;
-  cur.e = e0;
+  T ld, dn;
+  lpg(cur.q, cur.g, ld, dn);
+  cur.e = energy(lpg, ld, dn, cur.p, var, cur.lp);
+  const T e0 = cur.e;
   State<T, NE> left = cur, right = cur;
   T pq[NE], psum[NE];
 #pragma unroll
@@ -449,14 +612,23 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
   bool diverging = false, done = false;
   bool go_right = uniform(seed, 0xFFFFFFFFu, 7u, 0u, chain) < 0.5f;
   T eps = go_right ? step : -step;
-  const int* sched = a.sched;
+  // the schedule (nuts_cuda.py::_leaf_schedule): leaf k of the current
+  // doubling, which has `span` leaves
+  int k_leaf = 0, span = 1;
 
-  // a tree of depth maxdepth has a.L leaves: the loop ends by then even if
-  // the schedule were wrong
+  // a tree of depth maxdepth has a.L leaves: the loop ends by then
   for (int it = 0; !done && it < a.L; ++it) {
-    const float u0 = uniform(seed, (uint32_t)it, 0u, 0u, chain);
-    const float u1 = uniform(seed, (uint32_t)it, 0u, 1u, chain);
-    const float u2 = uniform(seed, (uint32_t)it, 0u, 2u, chain);
+    const int pending = __ffs(~k_leaf) - 1;  // trailing ones of k_leaf
+    const bool sub_done = k_leaf == span - 1;
+    if (++k_leaf == span) {
+      k_leaf = 0;
+      span <<= 1;
+    }
+    // the first merge's frame and uniform do not depend on this leaf: read
+    // them first, so that their latency hides in the leapfrog's (the frame
+    // is read whether or not it is merged, which changes nothing)
+    const Frame<T, NE> f0 = load_frame<T, NE>(stk, D);
+    const T log_u0 = T(logf(uniform(seed, (uint32_t)it, 0u, 0u, chain)));
 
     // ---- one Kahan-compensated leapfrog ----
     State<T, NE> nw;
@@ -473,7 +645,7 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
       nw.cq[e] = (t - cur.q[e]) - y;
       nw.q[e] = t;
     }
-    nw.lp = lpg(nw.q, nw.g);
+    lpg(nw.q, nw.g, ld, dn);
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const T y = dt * nw.g[e] - nw.cp[e];
@@ -481,7 +653,7 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
       nw.cp[e] = (t - ph[e]) - y;
       nw.p[e] = t;
     }
-    nw.e = T(0.5) * vdot(nw.p, var, nw.p) - nw.lp;
+    nw.e = energy(lpg, ld, dn, nw.p, var, nw.lp);
 
     T de = nw.e - e0;
     if (isnan(de)) de = T(INFINITY);
@@ -493,10 +665,6 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
     n_prop += 1;
     if (!div) cur = nw;
     diverging = diverging | div;
-
-    const int pending = sched[it];
-    const bool sub_done = sched[a.L + it] == 1;
-    const int w_idx = sched[2 * a.L + it];
 
     // ---- binary-counter merges ----
     Frame<T, NE> inc;
@@ -512,23 +680,24 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
     inc.lpv = nw.lp;
     bool turned = false;
     if (pending > 0 && !div) {
-      inc = merge(u0, load_frame<T, NE>(stk, D), inc, 1, var, turned);
+      inc = merge(log_u0, f0, inc, 1, var, turned);
       for (int m = 1; m < pending && !turned; ++m) {
         const float um = uniform(
             seed, (uint32_t)(it * (a.maxdepth + 1) + m), 3u, 0u, chain);
-        inc = merge(um, load_frame<T, NE>(stk + m * F, D), inc, m + 1, var,
-                    turned);
+        inc = merge(T(logf(um)), load_frame<T, NE>(stk + m * F, D), inc,
+                    m + 1, var, turned);
       }
     }
     const bool abort = div || turned;
-    // the frame of a finished subtree goes to the never-read sink level, and
+    // a finished subtree's frame would go to a never-read sink level, and
     // an aborted tree reads nothing more: only live frames are stored
-    if (!abort && !sub_done) store_frame(stk + w_idx * F, inc, D);
+    if (!abort && !sub_done) store_frame(stk + pending * F, inc, D);
     if (abort || sub_done) depth += 1;
     if (abort) done = true;
 
     // ---- subtree completion ----
     if (sub_done && !abort) {
+      const float u1 = uniform(seed, (uint32_t)it, 0u, 1u, chain);
       const T sub_ls = inc.ls;
       if (T(logf(u1)) < sub_ls - log_size) {
 #pragma unroll
@@ -574,6 +743,7 @@ __device__ void transition(const Args<T>& a, const TD& lpg, uint32_t seed,
       if (turning_full || depth >= a.maxdepth) {
         done = true;
       } else {
+        const float u2 = uniform(seed, (uint32_t)it, 0u, 2u, chain);
         go_right = u2 < 0.5f;
         eps = go_right ? step : -step;
         if (go_right)
@@ -620,11 +790,21 @@ __device__ __forceinline__ TDensity<T, NE, Dens> make_lpg(const Args<T>& a,
   return lpg;
 }
 
-// chain c's checkpoint stack: max(maxdepth - 1, 1) + 1 frames
-template <typename T>
-__device__ __forceinline__ T* stack_of(const Args<T>& a, int c) {
-  return a.stack + (size_t)c * (size_t)(a.maxdepth > 2 ? a.maxdepth : 2) *
-                       (4 * a.D + 3);
+// Every thread of the block stages the density's parameters in shared
+// memory and binds its functor to them (before any warp leaves); returns
+// this warp's checkpoint stack of n_levels frames: in shared memory after
+// the parameters when the launch made room for it, else global scratch.
+template <typename T, class Dens>
+__device__ __forceinline__ T* stage_block(const Args<T>& a, Dens& dens,
+                                          int c) {
+  extern __shared__ __align__(16) unsigned char g_smem[];
+  T* smem = reinterpret_cast<T*>(g_smem);
+  dens.stage(smem);
+  __syncthreads();
+  dens.bind(smem);
+  const size_t frames = (size_t)n_levels(a.maxdepth) * (4 * a.D + 3);
+  if (a.stk_smem) return smem + Dens::kSmem + (threadIdx.x >> 5) * frames;
+  return a.stack + (size_t)c * frames;
 }
 
 template <typename T, int NE, class Dens, bool WARM>
@@ -632,6 +812,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     nuts_chunk_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  T* stk = stage_block(a, dens, c);
   if (c >= a.C) return;  // the whole warp leaves together
   const int D = a.D, C = a.C;
   const uint32_t chain = a.chain_start + (uint32_t)c;
@@ -665,7 +846,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   } else {
     step = a.eps[c];
   }
-  T* stk = stack_of(a, c);
 
   for (int t = 0; t < a.K; ++t) {
     const uint32_t seed_t = a.seed ^ fmix32(a.i0 + (uint32_t)t + 0x9E3779B9u);
@@ -771,16 +951,17 @@ __global__ void __launch_bounds__(kWarps * 32)
 // and the tree's draws all under `seed`, no iteration fold. A launch with
 // seed ^ fmix32(i0 + t + 0x9E3779B9) is therefore transition t of a chunk
 // launch from the same start, bit for bit. The design is the chunk kernels'
-// (one warp per chain, `transition` unchanged); the per-transition path
-// adapts between launches. What bounds it: a launch lasts as long as its
-// slowest chain's tree, up to 2^maxdepth - 1 dependent leapfrogs, where a
-// K-transition chunk lets a chain's short trees make up for its long ones;
-// so per transition it takes longer than a chunk.
+// (one warp per chain, `transition` shared); the per-transition path adapts
+// between launches. A launch lasts as long as its slowest chain's tree, up
+// to 2^maxdepth - 1 dependent leapfrogs, where a K-transition chunk lets a
+// chain's short trees make up for its long ones; so per transition it
+// takes longer than a chunk.
 template <typename T, int NE, class Dens>
 __global__ void __launch_bounds__(kWarps * 32)
     nuts_block_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  T* stk = stage_block(a, dens, c);
   if (c >= a.C) return;  // the whole warp leaves together
   const int D = a.D;
   const uint32_t chain = a.chain_start + (uint32_t)c;
@@ -798,8 +979,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     p0[e] = ok ? T(gauss(a.seed, (uint32_t)d, chain)) / m_sqrt(var[e]) : T(0);
   }
   Result<T, NE> r;
-  transition<T, NE>(a, lpg, a.seed, chain, q, p0, a.eps[c], var,
-                    stack_of(a, c), r);
+  transition<T, NE>(a, lpg, a.seed, chain, q, p0, a.eps[c], var, stk, r);
 #pragma unroll
   for (int e = 0; e < NE; ++e) {
     const int d = lane + 32 * e;
@@ -828,46 +1008,45 @@ Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
   a.q0 = (const T*)p[0];
   a.var = (const T*)p[1];
   a.eps = (const T*)p[2];
-  a.sched = (const int*)p[3];
-  a.tf = (const T*)p[4];
-  a.dpar = (const T*)p[5];
-  a.q = (T*)p[6];
-  a.logp = (T*)p[7];
-  a.energy = (T*)p[8];
-  a.de = (T*)p[9];
-  a.depth = (int*)p[10];
-  a.size = (int*)p[11];
-  a.asum = (T*)p[12];
-  a.mde = (T*)p[13];
-  a.div = (int*)p[14];
-  a.q_final = (T*)p[15];
-  a.stack = (T*)p[16];
+  a.tf = (const T*)p[3];
+  a.dpar = (const T*)p[4];
+  a.q = (T*)p[5];
+  a.logp = (T*)p[6];
+  a.energy = (T*)p[7];
+  a.de = (T*)p[8];
+  a.depth = (int*)p[9];
+  a.size = (int*)p[10];
+  a.asum = (T*)p[11];
+  a.mde = (T*)p[12];
+  a.div = (int*)p[13];
+  a.q_final = (T*)p[14];
+  a.stack = (T*)p[15];
   if (warm) {
-    a.wsched = (const int*)p[17];
-    a.ls = (const T*)p[18];
-    a.lb = (const T*)p[19];
-    a.hb = (const T*)p[20];
-    a.ct = (const T*)p[21];
-    a.mu = (const T*)p[22];
-    a.fgm = (const T*)p[23];
-    a.fgr = (const T*)p[24];
-    a.fgw = (const T*)p[25];
-    a.bgm = (const T*)p[26];
-    a.bgr = (const T*)p[27];
-    a.bgw = (const T*)p[28];
-    a.ss = (T*)p[29];
-    a.ssb = (T*)p[30];
-    a.ls_f = (T*)p[31];
-    a.lb_f = (T*)p[32];
-    a.hb_f = (T*)p[33];
-    a.ct_f = (T*)p[34];
-    a.var_f = (T*)p[35];
-    a.fgm_f = (T*)p[36];
-    a.fgr_f = (T*)p[37];
-    a.fgw_f = (T*)p[38];
-    a.bgm_f = (T*)p[39];
-    a.bgr_f = (T*)p[40];
-    a.bgw_f = (T*)p[41];
+    a.wsched = (const int*)p[16];
+    a.ls = (const T*)p[17];
+    a.lb = (const T*)p[18];
+    a.hb = (const T*)p[19];
+    a.ct = (const T*)p[20];
+    a.mu = (const T*)p[21];
+    a.fgm = (const T*)p[22];
+    a.fgr = (const T*)p[23];
+    a.fgw = (const T*)p[24];
+    a.bgm = (const T*)p[25];
+    a.bgr = (const T*)p[26];
+    a.bgw = (const T*)p[27];
+    a.ss = (T*)p[28];
+    a.ssb = (T*)p[29];
+    a.ls_f = (T*)p[30];
+    a.lb_f = (T*)p[31];
+    a.hb_f = (T*)p[32];
+    a.ct_f = (T*)p[33];
+    a.var_f = (T*)p[34];
+    a.fgm_f = (T*)p[35];
+    a.fgr_f = (T*)p[36];
+    a.fgw_f = (T*)p[37];
+    a.bgm_f = (T*)p[38];
+    a.bgr_f = (T*)p[39];
+    a.bgw_f = (T*)p[40];
   }
   a.C = C;
   a.D = D;
@@ -890,29 +1069,53 @@ Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
   return a;
 }
 
+// Shared memory of a launch: the density's parameters, plus every warp's
+// checkpoint stack when all of it fits in a block's shared memory (at depth
+// 10 it does for every dtype and D <= 64); else the stacks stay in global
+// scratch. Above 48 KB the kernel must opt in first.
 template <typename T, int NE, int KIND, class Dens>
-void launch_kernel(const Args<T>& a, const Dens& d, cudaStream_t s) {
+cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s) {
+  const size_t frames = (size_t)n_levels(a.maxdepth) * (4 * a.D + 3);
+  size_t bytes = (Dens::kSmem + kWarps * frames) * sizeof(T);
+  a.stk_smem = bytes <= kMaxSmem ? 1 : 0;
+  if (!a.stk_smem) bytes = Dens::kSmem * sizeof(T);
+  const void* fn;
+  if constexpr (KIND == kBlock)
+    fn = (const void*)nuts_block_kernel<T, NE, Dens>;
+  else
+    fn = (const void*)nuts_chunk_kernel<T, NE, Dens, KIND == kWarmup>;
+  if (bytes > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((a.C + kWarps - 1) / kWarps), block(kWarps * 32);
   if constexpr (KIND == kBlock)
-    nuts_block_kernel<T, NE, Dens><<<grid, block, 0, s>>>(a, d);
+    nuts_block_kernel<T, NE, Dens><<<grid, block, bytes, s>>>(a, d);
   else
     nuts_chunk_kernel<T, NE, Dens, KIND == kWarmup>
-        <<<grid, block, 0, s>>>(a, d);
+        <<<grid, block, bytes, s>>>(a, d);
+  return cudaGetLastError();
 }
 
 template <typename T, int NE, int KIND>
 cudaError_t launch_t(const Args<T>& a, int dens, cudaStream_t s) {
   if (dens == 0) {
-    launch_kernel<T, NE, KIND>(
-        a, Banana<T, NE>{a.dpar, a.dpar + (size_t)a.D * a.D, a.D, a.d0, a.d1},
-        s);
-  } else if (dens == 1) {
-    launch_kernel<T, NE, KIND>(a, Gaussian<T, NE>{a.dpar, a.dpar + a.D, a.D},
-                               s);
-  } else {
-    return cudaErrorInvalidValue;
+    Banana<T, NE> b = {};
+    b.A = a.dpar;
+    b.D = a.D;
+    b.Q = a.d0;
+    b.cst = a.d1;
+    return launch_kernel<T, NE, KIND>(a, b, s);
   }
-  return cudaGetLastError();
+  if (dens == 1) {
+    Gaussian<T, NE> g = {};
+    g.mean = a.dpar;
+    g.var = a.dpar + a.D;
+    g.D = a.D;
+    return launch_kernel<T, NE, KIND>(a, g, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int NE>

@@ -46,12 +46,10 @@ class RotatedBanana(nn.Module):
         return -torch.sum(t * self.even.to(x), dim=-1) - self.const
 
     def kernel_spec(self):
-        # A and its transpose, so that both matvecs in the kernel read
-        # neighbouring addresses from neighbouring lanes
+        # the kernel stages A and its transpose in shared memory
         A = self.A
         return dict(density='banana', dim=A.shape[0],
-                    params=[torch.cat([A.reshape(-1), A.T.reshape(-1)])],
-                    scalars=(self.Q, self.const))
+                    params=[A.reshape(-1)], scalars=(self.Q, self.const))
 
 
 class DiagGaussian(nn.Module):

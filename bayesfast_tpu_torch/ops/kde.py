@@ -6,11 +6,13 @@ every dimension and flow layer, an O(n_x * n_data) reduction.
 ``kde_cdf_batch`` computes it for a batch of columns with shared weights:
 on CUDA tensors it launches the hand-written kernel ``csrc/kde.cu`` (which
 replaces the Pallas kernel ``kde_pallas.py:50``); on CPU tensors it runs
-the plain version ``kde_cdf_batch_plain``, blocked over the data like
-``kde_pallas._cdf_batch_impl``. Both sum in float64 whatever the input
-dtype, and both take Phi in one of two forms: ``'exact'`` (the erf, the
-SIT fit's form) or ``'as'`` (the Abramowitz & Stegun 7.1.26 erf of the
-Pallas kernel).
+the plain version ``kde_cdf_batch_plain``. Both take every term as
+``(w / 2) * (1 + erf((x - d) * c))`` with ``c = sqrt(1/2) / h``, sum the
+terms in the input dtype in groups of ``_GROUP`` consecutive points, add
+the groups into float64 sums over splits of the points (``_plan``), and
+add the splits in order, so on the card the two agree bit for bit. Phi
+takes one of two forms: ``'exact'`` (the erf, the SIT fit's form) or
+``'as'`` (the Abramowitz & Stegun 7.1.26 erf of the Pallas kernel).
 """
 
 import torch
@@ -18,8 +20,13 @@ import torch
 __all__ = ['kde_cdf_batch', 'kde_cdf_device', 'kde_cdf_batch_plain']
 
 _SQRT1_2 = 0.7071067811865476
-_BLK_N = 1024
 _ERFS = ('exact', 'as')
+# terms summed in the input dtype before a float64 add (``kG`` in
+# csrc/kde.cu), and the most points of one split
+_GROUP = 16
+_SPLIT_N = 512
+# elements of one (S, D, M, chunk) intermediate of the plain version
+_PLAIN_CHUNK = 1 << 22
 
 
 def _erf_as(x):
@@ -35,23 +42,56 @@ def _erf_as(x):
     return sign * (1.0 - poly * torch.exp(-ax * ax))
 
 
-def _phi(z, erf):
-    z = z * _SQRT1_2
-    e = torch.special.erf(z) if erf == 'exact' else _erf_as(z)
-    return 0.5 * (1.0 + e)
+def _plan(N):
+    """``(S, P)``: the points in S splits of P (the last one may be short),
+    P a multiple of ``_GROUP`` and at most ``_SPLIT_N``. It depends on N
+    alone, so the result does not depend on the device."""
+    P = min(_SPLIT_N, -(-N // _GROUP) * _GROUP)
+    return -(-N // P), P
+
+
+def _scales(w, h):
+    """The kernel's per-point and per-column factors: ``w / 2`` and
+    ``sqrt(1/2) / h`` (a tensor division, correctly rounded on the CPU and
+    on the card alike)."""
+    return w * 0.5, torch.full_like(h, _SQRT1_2) / h
 
 
 def kde_cdf_batch_plain(x, data, w, h, erf='exact'):
     """The kernel's plain torch version: ``x`` (D, M) queries, ``data``
     (D, N) per-column points, ``w`` (N,) shared weights, ``h`` (D,)
-    bandwidths, one dtype. Blocked over N, each Phi in the input dtype, the
-    sum in float64; returns (D, M) in the input dtype."""
+    bandwidths, one dtype; returns (D, M) in that dtype. Every term and
+    every sum as ``csrc/kde.cu`` takes them: the points padded with zero
+    weights to S splits of P, each split's terms added in the input dtype
+    in groups of ``_GROUP``, the groups into a float64 sum per split, the
+    splits in order."""
     D, M = x.shape
-    acc = torch.zeros((D, M), dtype=torch.float64, device=x.device)
-    for j in range(0, data.shape[1], _BLK_N):
-        z = (x[:, :, None] - data[:, None, j:j + _BLK_N]) / h[:, None, None]
-        acc += _phi(z, erf).double() @ w[j:j + _BLK_N].double()
-    return acc.to(x.dtype)
+    N = data.shape[1]
+    S, P = _plan(N)
+    G = _GROUP
+    hw, c = _scales(w, h)
+    pad = S * P - N
+    dp = torch.nn.functional.pad(data, (0, pad)).reshape(D, S, P)
+    dp = dp.transpose(0, 1)[:, :, None, :]                 # (S, D, 1, P)
+    wp = torch.nn.functional.pad(hw, (0, pad)).reshape(S, 1, 1, P)
+    xs, cs = x[None, :, :, None], c[None, :, None, None]
+    erf_fn = torch.special.erf if erf == 'exact' else _erf_as
+    # points per step: a multiple of G that keeps the intermediates small
+    step = G * max(1, min(P // G, _PLAIN_CHUNK // (S * D * M * G)))
+    acc = torch.zeros((S, D, M), dtype=torch.float64, device=x.device)
+    for j in range(0, P, step):
+        z = (xs - dp[..., j:j + step]) * cs
+        t = wp[..., j:j + step] * (1.0 + erf_fn(z))
+        t = t.reshape(S, D, M, -1, G)
+        g = torch.zeros(t.shape[:-1], dtype=x.dtype, device=x.device)
+        for k in range(G):
+            g = g + t[..., k]
+        for i in range(g.shape[-1]):
+            acc = acc + g[..., i].double()
+    out = torch.zeros((D, M), dtype=torch.float64, device=x.device)
+    for s_ in range(S):
+        out = out + acc[s_]
+    return out.to(x.dtype)
 
 
 def _check(x, data, w, h):
@@ -75,27 +115,20 @@ def _check(x, data, w, h):
     return x
 
 
-def _splits(D, M, N, device):
-    """Splits of the points (grid z) so that about 8 blocks of 128 queries
-    run on each SM, with at least 1024 points in a split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = D * -(-M // 128)
-    return max(1, min(-(-8 * sms // blocks), -(-N // 1024), 65535))
-
-
 def _launch(x, data, w, h, erf):
     from .._build import load_library
     D, M = x.shape
     N = data.shape[1]
-    S = _splits(D, M, N, x.device)
-    x, data, w, h = (t.contiguous() for t in (x, data, w, h))
+    S, P = _plan(N)
+    x, data = x.contiguous(), data.contiguous()
+    hw, c = (t.contiguous() for t in _scales(w, h))
     part = torch.empty((S, D, M), dtype=torch.float64, device=x.device)
     out = torch.empty((D, M), dtype=x.dtype, device=x.device)
     lib = load_library('kde')
     err = lib.kde_cdf_launch(
         1 if x.dtype == torch.float64 else 0, 1 if erf == 'exact' else 0,
-        D, M, N, S, x.data_ptr(), data.data_ptr(), w.data_ptr(),
-        h.data_ptr(), part.data_ptr(), out.data_ptr(),
+        D, M, N, S, P, x.data_ptr(), data.data_ptr(),
+        hw.data_ptr(), c.data_ptr(), part.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'kde_cdf_launch failed: CUDA error {err} '

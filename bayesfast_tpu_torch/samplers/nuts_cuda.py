@@ -41,6 +41,7 @@ outputs are (K, C, D) and (K, C).
 import ctypes
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -115,24 +116,20 @@ def _transition_seed(seed, i0, t):
 # ---------------------------------------------------------------------------
 # Host-side schedules
 
-@functools.lru_cache(maxsize=None)
-def _schedule_table(max_treedepth):
-    """Per-leaf tree schedule rows [pending, sub_done, w_idx, depth_s] for
-    every global leaf index of a full tree (a pure function of the leaf
-    index: the binary-counter merge count, whether the leaf completes its
-    subtree, and where its frame goes on the stack)."""
-    n_lvl = max(int(max_treedepth) - 1, 1)
-    rows = []
-    for depth_s in range(int(max_treedepth)):
-        for k in range(2 ** depth_s):
-            x, pending = k, 0
-            while x & 1:
-                pending += 1
-                x >>= 1
-            sub_done = int(k + 1 == 2 ** depth_s)
-            w_idx = n_lvl if sub_done else pending
-            rows.append((pending, sub_done, w_idx, depth_s))
-    return np.asarray(rows, np.int32).T.copy()  # (4, total_leaves)
+def _leaf_schedule(it, max_treedepth):
+    """The tree schedule of global leaf ``it``: ``(pending, sub_done,
+    w_idx, depth_s)``, the row the JAX kernels read from their
+    ``_schedule_table``, computed from the leaf index as ``csrc/nuts.cu``
+    computes it in registers. Leaf ``k`` of doubling ``depth_s`` merges
+    ``pending`` = (trailing ones of ``k``) stack frames, completes its
+    subtree when it is the doubling's last leaf, and otherwise leaves its
+    frame at level ``w_idx`` = ``pending``."""
+    depth_s = (it + 1).bit_length() - 1
+    k = it + 1 - (1 << depth_s)
+    pending = (k ^ (k + 1)).bit_length() - 1
+    sub_done = k == (1 << depth_s) - 1
+    w_idx = max(int(max_treedepth) - 1, 1) if sub_done else pending
+    return pending, sub_done, w_idx, depth_s
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,7 +210,6 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
     C, D = q0.shape
     dtype, dev = q0.dtype, q0.device
     n_lvl = max(int(max_treedepth) - 1, 1)
-    sched = _schedule_table(int(max_treedepth))
 
     def energy_of(p, lp):
         return 0.5 * _dot(p, var * p) - lp
@@ -264,9 +260,7 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
         cur = _sel(ok_merge, [nq, npm, ng, cq, cp, ne, nlp], cur)
         diverging = diverging | div
 
-        pending = int(sched[0, it])
-        sub_done = bool(sched[1, it])
-        w_idx = int(sched[2, it])
+        pending, sub_done, w_idx, _ = _leaf_schedule(it, max_treedepth)
 
         # binary-counter merges
         leaf = torch.cat([npm, npm, npm, -d_energy[:, None], nq,
@@ -466,30 +460,57 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # The CUDA kernels
 
 _MAX_D = 64
-_SCHED_CACHE = {}
 
 
-def _sched_on(device, max_treedepth):
-    key = (str(device), int(max_treedepth))
-    if key not in _SCHED_CACHE:
-        _SCHED_CACHE[key] = torch.as_tensor(
-            _schedule_table(int(max_treedepth)), device=device)
-    return _SCHED_CACHE[key]
+# launch specs, by density (held weakly), then by (dtype, device):
+# (key of the inputs, the inputs, spec)
+_SPECS = weakref.WeakKeyDictionary()
+
+
+def _spec_inputs(density):
+    """What ``density.kernel_spec()`` is built from: the transform's scales
+    and bounds, the compiled-in density's buffers with their in-place
+    versions, and its scalar attributes."""
+    inner = density._logp
+    bufs = list(inner.buffers()) if isinstance(inner, torch.nn.Module) else []
+    scalars = [(k, v) for k, v in sorted(vars(inner).items())
+               if isinstance(v, (bool, int, float))]
+    return [density.input_scales, density.hard_bounds] + bufs, \
+        [t._version for t in bufs] + scalars
 
 
 def _spec_for(density, like):
-    """The density's kernel spec with its tensors cast to ``like``'s dtype
-    and device (``NotImplementedError`` for a density without one)."""
-    from ..ops.densities import DENSITY_IDS
+    """The density's kernel spec on ``like``'s dtype and device, as the
+    launch takes it: ``(density id, transform rows (5, D), parameters,
+    logw, scalars)``. It is built once and kept (``_SPECS``) until the
+    dtype or device, the identity of an input of ``kernel_spec()`` or its
+    in-place version, or a scalar attribute of the density changes, so that
+    a launch copies nothing from the host. The entry holds those inputs, so
+    their identities are not reused while it lives. An array mutated in
+    place (the scales or bounds) is not seen: set ``input_scales`` or
+    ``hard_bounds`` anew. ``NotImplementedError`` for a density without a
+    kernel spec."""
     if not getattr(density, 'has_kernel_spec', False):
         raise NotImplementedError(
             'the CUDA NUTS kernels need a density with kernel_spec() '
             '(ops/densities.py); the XLA-tree twin for other densities is '
             'not ported yet.')
-    spec = density.kernel_spec()
-    if spec['dim'] != like.shape[1]:
-        raise ValueError(f"the density has dimension {spec['dim']}, the "
-                         f'chains {like.shape[1]}.')
+    objs, state = _spec_inputs(density)
+    key = (tuple(map(id, objs)), tuple(state))
+    entries = _SPECS.setdefault(density, {})
+    entry = entries.get((like.dtype, like.device))
+    if entry is None or entry[0] != key:
+        entry = (key, objs, _launch_spec(density.kernel_spec(), like))
+        entries[like.dtype, like.device] = entry
+    spec = entry[2]
+    if spec[1].shape[1] != like.shape[1]:
+        raise ValueError(f'the density has dimension {spec[1].shape[1]}, '
+                         f'the chains {like.shape[1]}.')
+    return spec
+
+
+def _launch_spec(spec, like):
+    from ..ops.densities import DENSITY_IDS
     tf = spec['transform']
     tf_mat = torch.stack([tf[k].to(like) for k in
                           ('lo', 'width', 'm_lohi', 'm_lo', 'm_hi')])
@@ -524,7 +545,6 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
         raise ValueError(f'unsupported dtype {dt}.')
     dens_id, tf_mat, dpar, logw, dscal = _spec_for(density, q0)
     _check('q0', q0, (C, D), dt, dev)
-    sched = _sched_on(dev, max_treedepth)
     n_lvl = max(int(max_treedepth) - 1, 1)
 
     def emp(*shape, dtype=dt):
@@ -536,8 +556,10 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
                 tree_size=emp(K, C, dtype=i32), accept_sum=emp(K, C),
                 max_de=emp(K, C), diverging=emp(K, C, dtype=i32),
                 q_final=None if kind == 'block' else emp(C, D))
-    stack = emp(C, n_lvl + 1, 4 * D + 3)
-    ptrs = [q0, *inputs[:2], sched, tf_mat, dpar,
+    # the checkpoint stacks, for launches whose stacks do not fit in shared
+    # memory (csrc/nuts.cu::launch_kernel)
+    stack = emp(C, n_lvl, 4 * D + 3)
+    ptrs = [q0, *inputs[:2], tf_mat, dpar,
             *(rows[k] for k in ('q', 'logp', 'energy', 'energy_change',
                                 'tree_depth', 'tree_size', 'accept_sum',
                                 'max_de', 'diverging', 'q_final')), stack]

@@ -27,8 +27,27 @@ repository root, with no arguments:
 Output, last lines: the card's name and power limit as nvidia-smi reports
 them, one JSON line with each kernel's measurements, and
 ``{"ok": true, "device": {...}}``.
+
+A/B against another checkout on the same card:
+
+    python3 chip_smoke.py --ab PARENT [--gbs-seeds N]
+
+PARENT is a directory holding the other checkout's ``bayesfast_tpu_torch/``
+(for example ``git archive <commit> bayesfast_tpu_torch | tar -x -C
+bayesfast_tpu_torch/build/parent``). The script then runs ``_ab_one`` once
+per checkout, in the order PARENT, this checkout, this checkout, PARENT,
+each in a process of its own that imports that checkout's package and
+builds its kernels, and prints every reading and the ratios of the two
+checkouts' means. Each process runs [3] and [8] (warmup and post-warmup
+it/s) and, on the final states and draws that the first process saved, so
+that every process times the same inputs, [5]'s chunks and [8c]'s block
+launch with their slowest chains, [7]'s KDE kernel, [8d]'s pooled
+transitions and busy share, and GBS on the per-chain draws under generator
+seeds 0 to N - 1 (default 5). Its readings go to ``--work`` (default
+``bayesfast_tpu_torch/build/ab``), one JSON file a process.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -51,6 +70,7 @@ TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 300, 300, 0.
 # (benchmarks/results.jsonl, "fiducial")
 F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
 KDE_M = 512        # queries per column in the KDE kernel-vs-plain checks
+KDE_F32_TOL = 2e-6  # the float32 kernel against the float64 plain version
 # one NVIDIA H100 SXM: fp32 outside the tensor cores, device memory
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # operations per Phi evaluation of the KDE kernel (csrc/kde.cu's note):
@@ -115,6 +135,10 @@ def _time_ms(torch, fn, n):
     return t0.elapsed_time(t1) / n, out
 
 
+def _ms_text(ms):
+    return 'not timed' if ms is None else f'{ms:.3f} ms'
+
+
 def _bench_density(dtype):
     from scipy.stats import special_ortho_group
     from bayesfast_tpu_torch.interop import banana_density
@@ -133,11 +157,11 @@ def _as_dict(q, q_last, stats):
     return d
 
 
-def _compare(name, ker, ref, rtol, min_agree):
-    """Discrete stats equal on at least ``min_agree`` of the chains; on
-    those chains every float within ``rtol`` of the plain value, with a
-    floor of 1% of the output's scale (energy differences: of the energy
-    scale). Returns the max abs error."""
+def _compare(name, ker, ref):
+    """The kernel's outputs must equal the plain version's bit for bit (the
+    plain versions take every operation and sum in the kernels' order).
+    Prints on how many chains the tree statistics agree and the largest
+    float difference; returns that difference."""
     import torch
     same = torch.ones(N_CHAIN, dtype=torch.bool, device=ref['q'].device)
     for k in _DISCRETE:
@@ -146,36 +170,19 @@ def _compare(name, ker, ref, rtol, min_agree):
     bad = (~same).nonzero().flatten().tolist()
     if bad:
         print(f'  {name}: discrete stats differ on chains {bad[:20]}')
-    escale = ref['energy'].abs().max().double()
-    max_err, worst, worst_key = 0.0, 0.0, None
+    max_err = 0.0
     for k in ref:
         if k in _DISCRETE:
             continue
         a, b = ker[k].double(), ref[k].double()
-        # the chain axis: (K, C, D) and (K, C) rows, (C, D) and (C,) states
-        if a.dim() == 3 or (a.dim() == 2 and a.shape[0] != N_CHAIN):
-            a, b = a[:, same], b[:, same]
-        else:
-            a, b = a[same], b[same]
-        if b.numel() == 0:
-            continue
         # equal infinities (a diverged energy) agree
         err = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
-        if k in ('energy_change', 'max_energy_change', 'max_de'):
-            tol = rtol * (b.abs() + escale)
-        else:
-            tol = rtol * (b.abs() + 0.01 * b.abs().max())
         max_err = max(max_err, err.max().item())
-        w = (err / tol.clamp(min=1e-300)).max().item()
-        if w > worst:
-            worst, worst_key = w, k
-    ok = frac >= min_agree and worst <= 1.0
     bitwise = all(torch.equal(ker[k], ref[k]) for k in ref)
-    print(f'  {name}: bitwise equal: {bitwise}')
-    print(f'  {name}: discrete agree on {frac:.4%} of chains, max abs err '
-          f'{max_err:.3e}, worst err / tolerance {worst:.3f} ({worst_key}) -> '
-          f'{"ok" if ok else "FAIL"}')
-    if not ok:
+    print(f'  {name}: bitwise equal: {bitwise}; discrete agree on '
+          f'{frac:.4%} of chains, max abs err {max_err:.3e} -> '
+          f'{"ok" if bitwise else "FAIL"}')
+    if not bitwise:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
                              'version')
     return max_err
@@ -196,7 +203,7 @@ def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
     call, the rest of warmup, then post-warmup in three calls; every launch
     count set to 0 just before and read just after. Checks the counts
     against ``expect``, the samples and the banana's moments; returns
-    (trace tuple, launches)."""
+    (trace tuple, launches, rates): warmup and post-warmup it/s, ESS/s."""
     from bayesfast_tpu_torch.utils.acor import effective_sample_size
     bt.utils.set_generator(32)
     trace = bt.NTrace(n_chain=N_CHAIN, n_iter=N_WARMUP + N_POST,
@@ -238,10 +245,12 @@ def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
     gs = N_CHAIN // n_grp
     ess = float(sum(np.sum(effective_sample_size(s[g * gs:(g + 1) * gs]))
                     / D for g in range(n_grp)))
+    rates = dict(warmup_its=N_CHAIN * (N_WARMUP - 2) / dt_warm,
+                 post_its=N_CHAIN * N_POST / dt_post, ess_s=ess / dt_post)
     print(f'    start-up call (Sobol, descent, probe, 2 iterations) '
           f'{t_start:.2f} s')
-    print(f'    warmup {N_CHAIN * (N_WARMUP - 2) / dt_warm:.1f} it/s, post '
-          f'{N_CHAIN * N_POST / dt_post:.1f} it/s, ESS/s {ess / dt_post:.1f}'
+    print(f'    warmup {rates["warmup_its"]:.1f} it/s, post '
+          f'{rates["post_its"]:.1f} it/s, ESS/s {rates["ess_s"]:.1f}'
           f' (ESS {ess:.1f})')
     print(f'    post-warmup: mean tree size {size_post:.2f}, depth '
           f'{depth_post:.3f}, accept {acc_post:.4f}, divergent '
@@ -259,10 +268,10 @@ def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
           f'(1.5)')
     if not (abs(zm[0] - 1.0) < 0.1 and abs(zm[1] - 1.5) < 0.2):
         raise AssertionError(f'banana moments off: {zm}')
-    return tt, launches
+    return tt, launches, rates
 
 
-def _kernel_vs_plain(torch, den, carry, dtype, rtol, min_agree):
+def _kernel_vs_plain(torch, den, carry, dtype):
     """Both kernels against their plain versions at C=1024, D=32, K=4 on
     the main path's final state (positions, adapted metric and step size)
     cast to ``dtype``, plus the chain_start split. Returns the max abs
@@ -291,8 +300,7 @@ def _kernel_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     print(f'  frozen {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
           f'{ref["diverging"].float().mean().item():.4f}')
-    errs['nuts_multi'] = _compare(f'nuts_multi {tag}', ker, ref, rtol,
-                                  min_agree)
+    errs['nuts_multi'] = _compare(f'nuts_multi {tag}', ker, ref)
 
     # warmup chunk, with a refresh and a window switch inside it
     wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
@@ -305,8 +313,7 @@ def _kernel_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     steps, mets = nc._warmup_leaves(q, step, metric)
     ref = nc.nuts_warmup_chunk_plain(seed, q, steps, mets, *args, plain_lpg,
                                      i0)
-    errs['nuts_warmup'] = _compare(f'nuts_warmup {tag}', ker, ref, rtol,
-                                   min_agree)
+    errs['nuts_warmup'] = _compare(f'nuts_warmup {tag}', ker, ref)
 
     # a chain_start split is bitwise equal within the kernel
     h = N_CHAIN // 2
@@ -330,11 +337,12 @@ def _kernel_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     return errs
 
 
-def _time_chunks(torch, den, carry):
-    """One K=4 chunk of each kernel beside its plain version, at the main
-    path's shapes and final state (CUDA events; the kernel warmed up
-    first), and the chunk's bound from the leapfrogs its trees took.
-    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+def _time_chunks(torch, den, carry, plain=True):
+    """One K=4 chunk of each kernel beside its plain version (unless
+    ``plain`` is false), at the main path's shapes and final state (CUDA
+    events; the kernel warmed up first), and the chunk's bound from the
+    leapfrogs its trees took. Returns ({name: (ms, plain_ms, bound_ms,
+    bound_by)}, {name: its slowest chain, ``_slowest_chain``})."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     plain_lpg = nc.plain_lpg(den)
     q, metric, step = carry.q, carry.metric, carry.step
@@ -360,20 +368,32 @@ def _time_chunks(torch, den, carry):
                                                plain_lpg, 700),
             (q, steps, mets)),
     }
-    times = {}
-    for name, (kern, plain, inputs) in runs.items():
+    times, chains = {}, {}
+    for name, (kern, plain_fn, inputs) in runs.items():
         ms, out = _time_ms(torch, kern, 5)
-        plain_ms, _ = _time_ms(torch, plain, 1)
+        plain_ms = _time_ms(torch, plain_fn, 1)[0] if plain else None
         sizes = (out[2].tree_size if name == 'nuts_multi'
                  else out['tree_size'])
         leapfrogs = int(sizes.sum())
         bound = _bound(leapfrogs * _leapfrog_ops(D), _nbytes(inputs, out))
         times[name] = (ms, plain_ms) + bound
         print(f'  {name}: one K={K_CMP} chunk at C={C}, D={D}, float32: '
-              f'kernel {ms:.3f} ms, plain torch {plain_ms:.3f} ms; '
+              f'kernel {ms:.3f} ms, plain torch {_ms_text(plain_ms)}; '
               f'{leapfrogs} leapfrogs, bound {bound[0]:.4f} ms '
               f'({bound[1]})')
-    return times
+        chains[name] = _slowest_chain(f'  {name}', ms, sizes.sum(dim=0))
+    return times, chains
+
+
+def _slowest_chain(tag, ms, sizes):
+    """Print the max and mean per-chain leapfrog count of a launch and the
+    launch's ns per leapfrog on its slowest chain (a launch lasts as long as
+    that chain's serial chain of leapfrogs); returns them."""
+    mx, mean = int(sizes.max()), float(sizes.float().mean())
+    print(f'{tag}: per-chain leapfrogs max {mx}, mean {mean:.2f}; '
+          f'{1e6 * ms / mx:.1f} ns per leapfrog on the slowest chain')
+    return dict(ms=ms, max_leapfrogs=mx, mean_leapfrogs=mean,
+                ns_per_leapfrog=1e6 * ms / mx)
 
 
 def _block_inputs(torch, carry, dtype):
@@ -387,7 +407,7 @@ def _block_inputs(torch, carry, dtype):
             torch.exp(carry.step.log_step).to(dtype))
 
 
-def _block_vs_plain(torch, den, carry, dtype, rtol, min_agree):
+def _block_vs_plain(torch, den, carry, dtype):
     """[8b] The block kernel against its plain version at C=1024, D=32 on
     the pooled path's final state, and 4 block launches under
     ``_transition_seed`` seeds against one K=4 chunk launch (bitwise).
@@ -414,7 +434,7 @@ def _block_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     print(f'  block {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
           f'{ref["diverging"].float().mean().item():.4f}')
-    err = _compare(f'nuts_block {tag}', ker, ref, rtol, min_agree)
+    err = _compare(f'nuts_block {tag}', ker, ref)
 
     # transition t of a chunk is a block launch under the folded seed
     qc, qf, sc = nc.nuts_chunk_batched(seed, q, metric, eps, K_CMP,
@@ -435,25 +455,27 @@ def _block_vs_plain(torch, den, carry, dtype, rtol, min_agree):
     return err
 
 
-def _time_block(torch, den, carry):
+def _time_block(torch, den, carry, plain=True):
     """[8c] One block launch at the pooled path's shapes and final state
-    beside its plain version (CUDA events), and its bound from the
-    leapfrogs its trees took. Returns (ms, plain_ms, bound_ms,
-    bound_by)."""
+    beside its plain version (unless ``plain`` is false; CUDA events), and
+    its bound from the leapfrogs its trees took. Returns ((ms, plain_ms,
+    bound_ms, bound_by), its slowest chain)."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     q, metric, eps = _block_inputs(torch, carry, torch.float32)
     var = nc._mat(metric.var, N_CHAIN, D, q)
     ms, out = _time_ms(torch, lambda: nc.nuts_transition_batched(
         5, q, metric, eps, MAX_TREEDEPTH, MAX_CHANGE, density=den), 10)
-    plain_ms, _ = _time_ms(torch, lambda: nc.nuts_block_plain(
-        5, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, nc.plain_lpg(den)), 1)
+    plain_ms = _time_ms(torch, lambda: nc.nuts_block_plain(
+        5, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, nc.plain_lpg(den)),
+        1)[0] if plain else None
     leapfrogs = int(out[1].tree_size.sum())
     bound = _bound(leapfrogs * _leapfrog_ops(D),
                    _nbytes(q, metric.var, eps, out))
     print(f'[8c] one block transition at C={N_CHAIN}, D={D}, float32: '
-          f'kernel {ms:.3f} ms, plain torch {plain_ms:.3f} ms; {leapfrogs} '
-          f'leapfrogs, bound {bound[0]:.4f} ms ({bound[1]})')
-    return (ms, plain_ms) + bound
+          f'kernel {ms:.3f} ms, plain torch {_ms_text(plain_ms)}; '
+          f'{leapfrogs} leapfrogs, bound {bound[0]:.4f} ms ({bound[1]})')
+    return (ms, plain_ms) + bound, _slowest_chain('[8c]', ms,
+                                                  out[1].tree_size)
 
 
 def _tree_loop(torch, bt):
@@ -533,7 +555,7 @@ def _gbs_on_trace(bt, tt, den):
 def _device_share(torch, tag, fn):
     """``fn()`` under torch.profiler: the device's kernel time (its busy
     time, one stream) over the run's host wall, and the kernels that take
-    the most of it."""
+    the most of it; returns the busy share (None if not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -548,7 +570,7 @@ def _device_share(torch, tag, fn):
     if busy == 0:
         print(f'{tag}: the profiler recorded no device time; device busy '
               'share not measured')
-        return
+        return None
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     print(f'{tag}: wall {wall:.3f} s, device busy {busy:.3f} s '
           f'({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} '
@@ -556,12 +578,13 @@ def _device_share(torch, tag, fn):
     for e in top:
         print(f'    {e.self_device_time_total / 1e3:9.2f} ms  '
               f'{e.count:6d} x  {e.key[:90]}')
+    return busy / wall
 
 
 def _pooled_step_share(torch, den, carry, n):
     """[8d] ``n`` pooled warmup transitions of ``ChainDriver.run`` from the
     pooled path's final state: host ms per transition without the
-    profiler, then the device busy share under it."""
+    profiler, then the device busy share under it; returns both."""
     from bayesfast_tpu_torch.config import get_nuts_kernel
     from bayesfast_tpu_torch.samplers.chain import ChainDriver
     drv = ChainDriver(den, max_treedepth=MAX_TREEDEPTH, pooled_metric=True,
@@ -571,51 +594,80 @@ def _pooled_step_share(torch, den, carry, n):
     t0 = time.time()
     drv.run(carry, [True] * n)
     torch.cuda.synchronize()
+    ms = 1e3 * (time.time() - t0) / n
     print(f'[8d] {n} pooled warmup transitions (ChainDriver.run, no '
-          f'back-transform): {1e3 * (time.time() - t0) / n:.3f} ms each')
-    _device_share(torch, f'[8d] profiled {n} transitions',
-                  lambda: drv.run(carry, [True] * n))
+          f'back-transform): {ms:.3f} ms each')
+    return ms, _device_share(torch, f'[8d] profiled {n} transitions',
+                             lambda: drv.run(carry, [True] * n))
+
+
+def _kde_inputs(torch, draws, dtype, n_cut=0, m=KDE_M):
+    """The KDE kernel's inputs at the SIT fit's shape, on the card: the
+    first 512 chains' post-warmup ``draws`` (C, N_POST, D), standardized,
+    as D columns of N points (less the last ``n_cut``), ``m`` sorted
+    queries a column, equal weights and Scott-rule bandwidths; returns
+    (x, data, w, h) in ``dtype``."""
+    y = draws[:N_CHAIN // 2].reshape(-1, D)
+    y = (y - y.mean(0)) / y.std(0)
+    y = y[:y.shape[0] - n_cut]
+    N = y.shape[0]
+    xq = np.sort(np.random.default_rng(7).normal(size=(D, KDE_M)) * 1.5,
+                 axis=1)[:, :m]
+    h = y.std(0) * N ** -0.2
+    return [torch.as_tensor(a, dtype=dtype, device=torch.device('cuda', 0))
+            for a in (xq, y.T.copy(), np.full(N, 1.0 / N), h)]
 
 
 def _kde_vs_plain(torch, tt):
     """[7] The KDE kernel against its plain version at the SIT fit's shape
     (D = 32 columns of the main path's draws, M = 512 queries, N = 153,600
-    points), both forms of Phi, float32 and float64, and D = 1 through
-    kde_cdf_device; then its time beside its bound, the plain version and
-    the blocked ndtr + matmul formulation. Returns the float32 max abs
-    error and (ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    points) and at M = 500, N = 153,595 (a short last split and group and
+    masked queries), both forms of Phi, float32 and float64, and D = 1
+    through kde_cdf_device; then its time beside its bound, the plain
+    version and the blocked ndtr + matmul formulation. Returns the float32
+    max abs error and (ms, plain_ms, bound_ms, bound_by, library_ms)."""
     from bayesfast_tpu_torch.ops import kde as tk
-    dev = torch.device('cuda', 0)
-    y = tt.get(flatten=False)[:N_CHAIN // 2].reshape(-1, D)
-    y = (y - y.mean(0)) / y.std(0)
-    N = y.shape[0]
-    rng = np.random.default_rng(7)
-    xq = np.sort(rng.normal(size=(D, KDE_M)) * 1.5, axis=1)
-    h = y.std(0) * N ** -0.2
-    tols = {torch.float32: 1e-5, torch.float64: 1e-12}
-    err32 = 0.0
-    for dt, tol in tols.items():
-        x, data, w, hd = (torch.as_tensor(a, dtype=dt, device=dev)
-                          for a in (xq, y.T.copy(), np.full(N, 1.0 / N), h))
-        for erf in ('exact', 'as'):
-            k = tk.kde_cdf_batch(x, data, w, hd, erf)
-            torch.cuda.synchronize()
-            p = tk.kde_cdf_batch_plain(x, data, w, hd, erf)
-            e = (k.double() - p.double()).abs().max().item()
-            k1 = tk.kde_cdf_device(x[3], data[3], w, hd[3], erf)
-            p1 = tk.kde_cdf_batch_plain(x[3:4], data[3:4], w, hd[3:4],
-                                        erf)[0]
-            e1 = (k1.double() - p1.double()).abs().max().item()
-            tag = str(dt).replace('torch.', '')
-            print(f'  kde_cdf {tag} {erf}: D={D} max abs err {e:.3e}, '
-                  f'D=1 {e1:.3e} (tolerance {tol:g})')
-            if not (e <= tol and e1 <= tol):
-                raise AssertionError(f'kde_cdf {tag} {erf} disagrees with '
-                                     'its plain version')
-            if dt == torch.float32:
-                err32 = max(err32, e, e1)
-    x, data, w, hd = (torch.as_tensor(a, dtype=torch.float32, device=dev)
-                      for a in (xq, y.T.copy(), np.full(N, 1.0 / N), h))
+    draws = tt.get(flatten=False)
+    err32, outs = 0.0, {}
+    # (points cut, queries): the SIT fit's shape, then one whose last split
+    # and last group are short and whose last block masks 12 queries
+    shapes = ((0, KDE_M), (5, KDE_M - 12))
+    for dt in (torch.float64, torch.float32):
+        tag = str(dt).replace('torch.', '')
+        for n_cut, m in shapes:
+            x, data, w, hd = _kde_inputs(torch, draws, dt, n_cut, m)
+            for erf in ('exact', 'as'):
+                k = tk.kde_cdf_batch(x, data, w, hd, erf)
+                torch.cuda.synchronize()
+                p = tk.kde_cdf_batch_plain(x, data, w, hd, erf)
+                e = (k.double() - p.double()).abs().max().item()
+                k1 = tk.kde_cdf_device(x[3], data[3], w, hd[3], erf)
+                p1 = tk.kde_cdf_batch_plain(x[3:4], data[3:4], w, hd[3:4],
+                                            erf)[0]
+                e1 = (k1.double() - p1.double()).abs().max().item()
+                bitwise = torch.equal(k, p) and torch.equal(k1, p1)
+                if n_cut == 0:
+                    outs[dt, erf] = (k, p)
+                print(f'  kde_cdf {tag} {erf} M={m} N={data.shape[1]}: D={D} '
+                      f'max abs err {e:.3e}, D=1 {e1:.3e}; bitwise equal: '
+                      f'{bitwise}')
+                if not bitwise:
+                    raise AssertionError(f'kde_cdf {tag} {erf} M={m} '
+                                         'disagrees with its plain version')
+                if dt == torch.float32:
+                    err32 = max(err32, e, e1)
+    # the float32 kernel against the float64 plain version: what the
+    # float32 terms and group sums cost in accuracy
+    for erf in ('exact', 'as'):
+        e = (outs[torch.float32, erf][0].double()
+             - outs[torch.float64, erf][1]).abs().max().item()
+        print(f'  kde_cdf float32 kernel vs float64 plain, {erf}: max abs err '
+              f'{e:.3e} (gate {KDE_F32_TOL:g})')
+        if not e <= KDE_F32_TOL:
+            raise AssertionError(f'kde_cdf float32 {erf} is off the float64 '
+                                 'plain version')
+    x, data, w, hd = _kde_inputs(torch, draws, torch.float32)
+    N, dev = data.shape[1], x.device
 
     def library():
         acc = torch.zeros((D, KDE_M), dtype=torch.float32, device=dev)
@@ -635,6 +687,103 @@ def _kde_vs_plain(torch, tt):
           f'{ms:.3f} ms, plain {plain_ms:.3f} ms, blocked ndtr + matmul '
           f'{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})')
     return err32, (ms, plain_ms) + bound + (lib_ms,)
+
+
+def _ab_one(tree, state, out_path, n_seeds):
+    """One process of the A/B: the checkout at ``tree`` measured as
+    ``main`` measures it, its readings written to ``out_path``; the first
+    process saves the inputs of the timed phases to ``state``."""
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device.')
+    import bayesfast_tpu_torch as bt
+    from bayesfast_tpu_torch import _build, config
+    from bayesfast_tpu_torch.ops import kde as tk
+    assert os.path.dirname(os.path.dirname(bt.__file__)) == tree
+    warnings.filterwarnings('ignore', message='for chain #')
+    _build.build_library()
+    config.set_dtype(torch.float32)
+    config.set_nuts_kernel('cuda')
+    A, den = _bench_density(torch.float32)
+    res = {'tree': tree, 'device': torch.cuda.get_device_name(0),
+           'nvidia_smi': _nvidia_smi()}
+    tt, _, res['chain'] = _sample_path(
+        torch, bt, den, A, '[3]', {'nuts_warmup': 1 + 4 * 2,
+                                   'nuts_multi': 3 * 2})
+    tp, _, res['pooled'] = _sample_path(
+        torch, bt, den, A, '[8]', {'nuts_block': N_WARMUP,
+                                   'nuts_multi': 3 * 2}, pooled_metric=True)
+    if not os.path.exists(state):
+        torch.save({'carry': tt.trace._carry, 'pooled': tp.trace._carry,
+                    'draws': tt.get(flatten=False)}, state)
+    st = torch.load(state, weights_only=False)
+    res.update(_time_chunks(torch, den, st['carry'], plain=False)[1])
+    res['nuts_block'] = _time_block(torch, den, st['pooled'], plain=False)[1]
+    x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
+    res['kde_ms'] = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, h),
+                             10)[0]
+    res['pooled_ms'], res['busy_share'] = _pooled_step_share(
+        torch, den, st['pooled'], 50)
+    res['gbs'] = []
+    for seed in range(n_seeds):
+        bt.utils.set_generator(seed)
+        # n_q as [6] sizes it on the trace (f_call x calls, capped)
+        logz, err = bt.evidence.GBS(n_q=N_Q_MAX)(st['draws'], den.logp)
+        res['gbs'].append((float(logz), float(err)))
+    with open(out_path, 'w') as f:
+        json.dump(res, f, indent=1)
+
+
+def _ab_readings(res):
+    """The readings of one A/B process, by name."""
+    out = {'warmup it/s [3]': res['chain']['warmup_its'],
+           'post it/s [3]': res['chain']['post_its'],
+           'pooled warmup it/s [8]': res['pooled']['warmup_its'],
+           'kde ms [7]': res['kde_ms'],
+           'ms per pooled transition [8d]': res['pooled_ms'],
+           'busy share [8d]': res['busy_share']}
+    for k in ('nuts_block', 'nuts_multi', 'nuts_warmup'):
+        for f in ('ms', 'max_leapfrogs', 'mean_leapfrogs', 'ns_per_leapfrog'):
+            out[f'{k} {f}'] = res[k][f]
+    logz = np.array([z for z, _ in res['gbs']])
+    if len(logz) > 1:
+        out['gbs logz, mean over seeds'] = float(logz.mean())
+        out['gbs logz, sd over seeds'] = float(logz.std(ddof=1))
+    return out
+
+
+def _ab(parent, work, n_seeds):
+    """Parent, this checkout, this checkout, parent; then the table."""
+    os.makedirs(work, exist_ok=True)
+    state = os.path.join(work, 'state.pt')
+    if os.path.exists(state):
+        os.unlink(state)
+    runs = []
+    for i, tree in enumerate((parent, _REPO, _REPO, parent)):
+        out = os.path.join(work, f'run{i}.json')
+        print(f'[run {i}] {tree}', flush=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--ab-one', tree, state, out, '--gbs-seeds',
+                        str(n_seeds)], check=True, stdout=subprocess.DEVNULL)
+        with open(out) as f:
+            runs.append(json.load(f))
+    os.unlink(state)
+    print(f'device: {runs[0]["device"]}; nvidia-smi: {runs[0]["nvidia_smi"]}')
+    rows = [_ab_readings(r) for r in runs]
+    print(f'{"reading":34s} {"parent 0":>12s} {"change 1":>12s} '
+          f'{"change 2":>12s} {"parent 3":>12s} {"parent/change":>13s}')
+    for k in rows[0]:
+        v = [r[k] for r in rows]
+        ratio = ((v[0] + v[3]) / (v[1] + v[2])
+                 if None not in v and v[1] + v[2] else float('nan'))
+        print(f'{k:34s} ' + ' '.join(f'{x:12.4f}' if x is not None
+                                     else f'{"-":>12s}' for x in v)
+              + f' {ratio:13.3f}')
+    for i, r in enumerate(runs):
+        print(f'gbs run {i}: ' + ', '.join(f'{z:.4f} +- {e:.4f}'
+                                           for z, e in r['gbs']))
+    return 0
 
 
 def main():
@@ -666,7 +815,7 @@ def main():
     config.set_dtype(torch.float32)
     config.set_nuts_kernel('cuda')
     A, den = _bench_density(torch.float32)
-    tt, launches = _sample_path(torch, bt, den, A, '[3] main path',
+    tt, launches, _ = _sample_path(torch, bt, den, A, '[3] main path',
                                 {'nuts_warmup': 1 + 4 * 2,
                                  'nuts_multi': 3 * 2})
 
@@ -693,12 +842,12 @@ def main():
     # final state ----
     print('[4] kernel vs plain, C=1024, D=32, K=4, bench banana with bounds')
     carry = tt.trace._carry
-    errs64 = _kernel_vs_plain(torch, den, carry, torch.float64, 1e-9, 0.999)
-    errs32 = _kernel_vs_plain(torch, den, carry, torch.float32, 1e-4, 0.99)
+    errs64 = _kernel_vs_plain(torch, den, carry, torch.float64)
+    errs32 = _kernel_vs_plain(torch, den, carry, torch.float32)
 
     # ---- [5] one chunk: kernel time beside the plain version's ----
     print('[5] chunk timing (CUDA events)')
-    times = _time_chunks(torch, den, tt.trace._carry)
+    times = _time_chunks(torch, den, tt.trace._carry)[0]
     print(f'    max abs err float64 {errs64}, float32 {errs32}')
 
     # ---- [6] the evidence path: GBS on the sampling path's trace ----
@@ -713,9 +862,9 @@ def main():
 
     # ---- [8] pooled-metric sampling: warmup on the block kernel, one
     # launch per transition, post-warmup on the frozen chunks ----
-    tp, pooled = _sample_path(torch, bt, den, A, '[8] pooled main path',
-                              {'nuts_block': N_WARMUP, 'nuts_multi': 3 * 2},
-                              pooled_metric=True)
+    tp, pooled, _ = _sample_path(torch, bt, den, A, '[8] pooled main path',
+                                 {'nuts_block': N_WARMUP,
+                                  'nuts_multi': 3 * 2}, pooled_metric=True)
     launches['nuts_block'] = pooled['nuts_block']
     var_shape = tuple(tp.trace._carry.metric.var.shape)
     print(f'    shared metric variance shape {var_shape}')
@@ -725,15 +874,13 @@ def main():
     # ---- [8b] the block kernel against its plain version ----
     print('[8b] block kernel vs plain, C=1024, D=32, pooled final state')
     carry = tp.trace._carry
-    errs64['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float64,
-                                           1e-9, 0.999)
-    errs32['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float32,
-                                           1e-4, 0.99)
+    errs64['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float64)
+    errs32['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float32)
     print(f'    max abs err float64 {errs64["nuts_block"]}, float32 '
           f'{errs32["nuts_block"]}')
 
     # ---- [8c] one block launch: kernel time beside the plain version's
-    times['nuts_block'] = _time_block(torch, den, carry)
+    times['nuts_block'] = _time_block(torch, den, carry)[0]
     _pooled_step_share(torch, den, carry, 50)
 
     # ---- [9] the full metric on the torch tree loop ----
@@ -766,9 +913,28 @@ def main():
     return 0
 
 
+def _args():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--ab', metavar='PARENT',
+                    help='time this checkout against PARENT, in turns')
+    ap.add_argument('--ab-one', nargs=3, metavar=('TREE', 'STATE', 'OUT'),
+                    help='one process of the A/B')
+    ap.add_argument('--gbs-seeds', type=int, default=5)
+    ap.add_argument('--work', default=os.path.join(
+        _REPO, 'bayesfast_tpu_torch', 'build', 'ab'))
+    return ap.parse_args()
+
+
 if __name__ == '__main__':
+    a = _args()
     try:
-        rc = main()
+        if a.ab_one:
+            rc = _ab_one(os.path.abspath(a.ab_one[0]), *a.ab_one[1:],
+                         a.gbs_seeds) or 0
+        elif a.ab:
+            rc = _ab(os.path.abspath(a.ab), a.work, a.gbs_seeds)
+        else:
+            rc = main()
     except Exception:
         traceback.print_exc()
         rc = 1

@@ -16,6 +16,7 @@ summation order).
 """
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -99,3 +100,31 @@ def test_block_wrapper_on_cpu():
         tnc.nuts_transition_batched(11, q0t, init_diag_metric(q0t, var1),
                                     torch.as_tensor(eps), MAXDEPTH,
                                     MAX_CHANGE, density=den_t, kernel='cuda')
+
+
+def test_launch_spec_is_built_once_per_transform():
+    """The wrappers keep a density's launch spec per (dtype, device), so a
+    launch copies nothing from the host; setting the transform, changing a
+    parameter tensor in place or a scalar of the density builds it again."""
+    _, den_t, q0, _, _ = _setup()
+    like = torch.as_tensor(q0)
+    first = tnc._spec_for(den_t, like)
+    assert tnc._spec_for(den_t, like) is first
+    f32 = tnc._spec_for(den_t, like.float())
+    assert f32 is not first and f32[1].dtype == torch.float32
+    assert tnc._spec_for(den_t, like.float()) is f32
+    den_t.input_scales = den_t.input_scales * 2.0
+    again = tnc._spec_for(den_t, like)
+    assert again is not first
+    np.testing.assert_allclose(again[1][1].numpy(),
+                               2.0 * first[1][1].numpy())
+    inner = den_t._logp
+    params = again[2].clone()
+    inner.A.mul_(-1.0)
+    flipped = tnc._spec_for(den_t, like)
+    assert flipped is not again
+    torch.testing.assert_close(flipped[2], -params, rtol=0, atol=0)
+    inner.Q = inner.Q * 3.0
+    rescaled = tnc._spec_for(den_t, like)
+    assert rescaled is not flipped and rescaled[4][0] == inner.Q
+    assert tnc._spec_for(den_t, like) is rescaled

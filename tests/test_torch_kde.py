@@ -142,3 +142,29 @@ def test_utils_kde_resample_with_torch_generator():
     a = k.resample(20, torch.Generator().manual_seed(3))
     b = k.resample(20, torch.Generator().manual_seed(3))
     assert a.shape == (20, 2) and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize('erf', ['exact', 'as'])
+@pytest.mark.parametrize('D,M,N', [(2, 100, 5000), (3, 64, 1037)])
+def test_float32_groups_hold_to_float64(erf, D, M, N):
+    """The plain version sums float32 terms in groups of ``_GROUP`` before
+    its float64 sums; that costs under 2e-6 against the same inputs in
+    float64."""
+    x, data, w, h = _inputs(D, M, N, N)
+    want = tkp.kde_cdf_batch_plain(
+        *(torch.as_tensor(a) for a in (x, data, w, h)), erf=erf)
+    got = tkp.kde_cdf_batch_plain(
+        *(torch.as_tensor(a, dtype=torch.float32) for a in (x, data, w, h)),
+        erf=erf)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize('N', [1, 7, 8, 511, 512, 513, 1030, 153600])
+def test_split_plan_covers_every_point_once(N):
+    """S splits of P points, P a multiple of the group and at most the
+    split length, the last split short but not empty."""
+    S, P = tkp._plan(N)
+    assert P % tkp._GROUP == 0 and P <= tkp._SPLIT_N
+    assert (S - 1) * P < N <= S * P
