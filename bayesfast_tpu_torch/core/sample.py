@@ -15,6 +15,11 @@ package dispatches (``core/sample.py:580-602``):
 * a full metric, or a density without ``kernel_spec()``: every transition
   on the per-transition path through the torch tree loop.
 
+A ``Density`` (a module pipeline) has a kernel spec when its active plan is
+the Recipe's surrogate, a ``PolyModel`` and a ``Gaussian``
+(``Density.kernel_spec``); the kernels then read its coefficients as they
+stand at each launch, so a refit between calls is seen.
+
 The JAX package's other samplers and its mesh paths are not part of this
 module.
 """
@@ -35,6 +40,7 @@ from ..samplers import nuts as _nuts
 from ..utils.random import generator_from_seed
 from ..utils.sobol import multivariate_normal
 from .density import DensityLite
+from .pipeline import Density
 
 __all__ = ['sample']
 
@@ -223,8 +229,8 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
     kernels ('auto': CUDA kernels for CUDA tensors, plain torch on the
     CPU).
     """
-    if not isinstance(density, DensityLite):
-        raise ValueError('density should be a DensityLite.')
+    if not isinstance(density, (Density, DensityLite)):
+        raise ValueError('density should be a Density or DensityLite.')
 
     trace = _resolve_trace(sample_trace, sampler)
     dtype = get_dtype()
@@ -236,7 +242,8 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
         dim = density.input_size
         if dim is None:
             raise RuntimeError('Neither SampleTrace.x_0 nor '
-                               'DensityLite.input_size is defined.')
+                               'Density/DensityLite.input_size is '
+                               'defined.')
         trace._x_0 = multivariate_normal(
             np.zeros(dim), np.eye(dim), trace.n_chain)
         trace._x_0_transformed = True

@@ -235,6 +235,7 @@ struct Banana {  // bench.py:139-145: z = A x, even-i banana terms
   static constexpr int P = 32 * NE, S = row_stride<T, NE>();
   // A and A^T, zero-padded, row stride S; then each warp's x buffer
   static constexpr int kSmem = 2 * P * S + kWarps * P;
+  __host__ __device__ size_t smem_elems() const { return kSmem; }
   const T* A;  // (D, D) row-major, device memory
   int D;
   T Q, cst;
@@ -309,6 +310,7 @@ struct Banana {  // bench.py:139-145: z = A x, even-i banana terms
 template <typename T, int NE>
 struct Gaussian {  // logp = -0.5 sum (x - mean)^2 / var
   static constexpr int kSmem = 0;
+  __host__ __device__ size_t smem_elems() const { return kSmem; }
   const T* mean;
   const T* var;
   int D;
@@ -342,6 +344,277 @@ struct Gaussian {  // logp = -0.5 sum (x - mean)^2 / var
   }
 
   __device__ T finish(T sum) const { return T(-0.5) * sum; }
+};
+
+// The surrogate density of a Recipe (ops/densities.py::poly_gaussian_spec):
+// m = PolyModel(x) with linear and quadratic configs, then the Gaussian
+// log-likelihood -0.5 sum_j (m_j - d_j)^2 vinv_j + norm (diagonal) or
+// -0.5 r' P r + norm, r = m - d (full: a precision matvec), with the
+// PolyModel's linear extrapolation beyond its alpha-ellipsoid
+// (bayesfast_tpu/modules/poly.py:319-341) and the Density's decay penalty
+// -gamma max(dd' Hd dd - alpha_d^2, 0) (core/pipeline.py:470-474), and
+// the analytic gradient of all of it. The features phi_f = xa[i1_f] *
+// xa[i2_f] over xa = [x0, 1]; m = phi WT, WT (F, M).
+// Work per evaluation: F M multiply-adds forward (lanes over outputs, a
+// sum over the features in order each) and F M back (for each feature a
+// lane partial over the lane's outputs, then a butterfly), both reading
+// WT from device memory through the read-only path (L2-resident: 133 KB
+// in f32 at the DES shape, F = 73, M = 457); the two D x D Hessians are
+// staged in shared memory for `matvec`, beside each warp's exchange
+// buffers (x, xa, phi, its gradient, the outputs' gradients; with a full
+// precision also r and m0 - f_mu) and the integer tables. P (M x M, 835
+// KB in f32 at M = 457) is read from device memory, one row of it for each
+// k, as each lane's outputs sum over k in order.
+template <typename T, int NE>
+struct PolyGaussian {
+  static constexpr int P = 32 * NE, S = row_stride<T, NE>();
+  const T* par;  // packed parameters, device memory (see `locate`)
+  int D, M, F, NNZ;
+  bool bound_on, decay_on, full;
+  T nrm, gamma, alpha, alpha2;
+  const T *WT, *dat, *vinv, *fmu, *mup, *Hp, *mud, *Hd, *Pm, *ints;
+  const T *sHp, *sHd;
+  T *xbuf, *xa, *phi, *gphi, *gbuf, *rbuf, *mbuf;
+  const int *si1, *si2, *srp, *scf, *scp;
+  T mp[NE], md[NE];  // this lane's bound and decay centres
+  mutable T dec;     // the decay penalty of the last evaluation
+
+  __host__ __device__ static int up4(int n) { return (n + 3) & ~3; }
+  __host__ __device__ int n_ints() const { return 2 * F + D + 1 + 2 * NNZ; }
+  __host__ __device__ int warp_elems() const {
+    return P + up4(P + 1) + 2 * up4(F) + (full ? 3 : 1) * up4(M);
+  }
+  __host__ __device__ size_t smem_elems() const {
+    const int int_elems = up4((n_ints() * 4 + (int)sizeof(T) - 1) /
+                              (int)sizeof(T));
+    return 2 * P * S + kWarps * warp_elems() + int_elems;
+  }
+
+  // offsets of the packed vector: WT, dat, vinv, fmu, mup, Hp, mud, Hd,
+  // P (full precision only), then the integer tables i1, i2, rowptr, cf,
+  // cp (as T values)
+  __host__ void locate() {
+    WT = par;
+    dat = WT + (size_t)F * M;
+    vinv = dat + M;
+    fmu = vinv + M;
+    mup = fmu + M;
+    Hp = mup + D;
+    mud = Hp + D * D;
+    Hd = mud + D;
+    Pm = Hd + D * D;
+    ints = Pm + (full ? (size_t)M * M : 0);
+  }
+
+  __device__ void stage(T* smem) const {
+    for (int i = threadIdx.x; i < P * P; i += blockDim.x) {
+      const int r = i / P, c = i % P;
+      const bool in = r < D && c < D;
+      smem[r * S + c] = in ? Hp[r * D + c] : T(0);
+      smem[P * S + r * S + c] = in ? Hd[r * D + c] : T(0);
+    }
+    int* ip = reinterpret_cast<int*>(smem + 2 * P * S +
+                                     kWarps * warp_elems());
+    for (int i = threadIdx.x; i < n_ints(); i += blockDim.x)
+      ip[i] = (int)ints[i];
+  }
+
+  __device__ void bind(T* smem) {
+    const int lane = threadIdx.x & 31;
+    sHp = smem;
+    sHd = smem + P * S;
+    T* w = smem + 2 * P * S + (threadIdx.x >> 5) * warp_elems();
+    xbuf = w;
+    xa = xbuf + P;
+    phi = xa + up4(P + 1);
+    gphi = phi + up4(F);
+    gbuf = gphi + up4(F);
+    rbuf = gbuf + up4(M);
+    mbuf = rbuf + up4(M);
+    si1 = reinterpret_cast<const int*>(smem + 2 * P * S +
+                                       kWarps * warp_elems());
+    si2 = si1 + F;
+    srp = si2 + F;
+    scf = srp + D + 1;
+    scp = scf + NNZ;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int d = lane + 32 * e;
+      mp[e] = d < D ? mup[d] : T(0);
+      md[e] = d < D ? mud[d] : T(0);
+    }
+  }
+
+  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+    const int lane = threadIdx.x & 31;
+    T xm[NE], x0[NE], hdel[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      xm[e] = lane + 32 * e < D ? x[e] : T(0);
+      x0[e] = xm[e];
+      hdel[e] = T(0);
+    }
+    // the bound: beta^2 = delta' Hp delta, warp-uniform
+    bool outside = false;
+    T beta = T(1);
+    if (bound_on) {
+      T del[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) del[e] = xm[e] - mp[e];
+      matvec<T, NE>(sHp, xbuf, del, hdel);
+      T s = T(0);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) s += del[e] * hdel[e];
+      T b2 = warp_sum(s);
+      b2 = b2 < T(1e-30) ? T(1e-30) : b2;
+      beta = m_sqrt(b2);
+      outside = beta > alpha;
+      if (outside) {
+#pragma unroll
+        for (int e = 0; e < NE; ++e)
+          x0[e] = (alpha * xm[e] + (beta - alpha) * mp[e]) / beta;
+      }
+    }
+    __syncwarp();  // the buffers' last readers are done
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+      if (lane + 32 * e < D) xa[lane + 32 * e] = x0[e];
+    if (lane == 0) xa[D] = T(1);
+    __syncwarp();
+    for (int f = lane; f < F; f += 32) phi[f] = xa[si1[f]] * xa[si2[f]];
+    __syncwarp();
+    // m_j = sum_f WT[f, j] phi_f in order of f, four of the lane's outputs
+    // at a time; then the likelihood and d logp / d m0
+    T part = T(0), sb = T(0);
+    for (int j0 = lane; j0 < M; j0 += 128) {
+      T acc[4] = {T(0), T(0), T(0), T(0)};
+      for (int f = 0; f < F; ++f) {
+        const T ph = phi[f];
+        const T* w = WT + (size_t)f * M + j0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j0 + 32 * u < M) acc[u] += __ldg(w + 32 * u) * ph;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < M) {
+          const T m0 = acc[u];
+          const T fm = outside ? __ldg(fmu + j) : T(0);
+          const T m = outside ? (beta * m0 - (beta - alpha) * fm) / alpha : m0;
+          const T r = m - __ldg(dat + j);
+          if (full) {  // the likelihood waits for every r (below)
+            rbuf[j] = r;
+            if (outside) mbuf[j] = m0 - fm;
+          } else {
+            const T rv = r * __ldg(vinv + j);
+            part += rv * r;
+            const T gm = -rv;
+            gbuf[j] = outside ? gm * beta / alpha : gm;
+            if (outside) sb += gm * (m0 - fm);
+          }
+        }
+      }
+    }
+    if (full) {
+      // (P r)_j = sum_k P[k, j] r_k in order of k (P symmetric: row k of
+      // P is its column k, read coalesced), four of the lane's outputs at
+      // a time; then the likelihood and d logp / d m0
+      __syncwarp();
+      for (int j0 = lane; j0 < M; j0 += 128) {
+        T acc[4] = {T(0), T(0), T(0), T(0)};
+        for (int k = 0; k < M; ++k) {
+          const T rk = rbuf[k];
+          const T* p = Pm + (size_t)k * M + j0;
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (j0 + 32 * u < M) acc[u] += __ldg(p + 32 * u) * rk;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + 32 * u;
+          if (j < M) {
+            part += rbuf[j] * acc[u];
+            const T gm = -acc[u];
+            gbuf[j] = outside ? gm * beta / alpha : gm;
+            if (outside) sb += gm * mbuf[j];
+          }
+        }
+      }
+    }
+    __syncwarp();
+    // d logp / d phi_f = sum_j WT[f, j] gm0_j: the lane's outputs in
+    // order, then the butterfly, four features at a time
+    for (int f0 = 0; f0 < F; f0 += 4) {
+      T s[4] = {T(0), T(0), T(0), T(0)};
+      for (int j = lane; j < M; j += 32) {
+        const T gj = gbuf[j];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (f0 + u < F) s[u] += __ldg(WT + (size_t)(f0 + u) * M + j) * gj;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[u] += __shfl_xor_sync(kFull, s[u], o);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (f0 + u < F) gphi[f0 + u] = s[u];
+      }
+    }
+    __syncwarp();
+    // d logp / d x0_d over the dimension's sparse row, in order
+    T g0[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int d = lane + 32 * e;
+      T s = T(0);
+      if (d < D)
+        for (int t = srp[d]; t < srp[d + 1]; ++t) s += gphi[scf[t]] * xa[scp[t]];
+      g0[e] = s;
+    }
+    if (outside) {
+      // through x0(x, beta(x)) and the beta of the extrapolated output
+      T dt = T(0);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) dt += g0[e] * (mp[e] - x0[e]);
+      for (int o = 16; o > 0; o >>= 1) {
+        const T a1 = __shfl_xor_sync(kFull, sb, o);
+        const T a2 = __shfl_xor_sync(kFull, dt, o);
+        sb += a1;
+        dt += a2;
+      }
+      const T s_beta = sb / alpha;
+      const T dldb = s_beta + dt / beta;
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+        g[e] = g0[e] * alpha / beta + dldb * hdel[e] / beta;
+    } else {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) g[e] = g0[e];
+    }
+    dec = T(0);
+    if (decay_on) {
+      T dd[NE], hdd[NE];
+#pragma unroll
+      for (int e = 0; e < NE; ++e) dd[e] = xm[e] - md[e];
+      matvec<T, NE>(sHd, xbuf, dd, hdd);
+      T s = T(0);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) s += dd[e] * hdd[e];
+      const T ex = warp_sum(s) - alpha2;
+      if (ex > T(0)) {
+        dec = gamma * ex;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) g[e] = g[e] - gamma * (T(2) * hdd[e]);
+      }
+    }
+    return part;
+  }
+
+  __device__ T finish(T sum) const { return (T(-0.5) * sum + nrm) - dec; }
 };
 
 // ---- the fused bound transform (ops/constraint.py) plus a density ---------
@@ -803,7 +1076,8 @@ __device__ __forceinline__ T* stage_block(const Args<T>& a, Dens& dens,
   __syncthreads();
   dens.bind(smem);
   const size_t frames = (size_t)n_levels(a.maxdepth) * (4 * a.D + 3);
-  if (a.stk_smem) return smem + Dens::kSmem + (threadIdx.x >> 5) * frames;
+  if (a.stk_smem)
+    return smem + dens.smem_elems() + (threadIdx.x >> 5) * frames;
   return a.stack + (size_t)c * frames;
 }
 
@@ -1076,9 +1350,9 @@ Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
 template <typename T, int NE, int KIND, class Dens>
 cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s) {
   const size_t frames = (size_t)n_levels(a.maxdepth) * (4 * a.D + 3);
-  size_t bytes = (Dens::kSmem + kWarps * frames) * sizeof(T);
+  size_t bytes = (d.smem_elems() + kWarps * frames) * sizeof(T);
   a.stk_smem = bytes <= kMaxSmem ? 1 : 0;
-  if (!a.stk_smem) bytes = Dens::kSmem * sizeof(T);
+  if (!a.stk_smem) bytes = d.smem_elems() * sizeof(T);
   const void* fn;
   if constexpr (KIND == kBlock)
     fn = (const void*)nuts_block_kernel<T, NE, Dens>;
@@ -1099,7 +1373,8 @@ cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s) {
 }
 
 template <typename T, int NE, int KIND>
-cudaError_t launch_t(const Args<T>& a, int dens, cudaStream_t s) {
+cudaError_t launch_t(const Args<T>& a, int dens, const double* f,
+                     cudaStream_t s) {
   if (dens == 0) {
     Banana<T, NE> b = {};
     b.A = a.dpar;
@@ -1115,14 +1390,34 @@ cudaError_t launch_t(const Args<T>& a, int dens, cudaStream_t s) {
     g.D = a.D;
     return launch_kernel<T, NE, KIND>(a, g, s);
   }
+  if (dens == 2) {  // f[8..15]: M, F, NNZ, bound on, decay on, alpha,
+                    // alpha^2, full precision
+    PolyGaussian<T, NE> p = {};
+    p.par = a.dpar;
+    p.D = a.D;
+    p.nrm = a.d0;
+    p.gamma = a.d1;
+    p.M = (int)f[8];
+    p.F = (int)f[9];
+    p.NNZ = (int)f[10];
+    p.bound_on = f[11] != 0.0;
+    p.decay_on = f[12] != 0.0;
+    p.alpha = T(f[13]);
+    p.alpha2 = T(f[14]);
+    p.full = f[15] != 0.0;
+    if (p.M < 1 || p.F < 1) return cudaErrorInvalidValue;
+    p.locate();
+    return launch_kernel<T, NE, KIND>(a, p, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 template <typename T, int NE>
-cudaError_t launch_ne(int kind, const Args<T>& a, int dens, cudaStream_t s) {
-  if (kind == kBlock) return launch_t<T, NE, kBlock>(a, dens, s);
-  if (kind == kWarmup) return launch_t<T, NE, kWarmup>(a, dens, s);
-  return launch_t<T, NE, kFrozen>(a, dens, s);
+cudaError_t launch_ne(int kind, const Args<T>& a, int dens, const double* f,
+                      cudaStream_t s) {
+  if (kind == kBlock) return launch_t<T, NE, kBlock>(a, dens, f, s);
+  if (kind == kWarmup) return launch_t<T, NE, kWarmup>(a, dens, f, s);
+  return launch_t<T, NE, kFrozen>(a, dens, f, s);
 }
 
 template <typename T>
@@ -1132,8 +1427,8 @@ cudaError_t launch_dtype(int kind, int dens, int C, int D, int K,
                          void* const* p, cudaStream_t s) {
   const Args<T> a = make_args<T>(C, D, K, maxdepth, seed, i0, cs, as, am, f,
                                  p, kind == kWarmup);
-  return D <= 32 ? launch_ne<T, 1>(kind, a, dens, s)
-                 : launch_ne<T, 2>(kind, a, dens, s);
+  return D <= 32 ? launch_ne<T, 1>(kind, a, dens, f, s)
+                 : launch_ne<T, 2>(kind, a, dens, f, s);
 }
 
 // the checks both entry points share; cudaErrorInvalidValue for arguments

@@ -17,7 +17,7 @@ from .samplers.metrics import DiagMetricState, FullMetricState, _Welford
 from .samplers.step_size import StepSizeState
 
 __all__ = ['banana_density', 'carry_from_numpy', 'metric_from_numpy',
-           'sit_from_numpy']
+           'sit_from_numpy', 'poly_from_numpy', 'density_decay_from_numpy']
 
 
 def banana_density(A, Q=0.01, bounds=None, const=0.0, hard_bounds=True,
@@ -104,3 +104,33 @@ def sit_from_numpy(A, B, m, logdetA, splines, data=None, flow_dtype=None,
             objs.append(s)
         sit._spline_sets.append(CubicSplineSet(objs, dtype=sit.flow_dtype))
     return sit
+
+
+def poly_from_numpy(configs, mu, hess, alpha, f_mu, bound_options=None,
+                    **kwargs):
+    """A fitted ``modules.PolyModel`` from a JAX ``PolyModel``'s state as
+    numpy: ``configs`` a list of ``(order, input_mask, output_mask, a)``
+    per config (its ``_input_mask``, ``_output_mask`` and ``_a``), then its
+    ``_mu``, ``_hess``, ``_alpha`` (None before a fit) and ``_f_mu``;
+    ``bound_options`` and ``kwargs`` (``input_size``, ``output_size``,
+    ``input_vars``, ...) go to ``PolyModel``."""
+    from .modules import PolyConfig, PolyModel
+    pcs = [PolyConfig(o, im, om) for o, im, om, _ in configs]
+    model = PolyModel(pcs, bound_options, **kwargs)
+    for pc, (_, _, _, a) in zip(model.configs, configs):
+        pc._a = np.array(a, np.float64)
+    model._mu = np.array(mu, np.float64)
+    model._hess = np.array(hess, np.float64)
+    model._alpha = None if alpha is None else float(alpha)
+    model._f_mu = np.array(f_mu, np.float64)
+    return model
+
+
+def density_decay_from_numpy(density, mu, hess, alpha_2):
+    """Set a ``Density``'s decay state from a JAX ``Density``'s ``_mu``,
+    ``_hess`` and ``_alpha_2_val`` (numpy; None for ``mu``/``hess`` before a
+    fit); returns the density."""
+    density._mu = None if mu is None else np.array(mu, np.float64)
+    density._hess = None if hess is None else np.array(hess, np.float64)
+    density._alpha_2_val = float(alpha_2)
+    return density

@@ -264,11 +264,21 @@ def _fused_core(x, lo, width, m_lohi, m_lo, m_hi):
     return ep, s, s1s, x_o, m_none
 
 
+def _tangent(x, lo, width, m_lohi, m_lo, m_hi):
+    """The fused transform's rational tangent map (g, h) at x."""
+    ep, s, s1s, _, m_none = _fused_core(x, lo, width, m_lohi, m_lo, m_hi)
+    g = (m_lohi * s1s + (m_lo - m_hi) * ep + m_none) * width
+    h = m_lohi * (1.0 - 2.0 * s) + m_lo + m_hi
+    return g, h
+
+
 class _FusedToOriginal(torch.autograd.Function):
     """(to_original(x), sum log|d to_original/dx|) with one exp and one log;
     the backward is the rational tangent map
     ``g = (m_lohi s(1-s) + (m_lo - m_hi) e^x + m_none) width`` and
-    ``h = m_lohi (1 - 2s) + m_lo + m_hi``."""
+    ``h = m_lohi (1 - 2s) + m_lo + m_hi``, recomputed from x with torch
+    operations, so that it is differentiable in turn (second derivatives,
+    for the Laplace Hessian)."""
 
     @staticmethod
     def forward(ctx, x, lo, width, m_lohi, m_lo, m_hi, logw):
@@ -276,14 +286,12 @@ class _FusedToOriginal(torch.autograd.Function):
                                               m_lohi, m_lo, m_hi)
         arg = m_lohi * s1s + (1.0 - m_lohi)
         logdet = torch.sum(torch.log(arg) + (m_lo + m_hi) * x, dim=-1) + logw
-        g = (m_lohi * s1s + (m_lo - m_hi) * ep + m_none) * width
-        h = m_lohi * (1.0 - 2.0 * s) + m_lo + m_hi
-        ctx.save_for_backward(g, h)
+        ctx.save_for_backward(x, lo, width, m_lohi, m_lo, m_hi)
         return x_o, logdet
 
     @staticmethod
     def backward(ctx, gx_o, glogdet):
-        g, h = ctx.saved_tensors
+        g, h = _tangent(*ctx.saved_tensors)
         gx = gx_o * g + glogdet.unsqueeze(-1) * h
         return gx, None, None, None, None, None, None
 
@@ -307,11 +315,12 @@ def fused_params(scales, bounds, dtype, device='cpu'):
 
 def to_original_with_logdet(x, scales, bounds):
     """Fused ``(to_original(x), log|det d to_original/dx|)``, differentiable
-    through the rational backward of ``_FusedToOriginal``."""
-    if scales is None:
+    through the rational backward of ``_FusedToOriginal``. A floating
+    tensor keeps its dtype; anything else becomes ``get_dtype()``."""
+    if not (torch.is_tensor(x) and x.is_floating_point()):
         x = torch.as_tensor(x, dtype=get_dtype())
+    if scales is None:
         return x, torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-    x = torch.as_tensor(x, dtype=get_dtype())
     fp = fused_params(scales, bounds, x.dtype, x.device)
     return _FusedToOriginal.apply(x, fp['lo'], fp['width'], fp['m_lohi'],
                                   fp['m_lo'], fp['m_hi'], fp['logw'])

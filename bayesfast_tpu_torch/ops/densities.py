@@ -15,11 +15,11 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ['RotatedBanana', 'DiagGaussian', 'spec_logp_and_grad',
-           'warp_sum', 'DENSITY_IDS']
+__all__ = ['RotatedBanana', 'DiagGaussian', 'poly_gaussian_spec',
+           'spec_logp_and_grad', 'warp_sum', 'DENSITY_IDS']
 
 # density ids shared with csrc/nuts.cu
-DENSITY_IDS = {'banana': 0, 'gaussian': 1}
+DENSITY_IDS = {'banana': 0, 'gaussian': 1, 'poly_gaussian': 2}
 
 
 class RotatedBanana(nn.Module):
@@ -131,7 +131,204 @@ def _density_lpg(spec, x):
         mean, var = par[:D], par[D:]
         dx = x - mean
         return -0.5 * warp_sum(dx * dx / var), -dx / var
+    if spec['density'] == 'poly_gaussian':
+        return _poly_gaussian_lpg(spec, x)
     raise NotImplementedError(spec['density'])
+
+
+# ---------------------------------------------------------------------------
+# The surrogate density of a Recipe: PolyModel -> diagonal Gaussian
+
+def poly_gaussian_spec(dim, configs, n_out, mean, var_inv, norm, bound=None,
+                       decay=None, prec=None):
+    """The kernel spec of ``m = PolyModel(x)`` (linear and quadratic configs)
+    followed by the Gaussian log-likelihood ``-0.5 sum (m - mean)^2 var_inv
+    + norm``, or ``-0.5 r' prec r + norm`` with ``r = m - mean`` for a full
+    precision matrix ``prec`` (``var_inv`` None), with the PolyModel's
+    bound extrapolation and the Density's
+    decay penalty (``bayesfast_tpu/modules/poly.py:319-341``,
+    ``bayesfast_tpu/core/pipeline.py:470-474``).
+
+    ``configs`` is a list of ``(order, input_mask, output_mask, a)``, ``a``
+    the (len(output_mask), n_features) coefficients; ``bound`` a dict of
+    ``mu``, ``hess``, ``alpha``, ``f_mu`` (None: no extrapolation);
+    ``decay`` a dict of ``mu``, ``hess``, ``alpha_2``, ``gamma`` (None: no
+    penalty).
+
+    The features of all configs form one vector phi (F,) over ``xa = [x,
+    1]``: feature f is ``xa[i1[f]] * xa[i2[f]]`` (index ``dim`` is the 1),
+    so ``[1, x_k]`` for a linear config and ``x_k x_l`` (k <= l) for a
+    quadratic one; ``WT`` (F, M) holds every config's coefficients at its
+    outputs, so ``m = phi @ WT``. The gradient through phi goes by a sparse
+    row per dimension: the (feature, partner) pairs whose product holds it.
+    Both Hessians and the precision are symmetrized, which leaves each
+    quadratic form as it is and makes its gradient ``2 H delta``; row k of
+    the symmetric precision is its column k, which the kernel reads
+    coalesced. Returns the spec dict: the
+    structured ``arrays`` for the plain version, one packed float64
+    parameter vector for the kernel (``csrc/nuts.cu``, ``PolyGaussian``)
+    and the ``scalars`` (norm, gamma, M, F, NNZ, bound on, decay on, alpha,
+    alpha^2, full precision)."""
+    D, M = int(dim), int(n_out)
+    i1, i2, blocks = [], [], []
+    for order, im, om, a in configs:
+        im = np.asarray(im, int)
+        if order == 'linear':
+            i1 += [D] + list(im)
+            i2 += [D] * (1 + im.size)
+        elif order == 'quadratic':
+            k, l = np.triu_indices(im.size)
+            i1 += list(im[k])
+            i2 += list(im[l])
+        else:
+            raise NotImplementedError(f'{order} configs are not compiled in.')
+        blocks.append((np.asarray(om, int), np.asarray(a, np.float64)))
+    F = len(i1)
+    WT = np.zeros((F, M))
+    off = 0
+    for om, a in blocks:
+        WT[off:off + a.shape[1], om] = a.T
+        off += a.shape[1]
+    rows = [[] for _ in range(D)]
+    for f in range(F):
+        if i1[f] < D:
+            rows[i1[f]].append((f, i2[f]))
+        if i2[f] < D:
+            rows[i2[f]].append((f, i1[f]))
+    rowptr = np.cumsum([0] + [len(r) for r in rows])
+    flat = [e for r in rows for e in r]
+    NNZ = len(flat)
+    L = max(1, max(len(r) for r in rows))
+    # padded rows for the plain version: feature F is a zero, partner D a 1
+    fidx = np.full((D, L), F)
+    pidx = np.full((D, L), D)
+    for d, r in enumerate(rows):
+        for t, (f, p) in enumerate(r):
+            fidx[d, t], pidx[d, t] = f, p
+
+    def sym(h):
+        h = np.asarray(h, np.float64)
+        return 0.5 * (h + h.T)
+
+    bound_on, decay_on = bound is not None, decay is not None
+    if bound_on:
+        mup, Hp, fmu = (np.asarray(bound['mu'], np.float64),
+                        sym(bound['hess']),
+                        np.asarray(bound['f_mu'], np.float64))
+        alpha = float(bound['alpha'])
+    else:
+        mup, Hp, fmu, alpha = np.zeros(D), np.zeros((D, D)), np.zeros(M), 1.
+    if decay_on:
+        mud, Hd = np.asarray(decay['mu'], np.float64), sym(decay['hess'])
+        alpha_2, gamma = float(decay['alpha_2']), float(decay['gamma'])
+    else:
+        mud, Hd, alpha_2, gamma = np.zeros(D), np.zeros((D, D)), 0., 0.
+    dat = np.asarray(mean, np.float64)
+    full = prec is not None
+    vinv = np.zeros(M) if full else np.asarray(var_inv, np.float64)
+    P = sym(prec) if full else np.zeros((0, M))
+    packed = np.concatenate([
+        WT.ravel(), dat, vinv, fmu, mup, Hp.ravel(), mud, Hd.ravel(),
+        P.ravel(), np.asarray(i1, np.float64), np.asarray(i2, np.float64),
+        rowptr.astype(np.float64),
+        np.asarray([f for f, _ in flat], np.float64),
+        np.asarray([p for _, p in flat], np.float64)])
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a))
+
+    arrays = dict(WT=t(WT), dat=t(dat), vinv=t(vinv), fmu=t(fmu), mup=t(mup),
+                  Hp=t(Hp), mud=t(mud), Hd=t(Hd), P=t(P))
+    index = dict(i1=t(np.asarray(i1, np.int64)),
+                 i2=t(np.asarray(i2, np.int64)), fidx=t(fidx), pidx=t(pidx))
+    return dict(density='poly_gaussian', dim=D, params=[t(packed)],
+                scalars=(float(norm), gamma, M, F, NNZ, int(bound_on),
+                         int(decay_on), alpha, alpha_2, int(full)),
+                arrays=arrays, index=index)
+
+
+def _spec_arrays(spec, x):
+    """The spec's arrays on x's dtype and device, cast once per pair."""
+    cache = spec.setdefault('_cast', {})
+    key = (x.dtype, x.device)
+    if key not in cache:
+        cache[key] = (
+            {k: v.to(x) for k, v in spec['arrays'].items()},
+            {k: v.to(x.device) for k, v in spec['index'].items()})
+    return cache[key]
+
+
+def _poly_gaussian_lpg(spec, x):
+    """(logp, grad) of ``poly_gaussian_spec`` at original-space x (C, D),
+    operation for operation as ``csrc/nuts.cu::PolyGaussian`` computes it:
+    a matvec by H sums over k in order (``_matvec_seq``), m_j sums over
+    the features in order, (P r)_j over k in order, each lane sum (over outputs for the likelihood
+    and the bound's scalars, over dimensions for the quadratic forms, over
+    outputs for each feature's gradient) in the warp's order
+    (``warp_sum``), and a dimension's gradient over its sparse row in
+    order."""
+    a, ix = _spec_arrays(spec, x)
+    (nrm, gamma, M, F, NNZ, bound_on, decay_on, alpha, alpha_2,
+     full) = spec['scalars']
+    C, D = x.shape
+
+    def sc(v):
+        return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
+    alpha, gamma, alpha_2 = sc(alpha), sc(gamma), sc(alpha_2)
+    outside = torch.zeros(C, dtype=torch.bool, device=x.device)
+    x0 = x
+    if bound_on:
+        delta = x - a['mup']
+        hdel = _matvec_seq(a['Hp'], delta)
+        b2 = torch.clamp(warp_sum(delta * hdel), min=1e-30)
+        beta = torch.sqrt(b2)
+        outside = beta > alpha
+        bc = beta[:, None]
+        x0 = torch.where(outside[:, None],
+                         (alpha * x + (bc - alpha) * a['mup']) / bc, x)
+    xa = torch.cat([x0, torch.ones_like(x0[:, :1])], dim=-1)
+    phi = xa[:, ix['i1']] * xa[:, ix['i2']]
+    m0 = torch.zeros((C, M), dtype=x.dtype, device=x.device)
+    for f in range(F):
+        m0 = m0 + a['WT'][f] * phi[:, f:f + 1]
+    m = m0
+    if bound_on:
+        m = torch.where(outside[:, None],
+                        (bc * m0 - (bc - alpha) * a['fmu']) / alpha, m0)
+    r = m - a['dat']
+    if full:
+        pr = torch.zeros_like(r)
+        for k in range(M):
+            pr = pr + a['P'][k] * r[:, k:k + 1]
+        gm = -pr
+        logp = -0.5 * warp_sum(r * pr) + sc(nrm)
+    else:
+        rv = r * a['vinv']
+        gm = -rv
+        logp = -0.5 * warp_sum(rv * r) + sc(nrm)
+    gm0 = gm
+    if bound_on:
+        gm0 = torch.where(outside[:, None], gm * bc / alpha, gm)
+    gphi = warp_sum(a['WT'][None] * gm0[:, None, :])
+    gphi = torch.cat([gphi, torch.zeros_like(gphi[:, :1])], dim=-1)
+    g = torch.zeros_like(x)
+    for t in range(ix['fidx'].shape[1]):
+        g = g + gphi[:, ix['fidx'][:, t]] * xa[:, ix['pidx'][:, t]]
+    if bound_on:
+        s_beta = warp_sum(gm * (m0 - a['fmu'])) / alpha
+        dldb = s_beta + warp_sum(g * (a['mup'] - x0)) / beta
+        g = torch.where(outside[:, None],
+                        g * alpha / bc + dldb[:, None] * hdel / bc, g)
+    dec = torch.zeros_like(logp)
+    if decay_on:
+        dd = x - a['mud']
+        hdd = _matvec_seq(a['Hd'], dd)
+        ex = warp_sum(dd * hdd) - alpha_2
+        pos = ex > 0
+        dec = torch.where(pos, gamma * ex, dec)
+        g = torch.where(pos[:, None], g - gamma * (2.0 * hdd), g)
+    return logp - dec, g
 
 
 def spec_logp_and_grad(spec, x_t):

@@ -366,7 +366,9 @@ def nuts_transition_batched(generator, q0, metric, step_size, logp_and_grad,
     a leading chain axis or be shared (pooled); ``step_size`` is (C,) or a
     scalar; ``logp_and_grad`` maps (C, D) -> ((C,), (C, D)). Momenta and
     every in-tree draw come from ``generator``. Returns ``(q_new (C, D),
-    NutsStats)``."""
+    NutsStats)``. Each call adds one to ``transitions``, the count of
+    tree-loop transitions (no kernel runs here)."""
+    nuts_transition_batched.transitions += 1
     C, D = q0.shape
     dtype = q0.dtype
     p0 = sample_momentum_b(metric, generator, (C, D), dtype)
@@ -388,3 +390,6 @@ def nuts_transition_batched(generator, q0, metric, step_size, logp_and_grad,
         energy_change=energy - start.energy,
         max_energy_change=out['max_de'], diverging=out['diverging'])
     return q, stats
+
+
+nuts_transition_batched.transitions = 0

@@ -460,17 +460,23 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # The CUDA kernels
 
 _MAX_D = 64
+_N_EXTRA = 8  # density scalars past the first two
 
 
 # launch specs, by density (held weakly), then by (dtype, device):
-# (key of the inputs, the inputs, spec)
+# (key of the inputs, the inputs, spec, launch spec)
 _SPECS = weakref.WeakKeyDictionary()
 
 
 def _spec_inputs(density):
-    """What ``density.kernel_spec()`` is built from: the transform's scales
-    and bounds, the compiled-in density's buffers with their in-place
-    versions, and its scalar attributes."""
+    """What ``density.kernel_spec()`` is built from. A density with
+    ``kernel_spec_key()`` (a ``Density``, whose surrogate is refit in
+    place) names it by content; otherwise: the transform's scales and
+    bounds, the compiled-in density's buffers with their in-place versions,
+    and its scalar attributes."""
+    key_fn = getattr(density, 'kernel_spec_key', None)
+    if key_fn is not None:
+        return [], [key_fn()]
     inner = density._logp
     bufs = list(inner.buffers()) if isinstance(inner, torch.nn.Module) else []
     scalars = [(k, v) for k, v in sorted(vars(inner).items())
@@ -479,30 +485,41 @@ def _spec_inputs(density):
         [t._version for t in bufs] + scalars
 
 
-def _spec_for(density, like):
-    """The density's kernel spec on ``like``'s dtype and device, as the
-    launch takes it: ``(density id, transform rows (5, D), parameters,
-    logw, scalars)``. It is built once and kept (``_SPECS``) until the
-    dtype or device, the identity of an input of ``kernel_spec()`` or its
-    in-place version, or a scalar attribute of the density changes, so that
-    a launch copies nothing from the host. The entry holds those inputs, so
-    their identities are not reused while it lives. An array mutated in
-    place (the scales or bounds) is not seen: set ``input_scales`` or
-    ``hard_bounds`` anew. ``NotImplementedError`` for a density without a
-    kernel spec."""
+def _spec_entry(density, like):
+    """The cache entry of ``density`` on ``like``'s dtype and device,
+    rebuilt when an input of ``kernel_spec()`` changes (see ``_spec_for``).
+    ``NotImplementedError`` for a density without a kernel spec."""
     if not getattr(density, 'has_kernel_spec', False):
         raise NotImplementedError(
             'the CUDA NUTS kernels need a density with kernel_spec() '
-            '(ops/densities.py); the XLA-tree twin for other densities is '
-            'not ported yet.')
+            '(ops/densities.py, or a Density whose plan is a PolyModel and a '
+            'Gaussian); sample it on the tree loop '
+            "(nuts_kernel='auto' or 'torch').")
     objs, state = _spec_inputs(density)
     key = (tuple(map(id, objs)), tuple(state))
     entries = _SPECS.setdefault(density, {})
     entry = entries.get((like.dtype, like.device))
     if entry is None or entry[0] != key:
-        entry = (key, objs, _launch_spec(density.kernel_spec(), like))
+        spec = density.kernel_spec()
+        entry = (key, objs, spec, _launch_spec(spec, like))
         entries[like.dtype, like.device] = entry
-    spec = entry[2]
+    return entry
+
+
+def _spec_for(density, like):
+    """The density's kernel spec on ``like``'s dtype and device, as the
+    launch takes it: ``(density id, transform rows (5, D), parameters,
+    logw, scalars)``. It is built once and kept (``_SPECS``) until the
+    dtype or device, or what ``kernel_spec()`` is built from, changes: for
+    a ``Density`` its content (``kernel_spec_key``), so every refit of its
+    surrogate is seen; otherwise the identity of an input or its in-place
+    version, or a scalar attribute of the density. A launch then copies
+    nothing from the host. The entry holds those inputs, so their
+    identities are not reused while it lives. An array of a ``DensityLite``
+    mutated in place (the scales or bounds) is not seen: set
+    ``input_scales`` or ``hard_bounds`` anew. ``NotImplementedError`` for a
+    density without a kernel spec."""
+    spec = _spec_entry(density, like)[3]
     if spec[1].shape[1] != like.shape[1]:
         raise ValueError(f'the density has dimension {spec[1].shape[1]}, '
                          f'the chains {like.shape[1]}.')
@@ -581,10 +598,15 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
     lib = load_library('nuts')
     target, gamma, k_exp, t_0, adapt_step, adapt_metric = \
         adapt or (0., 0., 0., 0., False, False)
-    fargs = (ctypes.c_double * 8)(float(max_change), logw,
-                                  float(dscal[0]), float(dscal[1]),
-                                  float(target), float(gamma), float(k_exp),
-                                  float(t_0))
+    # the density's first two scalars ride in fargs[2:4], the rest in
+    # fargs[8:] (csrc/nuts.cu::launch_t)
+    extra = [float(v) for v in dscal[2:]]
+    if len(extra) > _N_EXTRA:
+        raise ValueError(f'at most {_N_EXTRA + 2} density scalars.')
+    fargs = (ctypes.c_double * (8 + _N_EXTRA))(
+        float(max_change), logw, float(dscal[0]), float(dscal[1]),
+        float(target), float(gamma), float(k_exp), float(t_0),
+        *(extra + [0.0] * (_N_EXTRA - len(extra))))
     parr = (ctypes.c_void_p * len(ptrs))(
         *[0 if p is None else p.data_ptr() for p in ptrs])
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -624,8 +646,9 @@ def plain_lpg(density):
     order of operations (``ops.densities.spec_logp_and_grad``); otherwise
     autograd through the density's torch logp."""
     if getattr(density, 'has_kernel_spec', False):
-        spec = density.kernel_spec()
-        return lambda x: spec_logp_and_grad(spec, x)
+        # the spec of the density as it stands at each call (cached like
+        # the launches' own), so a refit between calls is seen
+        return lambda x: spec_logp_and_grad(_spec_entry(density, x)[2], x)
     f = density.device_logp_and_grad(original_space=False)
     return lambda x: f((), x)
 

@@ -508,3 +508,51 @@ class TraceTuple:
 
     def __iter__(self):
         return iter(self.sample_traces)
+
+
+def _get_step_size(sample_trace):
+    """Warm-start step size from a previous run
+    (``bayesfast_tpu/samplers/sample_trace.py:731-741``): the mean
+    dual-averaged step size over chains, times ``dim ** 0.25`` (``sample``
+    divides the trace's step size by it)."""
+    if isinstance(sample_trace, TraceTuple):
+        sample_trace = sample_trace.trace
+    if isinstance(sample_trace, _HTrace):
+        if sample_trace._carry is None:
+            raise RuntimeError('trace has not been run yet.')
+        dim = sample_trace._samples.shape[-1]
+        log_bar = torch.as_tensor(sample_trace._carry.step.log_bar)
+        return float(torch.exp(log_bar).double().mean()) * dim ** 0.25
+    raise ValueError('invalid value for sample_trace.')
+
+
+def _get_metric(sample_trace, target, from_samples=True):
+    """Warm-start metric from a previous run
+    (``bayesfast_tpu/samplers/sample_trace.py:744-769``): the covariance of
+    its post-warmup samples in the sampling space, or (``from_samples``
+    False) its adapted metric averaged over chains; ``target`` 'diag'
+    returns the diagonal, 'full' the matrix."""
+    if from_samples:
+        if isinstance(sample_trace, (TraceTuple, _HTrace)):
+            samples = sample_trace.get(original_space=False, flatten=True)
+            cov = np.cov(samples, rowvar=False)
+        else:
+            raise ValueError('invalid value for sample_trace.')
+    else:
+        if isinstance(sample_trace, TraceTuple):
+            sample_trace = sample_trace.trace
+        carry = sample_trace._carry
+        if carry is None:
+            raise RuntimeError('trace has not been run yet.')
+        m = carry.metric
+        leaf = m.var if hasattr(m, 'var') else m.cov
+        leaf = leaf.double().cpu().numpy()
+        pooled = leaf.ndim == (1 if hasattr(m, 'var') else 2)
+        mean = leaf if pooled else np.mean(leaf, axis=0)
+        cov = np.diag(mean) if hasattr(m, 'var') else mean
+    if target == 'diag':
+        return np.diag(cov)
+    elif target == 'full':
+        return cov
+    else:
+        raise ValueError('unexpected value for target.')

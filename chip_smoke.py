@@ -8,14 +8,22 @@ card, drives the port's paths and checks what comes out:
   rotated banana with 1024 chains, float32, through warmup and post-warmup
   chunks on the two NUTS chunk kernels ([3]);
 * evidence: ``bayesfast_tpu_torch.evidence.GBS`` on that run's post-warmup
-  draws (the SIT flow fit runs its KDE sums on the KDE-cdf kernel), held
-  against the banana's exact logz ([6]);
+  draws under ten generator seeds (the SIT flow fit runs its KDE sums on
+  the KDE-cdf kernel), held against the banana's exact logz ([6]);
 * pooled-metric sampling: the same configuration with
   ``pooled_metric=True``, every warmup transition one launch of the NUTS
   block kernel with the shared Welford update between launches, then the
   frozen chunks ([8]);
 * the full metric on the torch tree loop: a correlated 8-d Gaussian with a
-  pooled full metric, held against its known covariance ([9]).
+  pooled full metric, held against its known covariance ([9]);
+* the surrogate Recipe: ``bayesfast_tpu_torch.Recipe.run`` on the DES-like
+  pipeline of ``examples/des_like_pipeline.py`` at full width (27
+  parameters, a 457-dim data vector) with 1024 chains in float32, every
+  sample step on the chunk kernels with the PolyModel -> Gaussian surrogate
+  compiled in; n_call and the IS-weighted posterior means against the
+  truth ([10]); then both chunk kernels with that density held against
+  their plain versions and timed, and held again with a full-covariance
+  likelihood ([10b]).
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Every phase that fails makes the script exit non-zero; without
@@ -69,8 +77,15 @@ TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 300, 300, 0.
 # GBS as benchmarks/suite.py:197 runs it, and the banana's exact logz
 # (benchmarks/results.jsonl, "fiducial")
 F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
+GBS_SEEDS = 10     # [6]'s generator seeds
 KDE_M = 512        # queries per column in the KDE kernel-vs-plain checks
 KDE_F32_TOL = 2e-6  # the float32 kernel against the float64 plain version
+# [10]: the DES-like Recipe (examples/des_like_pipeline.py) at full width
+DES_D, DES_N_DATA, DES_CHAINS, DES_TRUTH = 27, 457, 1024, 0.1
+DES_NONLINEAR = np.arange(9)      # parameters with quadratic response
+DES_TRACES = ({'n_iter': 1500, 'n_warmup': 600},
+              {'n_iter': 1200, 'n_warmup': 400})
+DES_N_IS, DES_JAX_NCALL, DES_REF_NCALL = 500, 1128, 2626
 # one NVIDIA H100 SXM: fp32 outside the tensor cores, device memory
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # operations per Phi evaluation of the KDE kernel (csrc/kde.cu's note):
@@ -157,15 +172,15 @@ def _as_dict(q, q_last, stats):
     return d
 
 
-def _compare(name, ker, ref):
+def _compare(name, ker, ref, n_chain=N_CHAIN):
     """The kernel's outputs must equal the plain version's bit for bit (the
     plain versions take every operation and sum in the kernels' order).
     Prints on how many chains the tree statistics agree and the largest
     float difference; returns that difference."""
     import torch
-    same = torch.ones(N_CHAIN, dtype=torch.bool, device=ref['q'].device)
+    same = torch.ones(n_chain, dtype=torch.bool, device=ref['q'].device)
     for k in _DISCRETE:
-        same &= (ker[k] == ref[k]).reshape(-1, N_CHAIN).all(dim=0)
+        same &= (ker[k] == ref[k]).reshape(-1, n_chain).all(dim=0)
     frac = same.float().mean().item()
     bad = (~same).nonzero().flatten().tolist()
     if bad:
@@ -337,17 +352,19 @@ def _kernel_vs_plain(torch, den, carry, dtype):
     return errs
 
 
-def _time_chunks(torch, den, carry, plain=True):
+def _time_chunks(torch, den, carry, plain=True, ops=None, suffix=''):
     """One K=4 chunk of each kernel beside its plain version (unless
-    ``plain`` is false), at the main path's shapes and final state (CUDA
-    events; the kernel warmed up first), and the chunk's bound from the
-    leapfrogs its trees took. Returns ({name: (ms, plain_ms, bound_ms,
-    bound_by)}, {name: its slowest chain, ``_slowest_chain``})."""
+    ``plain`` is false), at a path's shapes and final state (CUDA events;
+    the kernel warmed up first), and the chunk's bound from the leapfrogs
+    its trees took times ``ops`` per leapfrog (default: the banana's).
+    Returns ({name + suffix: (ms, plain_ms, bound_ms, bound_by)}, {name +
+    suffix: its slowest chain, ``_slowest_chain``})."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     plain_lpg = nc.plain_lpg(den)
     q, metric, step = carry.q, carry.metric, carry.step
-    C = q.shape[0]
-    var = nc._mat(metric.var, C, D, q)
+    C, dim = q.shape
+    ops = _leapfrog_ops(dim) if ops is None else ops
+    var = nc._mat(metric.var, C, dim, q)
     eps = torch.exp(step.log_bar)
     wsched, _ = nc._window_schedule(400, 370, 240, K_CMP, 1, True)
     args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
@@ -375,13 +392,14 @@ def _time_chunks(torch, den, carry, plain=True):
         sizes = (out[2].tree_size if name == 'nuts_multi'
                  else out['tree_size'])
         leapfrogs = int(sizes.sum())
-        bound = _bound(leapfrogs * _leapfrog_ops(D), _nbytes(inputs, out))
-        times[name] = (ms, plain_ms) + bound
-        print(f'  {name}: one K={K_CMP} chunk at C={C}, D={D}, float32: '
-              f'kernel {ms:.3f} ms, plain torch {_ms_text(plain_ms)}; '
-              f'{leapfrogs} leapfrogs, bound {bound[0]:.4f} ms '
-              f'({bound[1]})')
-        chains[name] = _slowest_chain(f'  {name}', ms, sizes.sum(dim=0))
+        bound = _bound(leapfrogs * ops, _nbytes(inputs, out))
+        times[name + suffix] = (ms, plain_ms) + bound
+        print(f'  {name}{suffix}: one K={K_CMP} chunk at C={C}, D={dim}, '
+              f'float32: kernel {ms:.3f} ms, plain torch '
+              f'{_ms_text(plain_ms)}; {leapfrogs} leapfrogs, bound '
+              f'{bound[0]:.4f} ms ({bound[1]})')
+        chains[name + suffix] = _slowest_chain(f'  {name}{suffix}', ms,
+                                               sizes.sum(dim=0))
     return times, chains
 
 
@@ -525,30 +543,48 @@ def _tree_loop(torch, bt):
 
 
 def _gbs_on_trace(bt, tt, den):
-    """[6] GBS on the main path's post-warmup draws, its launch count read
-    just after it; returns the kde_cdf launches."""
+    """[6] GBS on the main path's post-warmup draws under generator seeds
+    0 .. GBS_SEEDS - 1, the KDE launches of the first run read just after
+    it. Gate: the mean logz over the seeds within the mean quoted error of
+    the exact logz, and every seed's logz within LOGZ_TOL of it (a single
+    seed's logz moves by the seeds' spread, sd 0.011-0.014, whenever the
+    KDE's rounding moves). Returns the kde_cdf launches of one GBS run."""
     from bayesfast_tpu_torch.ops import kde as tk
     n_half = N_CHAIN // 2
-    for f in _counters().values():
-        f.launches = 0
-    t0 = time.time()
-    gbs = bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)
-    logz, err = gbs(tt, den.logp)
-    wall = time.time() - t0
-    launches = tk.kde_cdf_batch.launches
-    prof = {k: round(v, 3) for k, v in gbs.last_profile.items()}
-    print(f'[6] GBS(f_call={F_CALL}, n_q_max={N_Q_MAX}) on {n_half} x '
-          f'{N_POST} fit rows x {D} dims, {gbs.sit.i_iter} SIT layers, '
-          f'float32: logz {logz:.4f} +- {err:.4f} (exact {LOGZ_EXACT}); '
-          f'wall {wall:.3f} s')
-    print(f'    phases (s): {prof}; kde_cdf launches {launches}')
-    if not (np.isfinite(logz) and abs(logz - LOGZ_EXACT) <= LOGZ_TOL
-            and 0 < err < 0.1):
-        raise AssertionError(f'GBS logz {logz} +- {err} is off')
+    runs = []
+    for seed in range(GBS_SEEDS):
+        bt.utils.set_generator(seed)
+        for f in _counters().values():
+            f.launches = 0
+        t0 = time.time()
+        gbs = bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)
+        logz, err = gbs(tt, den.logp)
+        wall = time.time() - t0
+        runs.append((float(logz), float(err)))
+        if seed == 0:
+            launches = tk.kde_cdf_batch.launches
+            prof = {k: round(v, 3) for k, v in gbs.last_profile.items()}
+            fit = {k: round(v, 3) for k, v in gbs.sit.last_profile.items()}
+            print(f'[6] GBS(f_call={F_CALL}, n_q_max={N_Q_MAX}) on {n_half} '
+                  f'x {N_POST} fit rows x {D} dims, {gbs.sit.i_iter} SIT '
+                  f'layers, float32, seed 0: logz {logz:.4f} +- {err:.4f} '
+                  f'(exact {LOGZ_EXACT}); wall {wall:.3f} s')
+            print(f'    phases (s): {prof}; kde_cdf launches {launches}')
+            print(f'    SIT fit stages (s): {fit}')
+    z = np.array([r[0] for r in runs])
+    e = np.array([r[1] for r in runs])
+    print(f'    seeds 0-{GBS_SEEDS - 1}: logz ' +
+          ', '.join(f'{v:.4f}' for v in z))
+    print(f'    mean logz {z.mean():.4f} (sd {z.std(ddof=1):.4f}), mean '
+          f'quoted error {e.mean():.4f}; |mean - exact| '
+          f'{abs(z.mean() - LOGZ_EXACT):.4f}, max |logz - exact| '
+          f'{np.abs(z - LOGZ_EXACT).max():.4f} (gate {LOGZ_TOL})')
+    if not (np.isfinite(z).all() and np.all((0 < e) & (e < 0.1))
+            and abs(z.mean() - LOGZ_EXACT) <= e.mean()
+            and np.all(np.abs(z - LOGZ_EXACT) <= LOGZ_TOL)):
+        raise AssertionError(f'GBS logz over seeds is off: {runs}')
     if launches == 0:
         raise AssertionError('the SIT fit did not launch the KDE kernel')
-    fit = {k: round(v, 3) for k, v in gbs.sit.last_profile.items()}
-    print(f'    SIT fit stages (s): {fit}')
     return launches
 
 
@@ -687,6 +723,263 @@ def _kde_vs_plain(torch, tt):
           f'{ms:.3f} ms, plain {plain_ms:.3f} ms, blocked ndtr + matmul '
           f'{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})')
     return err32, (ms, plain_ms) + bound + (lib_ms,)
+
+
+def _make_des_model(seed=0):
+    """The DES-like true model and its data, as
+    ``examples/des_like_pipeline.py:_make_model`` builds them: a 457-dim
+    data vector, linear in 27 parameters plus a quadratic response in the
+    first 9, and the data at 0.1 in every parameter. Also returns the
+    model's Jacobian at the truth."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(DES_N_DATA, DES_D)) / np.sqrt(DES_D)
+    B = rng.normal(size=(DES_N_DATA, 9, 9)) / 18.0
+    B = (B + np.swapaxes(B, 1, 2)) / 2
+
+    def forward(x, *args, **kwargs):
+        """The 'expensive' external model (host-only numpy)."""
+        x = np.asarray(x)
+        quad = np.einsum('dij,i,j->d', B, x[DES_NONLINEAR], x[DES_NONLINEAR])
+        return A @ x + quad
+
+    truth = np.full(DES_D, DES_TRUTH)
+    data = forward(truth)
+    jac = A.copy()
+    jac[:, DES_NONLINEAR] += 2 * np.einsum('dij,j->di', B,
+                                           truth[DES_NONLINEAR])
+    return forward, data, jac
+
+
+def _des_recipe_objects(bt):
+    """The example's Density, surrogates and steps at DES_CHAINS chains."""
+    from bayesfast_tpu_torch.modules import Gaussian, PolyConfig, PolyModel
+    forward, data, jac = _make_des_model()
+    para_range = np.stack([np.full(DES_D, -5.0), np.full(DES_D, 5.0)]).T
+    model = bt.Module(fun=forward, input_vars='x', output_vars='m',
+                      input_shapes=[DES_D], output_shapes=[DES_N_DATA],
+                      traceable=False)
+    like = Gaussian(mean=data, cov=np.full(DES_N_DATA, 0.05),
+                    input_vars='m', output_vars='logp')
+    density = bt.Density(density_name='logp', module_list=[model, like],
+                         input_vars='x', input_shapes=[DES_D],
+                         input_scales=para_range, hard_bounds=True,
+                         decay_options={'use_decay': True})
+    surro_0 = PolyModel('linear', input_size=DES_D, output_size=DES_N_DATA,
+                        input_vars='x', output_vars='m')
+    surro_1 = PolyModel([PolyConfig('linear'),
+                         PolyConfig('quadratic', input_mask=DES_NONLINEAR)],
+                        input_size=DES_D, output_size=DES_N_DATA,
+                        input_vars='x', output_vars='m')
+    tr = [dict(n_chain=DES_CHAINS, **t) for t in DES_TRACES]
+    opt = bt.recipe.OptimizeStep(surrogate_list=surro_0, alpha_n=2,
+                                 sample_trace=dict(tr[0]))
+    sam = [bt.recipe.SampleStep(surrogate_list=surro_1, alpha_n=2,
+                                reuse_samples=1, sample_trace=dict(t))
+           for t in tr]
+    post = bt.recipe.PostStep(n_is=DES_N_IS, k_trunc=0.25)
+    rec = bt.Recipe(density=density, optimize=opt, sample=sam, post=post)
+    # the analytic posterior covariance at the truth, (J' S^-1 J)^-1
+    sigma = np.sqrt(np.diag(np.linalg.inv(jac.T @ jac / 0.05)))
+    return rec, sigma
+
+
+def _des_recipe(torch, bt):
+    """[10] The DES-like Recipe (optimize, two sample steps, IS) at full
+    width with DES_CHAINS chains in float32 through ``Recipe.run``: every
+    surrogate sample step on the NUTS chunk kernels with the compiled-in
+    PolyModel -> Gaussian density. Times each step and its parts, counts
+    the launches of each sample() call, and checks n_call and the
+    IS-weighted posterior means against the truth. Returns (the Recipe,
+    the run's launch counts)."""
+    from bayesfast_tpu_torch.core import recipe as rmod
+    from bayesfast_tpu_torch.samplers import nuts as tree
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    bt.utils.set_generator(27)
+    rec, sigma = _des_recipe_objects(bt)
+    counters = _counters()
+    # per sample() call: seconds, launches, tree-loop transitions, |draw
+    # mean - truth| / sigma, post-warmup tree depth and acceptance
+    calls = []
+    parts = dict(true_model_s=0.0, fit_s=0.0, laplace_s=0.0, sample_s=0.0,
+                 is_s=0.0)
+    sample = rmod.sample
+
+    def timed_sample(density, sample_trace=None, **kw):
+        before = {k: f.launches for k, f in counters.items()}
+        tr0 = tree.nuts_transition_batched.transitions
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = sample(density, sample_trace=sample_trace, verbose=False, **kw)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        parts['sample_s'] += dt
+        st = out.trace._stats_arrays
+        n_w = out.trace.n_warmup
+        calls.append((dt, {k: f.launches - before[k]
+                           for k, f in counters.items()},
+                      tree.nuts_transition_batched.transitions - tr0,
+                      np.abs(out.get().mean(0) - DES_TRUTH) / sigma,
+                      float(st['tree_depth'][:, n_w:].mean()),
+                      float(st['mean_tree_accept'][:, n_w:].mean())))
+        return out
+
+    def timed(obj, name, key, into):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **kw):
+            t0 = time.time()
+            out = fn(*a, **kw)
+            into[key] += time.time() - t0
+            return out
+        setattr(obj, name, wrapped)
+
+    phases = dict(optimize=0.0, sample=0.0, post=0.0)
+    for name, key in (('_opt_step', 'optimize'), ('_sam_step', 'sample'),
+                      ('_pos_step', 'post')):
+        timed(rec, name, key, phases)
+    for name, key in (('_eval_true', 'true_model_s'),
+                      ('_laplace_pass', 'laplace_s'),
+                      ('_true_logp', 'is_s')):
+        timed(rec, name, key, parts)
+    timed(rec.density, 'fit', 'fit_s', parts)
+    # the kernels' own device time: CUDA events around each launch (the
+    # wrappers' shared launcher, so their launch counts stay theirs), read
+    # once the run is over (recording them does not wait on the device)
+    events = []
+    launch = nc._launch
+
+    def launch_with_events(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    nc._launch = launch_with_events
+    rmod.sample = timed_sample
+    for f in counters.values():
+        f.launches = 0
+    tree.nuts_transition_batched.transitions = 0
+    try:
+        rec.run()
+    finally:
+        rmod.sample = sample
+        nc._launch = launch
+    torch.cuda.synchronize()
+    parts['kernels_s'] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    launches = {k: f.launches for k, f in counters.items()}
+    n_tree = tree.nuts_transition_batched.transitions
+    res = rec.get()
+    w = res.weights_trunc
+    mean = np.sum(res.samples * w[:, None], axis=0) / np.sum(w)
+    z = np.abs(mean - DES_TRUTH) / sigma
+    # the last step's own draws, unweighted, and the weights' spread
+    x_q = rec.recipe_trace.results.sample[-1].samples
+    z_q = np.abs(x_q.mean(0) - DES_TRUTH) / sigma
+    ess = np.sum(res.weights) ** 2 / np.sum(res.weights ** 2)
+    n_cut = int(np.sum(res.weights_trunc < res.weights))
+    print(f'[10] DES-like Recipe, D={DES_D}, N_DATA={DES_N_DATA}, '
+          f'{DES_CHAINS} chains, float32, Recipe.run(): ' +
+          ', '.join(f'{k} {v:.2f} s' for k, v in phases.items()))
+    print(f'    parts (s): ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in parts.items()))
+    for i, (dt, ln, nt, zs, depth, acc) in enumerate(calls):
+        step = 'optimize' if i == 0 else f'sample #{i - 1}'
+        print(f'    {step}: sample() {dt:.2f} s, launches '
+              f'{ {k: v for k, v in ln.items() if v} }, tree-loop '
+              f'transitions {nt}; post-warmup tree depth {depth:.3f}, '
+              f'accept {acc:.3f}, |draw mean - {DES_TRUTH}| max '
+              f'{zs.max():.3f} sigma')
+    print(f'    n_call {res.n_call} (JAX package record {DES_JAX_NCALL}, '
+          f'reference {DES_REF_NCALL}); tree-loop transitions {n_tree}')
+    print(f'    IS-weighted posterior means - {DES_TRUTH}, in analytic sigma:'
+          f' max {z.max():.3f} (JAX record < 0.5), mean {z.mean():.3f}; '
+          f'sigma {sigma.min():.4f}-{sigma.max():.4f}')
+    print('    ' + ' '.join(f'{v:.3f}' for v in mean))
+    print(f'    the last step\'s {x_q.shape[0]} draws, unweighted: max '
+          f'{z_q.max():.3f} sigma, mean {z_q.mean():.3f}; IS weights: ESS '
+          f'{ess:.1f} of {res.weights.size}, max / mean '
+          f'{res.weights.max() / res.weights.mean():.3f}, {n_cut} truncated')
+    if not (len(calls) == 1 + len(DES_TRACES) and all(
+            ln['nuts_warmup'] > 0 and ln['nuts_multi'] > 0
+            and ln['nuts_block'] == 0 and nt == 0
+            for _, ln, nt, *_ in calls)):
+        raise AssertionError('a Recipe sample step did not run every '
+                             'transition on the chunk kernels')
+    if not (np.isfinite(mean).all() and z.max() < 1.0):
+        raise AssertionError(f'posterior means off: {z.max()} sigma')
+    if not (res.n_call is not None and res.n_call <= DES_REF_NCALL):
+        raise AssertionError(f'n_call {res.n_call} > {DES_REF_NCALL}')
+    return rec, launches
+
+
+def _full_cov_density(den):
+    """A copy of the Recipe's density whose likelihood has a full
+    covariance, 0.05 I plus a random SPD part (seeded): the PolyGaussian
+    kernels then take the precision-matvec branch."""
+    import copy
+    den = copy.deepcopy(den)
+    L = np.random.default_rng(10).normal(size=(DES_N_DATA, DES_N_DATA))
+    den.module_list[1].cov = (0.05 * np.eye(DES_N_DATA)
+                              + L @ L.T / DES_N_DATA ** 2)
+    return den
+
+
+def _poly_leapfrog_ops(dim, spec):
+    """Operations of one leapfrog of the PolyGaussian density behind the
+    fused bound transform, read off csrc/nuts.cu: F M multiply-adds forward
+    and F M back (4 F M), a butterfly per feature (10 F), the likelihood
+    per output (8 M), the sparse rows of the gradient (2 NNZ), the bound's
+    and the decay's D x D matvecs (4 D^2), and about 85 elementwise
+    operations per dimension (transform, integrator, energy and U-turn
+    sums)."""
+    M, F, NNZ = (int(v) for v in spec['scalars'][2:5])
+    return 4 * F * M + 10 * F + 8 * M + 2 * NNZ + 4 * dim * dim + 85 * dim
+
+
+def _poly_vs_plain(torch, den, carry, dtype, label=''):
+    """[10b] Both chunk kernels with the PolyGaussian density against their
+    plain versions at DES_CHAINS chains, D = 27, M = 457 and the last
+    sample step's coefficients, bound and decay, on that step's final
+    state cast to ``dtype``. Returns the max abs errors."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    from bayesfast_tpu_torch.samplers.step_size import init_step_size
+    q = carry.q.to(dtype).contiguous()
+    C = q.shape[0]
+    var = nc._mat(carry.metric.var, C, DES_D, q)
+    eps = torch.exp(carry.step.log_bar).to(dtype)
+    plain_lpg = nc.plain_lpg(den)
+    seed, i0 = 20240601, 37
+    tag = label + str(dtype).replace('torch.', '')
+    metric = init_diag_metric(q, var)
+    ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, K_CMP,
+                                          MAX_TREEDEPTH, MAX_CHANGE,
+                                          density=den, i0=i0))
+    torch.cuda.synchronize()
+    o = nc.nuts_chunk_plain(seed, q, var, eps, K_CMP, MAX_TREEDEPTH,
+                            MAX_CHANGE, plain_lpg, i0)
+    ref = _as_dict(o['q'], o['q_final'], nc._chunk_stats(o, dtype))
+    print(f'  poly frozen {tag}: mean tree depth '
+          f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
+          f'{ref["diverging"].float().mean().item():.4f}')
+    errs = {'nuts_multi_poly': _compare(f'nuts_multi PolyGaussian {tag}',
+                                        ker, ref, C)}
+    wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
+    step = init_step_size(eps)
+    args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
+            True, wsched)
+    ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
+                                       density=den, i0=i0)
+    torch.cuda.synchronize()
+    steps, mets = nc._warmup_leaves(q, step, metric)
+    ref = nc.nuts_warmup_chunk_plain(seed, q, steps, mets, *args, plain_lpg,
+                                     i0)
+    errs['nuts_warmup_poly'] = _compare(f'nuts_warmup PolyGaussian {tag}',
+                                        ker, ref, C)
+    return errs
 
 
 def _ab_one(tree, state, out_path, n_seeds):
@@ -886,6 +1179,31 @@ def main():
     # ---- [9] the full metric on the torch tree loop ----
     _tree_loop(torch, bt)
 
+    # ---- [10] the DES-like Recipe at full width, every sample step on the
+    # chunk kernels with the compiled-in PolyGaussian density ----
+    rec, des_launches = _des_recipe(torch, bt)
+    launches['nuts_multi_poly'] = des_launches['nuts_multi']
+    launches['nuts_warmup_poly'] = des_launches['nuts_warmup']
+
+    # ---- [10b] the PolyGaussian chunk kernels against their plain
+    # versions, then timed, on the last sample step's state ----
+    print(f'[10b] PolyGaussian chunk kernels vs plain, C={DES_CHAINS}, '
+          f'D={DES_D}, M={DES_N_DATA}, K={K_CMP}, step-2 coefficients')
+    den_p = rec.density
+    carry_p = rec.recipe_trace.results.sample[-1].sample_trace.trace._carry
+    errs64.update(_poly_vs_plain(torch, den_p, carry_p, torch.float64))
+    errs32.update(_poly_vs_plain(torch, den_p, carry_p, torch.float32))
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    spec_p = nc._spec_entry(den_p, carry_p.q)[2]
+    times.update(_time_chunks(torch, den_p, carry_p,
+                              ops=_poly_leapfrog_ops(DES_D, spec_p),
+                              suffix='_poly')[0])
+    print('[10b] the same with a full-covariance likelihood (the precision '
+          'matvec)')
+    den_f = _full_cov_density(den_p)
+    for dt in (torch.float64, torch.float32):
+        _poly_vs_plain(torch, den_f, carry_p, dt, label='full cov ')
+
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
                        'bayesfast_tpu/samplers/nuts_pallas.py:462'),
@@ -894,7 +1212,12 @@ def main():
         'kde_cdf': ('bayesfast_tpu_torch/csrc/kde.cu',
                     'bayesfast_tpu/ops/kde_pallas.py:50'),
         'nuts_block': ('bayesfast_tpu_torch/csrc/nuts.cu',
-                       'bayesfast_tpu/samplers/nuts_pallas.py:431')}
+                       'bayesfast_tpu/samplers/nuts_pallas.py:431'),
+        # the chunk kernels instantiated with the PolyGaussian density
+        'nuts_multi_poly': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                            'bayesfast_tpu/samplers/nuts_pallas.py:462'),
+        'nuts_warmup_poly': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                             'bayesfast_tpu/samplers/nuts_pallas.py:746')}
     rows = []
     for k, (src, replaces) in meta.items():
         ms, plain_ms, bound_ms, bound_by = times[k][:4]
