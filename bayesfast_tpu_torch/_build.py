@@ -18,7 +18,8 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ['load_library', 'build_library', 'NVCC_FLAGS', 'LIBRARIES']
+__all__ = ['load_library', 'build_library', 'build_log', 'NVCC_FLAGS',
+           'LIBRARIES']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, 'csrc')
@@ -59,7 +60,8 @@ def build_library(names=None, verbose=False):
     """Compile the libraries ``names`` (default: all) whose hashed file is
     missing, one ``nvcc`` each, all started together; returns
     ``{name: path}``. Sets ``last_build_seconds`` (the wall of the parallel
-    build; 0.0 when every library existed)."""
+    build; 0.0 when every library existed). Each library's compiler output
+    is kept beside it (``build_log``)."""
     global last_build_seconds
     names = list(LIBRARIES) if names is None else list(names)
     paths, jobs = {}, []
@@ -85,11 +87,24 @@ def build_library(names=None, verbose=False):
             continue
         if verbose:
             print(f'[{name}] ' + log)
+        with open(out[:-3] + '.log', 'w') as f:
+            f.write(log)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half
     last_build_seconds = time.time() - t0 if jobs else 0.0
     if failed:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
     return paths
+
+
+def build_log(name):
+    """The compiler's output (``-Xptxas -v``: each kernel's registers and
+    spills) of the build of library ``name`` that the current sources
+    name, or None when there is no such build."""
+    path = _lib_path(name)[1][:-3] + '.log'
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
 
 
 def _bind(name, lib):
@@ -101,7 +116,7 @@ def _bind(name, lib):
             c_int, c_int, c_int, c_int,       # C, D, K, max_treedepth
             c_uint, c_uint, c_uint,           # seed, i0, chain_start
             c_int, c_int,                     # adapt_step, adapt_metric
-            ctypes.POINTER(ctypes.c_double),  # fargs[8]
+            ctypes.POINTER(ctypes.c_double),  # fargs (8 + 11)
             ctypes.POINTER(vp), c_int,        # pointer table, its length
             vp]                               # cudaStream_t
         lib.nuts_block_launch.restype = c_int
@@ -109,7 +124,7 @@ def _bind(name, lib):
             c_int, c_int,                     # f64, density id
             c_int, c_int, c_int,              # C, D, max_treedepth
             c_uint, c_uint,                   # seed, chain_start
-            ctypes.POINTER(ctypes.c_double),  # fargs[8]
+            ctypes.POINTER(ctypes.c_double),  # fargs (8 + 11)
             ctypes.POINTER(vp), c_int,        # pointer table, its length
             vp]                               # cudaStream_t
         lib.nuts_error_string.restype = ctypes.c_char_p

@@ -55,6 +55,15 @@
 // bits, so every branch stays warp-uniform), and each chain retires on its
 // own when its tree ends. Tensor-core matvecs are later work.
 //
+// Registers and occupancy: the kernels are declared for one block of 8
+// warps an SM (`__launch_bounds__(256, 1)`), so ptxas may give a thread up
+// to 255 registers and has no reason to spill to reach a second block. A
+// second block would not help: at C chains a launch has C / 8 blocks, one
+// wave on 132 SMs up to C = 1056, and a block of the surrogate density
+// (PolyGaussian) takes most of the SM's shared memory anyway. Above 1056
+// chains a second wave of blocks starts only as blocks of the first
+// finish.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (see ../_build.py)
 // --fmad=false and no fast math keep each elementwise operation rounded as
@@ -184,6 +193,17 @@ struct Vec16<double> {
 template <typename T, int NE>
 __host__ __device__ constexpr int row_stride() {
   return 32 * NE + 16 / (int)sizeof(T);
+}
+
+// Row stride, in T, of R staged coefficients a row: R padded to whole
+// 16-byte vectors, and one vector more when their count is even, so that
+// the 8 rows that one 16-byte load phase reads start on distinct 16-byte
+// bank groups. 0 for R = 0. (samplers/nuts_cuda.py::_coef_stride)
+template <typename T>
+__host__ __device__ constexpr int coef_stride(int R) {
+  constexpr int n = 16 / (int)sizeof(T);
+  const int v = (R + n - 1) / n;
+  return R <= 0 ? 0 : (v % 2 == 0 ? v + 1 : v) * n;
 }
 
 // y_j = sum_k M[j * S + k] x_k for this lane's j (lanes over j, S the row
@@ -354,40 +374,115 @@ struct Gaussian {  // logp = -0.5 sum (x - mean)^2 / var
 // (bayesfast_tpu/modules/poly.py:319-341) and the Density's decay penalty
 // -gamma max(dd' Hd dd - alpha_d^2, 0) (core/pipeline.py:470-474), and
 // the analytic gradient of all of it. The features phi_f = xa[i1_f] *
-// xa[i2_f] over xa = [x0, 1]; m = phi WT, WT (F, M).
+// xa[i2_f] over xa = [x0, 1]; m = phi WT, WT (F, M). In the chunk kernels
+// this functor takes the place of the density that _nuts_multi_kernel and
+// _nuts_warmup_kernel (bayesfast_tpu/samplers/nuts_pallas.py:462, :746)
+// trace in from the JAX pipeline's surrogate.
+//
 // Work per evaluation: F M multiply-adds forward (lanes over outputs, a
 // sum over the features in order each) and F M back (for each feature a
-// lane partial over the lane's outputs, then a butterfly), both reading
-// WT from device memory through the read-only path (L2-resident: 133 KB
-// in f32 at the DES shape, F = 73, M = 457); the two D x D Hessians are
-// staged in shared memory for `matvec`, beside each warp's exchange
-// buffers (x, xa, phi, its gradient, the outputs' gradients; with a full
-// precision also r and m0 - f_mu) and the integer tables. P (M x M, 835
-// KB in f32 at M = 457) is read from device memory, one row of it for each
-// k, as each lane's outputs sum over k in order.
+// lane partial over the lane's outputs, then the tree across lanes): two
+// passes over WT, 2 F M sizeof(T) bytes (267 KB in f32 at the DES shape,
+// F = 73, M = 457), where the rest of a leapfrog is a few thousand
+// operations. So WT is staged in shared memory once per block: the first
+// R features (all of them when they fit: R comes from the launch's plan,
+// samplers/nuts_cuda.py::poly_smem_plan) transposed, output j's features
+// as row j (stride `coef_stride`), so that a lane reads four of its
+// output's features (two in f64) in one conflict-free 16-byte load,
+// forward and back; features past R come from device memory through the
+// read-only path. The arithmetic is that of the plain version
+// (ops/densities.py::_poly_gaussian_lpg): each output's forward sum over
+// the features in order (kOut outputs a pass, each its own accumulator),
+// each feature's back-pass partial over the lane's outputs in order, then
+// the halving tree of `warp_sum` (`reduce8`); so the draws are bit for
+// bit those of the butterflies over WT in device memory that the kernel
+// took before.
+// What bounds it on the card: the dependent latency of one warp's loads
+// and sums. Predicted from shared-memory bandwidth (128 bytes a clock an
+// SM: 8 warps x 267 KB a leapfrog, ~10 us while all eight run, ~3 us for
+// a slowest chain that runs on alone): 3-10 us a leapfrog on the slowest
+// chain, against 47-137 us with WT read from L2. Measured (H100 80GB
+// HBM3, 700 W; chip_smoke.py --ab): 19.2-19.3 us frozen, 16.5-16.6 us
+// warmup in f32 (about 65 us in f64, 38 of 73 features staged), about as
+// long alone as beside seven other warps, so the sums
+// wait on their loads and on each other, not on the bandwidth. Two
+// things made most of the gain: loads that wait on no branch (every loop
+// over outputs runs a warp-uniform count, an output past M reads row
+// M - 1 and is dropped), and the tree across lanes through shared memory
+// in place of 40 shuffles a group of eight features.
+// Beside WT: the two D x D Hessians, staged for `matvec`, each warp's
+// exchange buffers (x, xa, phi with zeros to whole vectors, its gradient,
+// the outputs' gradients; with a full precision also r and m0 - f_mu) and
+// the integer tables. P (M x M, 835 KB in f32 at M = 457) is read from
+// device memory, one row of it for each k, as each lane's outputs sum over
+// k in order.
 template <typename T, int NE>
 struct PolyGaussian {
   static constexpr int P = 32 * NE, S = row_stride<T, NE>();
+  // outputs a forward pass (8 in f32 at D <= 32, 4 at D > 32; 1 in f64,
+  // where two or four spill at D <= 32 and one is the fastest that does
+  // not, PERF.md), features a back-pass group (`reduce8`) and the back
+  // pass's outputs in flight at once (one in f64, whose registers are
+  // full)
+  static constexpr int kOut = sizeof(T) == 4 ? 8 / NE : 1;
+  static constexpr int kBack = 8;
+  static constexpr int kBackUnroll = sizeof(T) == 4 ? 4 : 1;
   const T* par;  // packed parameters, device memory (see `locate`)
   int D, M, F, NNZ;
+  int R, RS;  // features staged in shared memory, their row stride
   bool bound_on, decay_on, full;
   T nrm, gamma, alpha, alpha2;
   const T *WT, *dat, *vinv, *fmu, *mup, *Hp, *mud, *Hd, *Pm, *ints;
-  const T *sHp, *sHd;
-  T *xbuf, *xa, *phi, *gphi, *gbuf, *rbuf, *mbuf;
-  const int *si1, *si2, *srp, *scf, *scp;
   T mp[NE], md[NE];  // this lane's bound and decay centres
   mutable T dec;     // the decay penalty of the last evaluation
 
   __host__ __device__ static int up4(int n) { return (n + 3) & ~3; }
   __host__ __device__ int n_ints() const { return 2 * F + D + 1 + 2 * NNZ; }
   __host__ __device__ int warp_elems() const {
-    return P + up4(P + 1) + 2 * up4(F) + (full ? 3 : 1) * up4(M);
+    return P + up4(P + 1) + 2 * up4(F) + 32 * kBack + (full ? 3 : 1) * up4(M);
+  }
+  __host__ __device__ int int_elems() const {
+    return up4((n_ints() * 4 + (int)sizeof(T) - 1) / (int)sizeof(T));
+  }
+  // layout: Hp, Hd, the warps' buffers, the integer tables, staged WT
+  __host__ __device__ int coef_offset() const {
+    return 2 * P * S + kWarps * warp_elems() + int_elems();
   }
   __host__ __device__ size_t smem_elems() const {
-    const int int_elems = up4((n_ints() * 4 + (int)sizeof(T) - 1) /
-                              (int)sizeof(T));
-    return 2 * P * S + kWarps * warp_elems() + int_elems;
+    return coef_offset() + (size_t)M * RS;
+  }
+
+  // this warp's part of the block's shared memory (the layout above),
+  // addressed from the shared-memory symbol itself where it is used, so
+  // that every access compiles to a shared-memory one and no store to a
+  // buffer can alias the functor's own fields
+  struct Bufs {
+    const T *Hp, *Hd, *W;
+    T *x, *xa, *phi, *gphi, *red, *g, *r, *m;
+    const int *i1, *i2, *rp, *cf, *cp;
+  };
+  __device__ __forceinline__ Bufs bufs() const {
+    extern __shared__ __align__(16) unsigned char g_smem[];
+    T* const sm = reinterpret_cast<T*>(g_smem);
+    Bufs b;
+    b.Hp = sm;
+    b.Hd = sm + P * S;
+    b.x = sm + 2 * P * S + (threadIdx.x >> 5) * warp_elems();
+    b.xa = b.x + P;
+    b.phi = b.xa + up4(P + 1);
+    b.gphi = b.phi + up4(F);
+    b.red = b.gphi + up4(F);
+    b.g = b.red + 32 * kBack;
+    b.r = b.g + up4(M);
+    b.m = b.r + up4(M);
+    b.i1 = reinterpret_cast<const int*>(sm + 2 * P * S +
+                                        kWarps * warp_elems());
+    b.i2 = b.i1 + F;
+    b.rp = b.i2 + F;
+    b.cf = b.rp + D + 1;
+    b.cp = b.cf + NNZ;
+    b.W = sm + coef_offset();
+    return b;
   }
 
   // offsets of the packed vector: WT, dat, vinv, fmu, mup, Hp, mud, Hd,
@@ -417,26 +512,20 @@ struct PolyGaussian {
                                      kWarps * warp_elems());
     for (int i = threadIdx.x; i < n_ints(); i += blockDim.x)
       ip[i] = (int)ints[i];
+    // WT's first R features, transposed, zero-padded to whole vectors
+    T* sw = smem + coef_offset();
+    const int Rp = (R + Vec16<T>::n - 1) / Vec16<T>::n * Vec16<T>::n;
+    for (int i = threadIdx.x; i < Rp * M; i += blockDim.x) {
+      const int f = i / M, j = i - f * M;
+      sw[j * RS + f] = f < R ? WT[(size_t)f * M + j] : T(0);
+    }
   }
 
-  __device__ void bind(T* smem) {
+  __device__ void bind(T*) {
     const int lane = threadIdx.x & 31;
-    sHp = smem;
-    sHd = smem + P * S;
-    T* w = smem + 2 * P * S + (threadIdx.x >> 5) * warp_elems();
-    xbuf = w;
-    xa = xbuf + P;
-    phi = xa + up4(P + 1);
-    gphi = phi + up4(F);
-    gbuf = gphi + up4(F);
-    rbuf = gbuf + up4(M);
-    mbuf = rbuf + up4(M);
-    si1 = reinterpret_cast<const int*>(smem + 2 * P * S +
-                                       kWarps * warp_elems());
-    si2 = si1 + F;
-    srp = si2 + F;
-    scf = srp + D + 1;
-    scp = scf + NNZ;
+    // phi past F: zeros, which meet the staged padding's zeros
+    T* const phi = bufs().phi;
+    for (int f = F + lane; f < up4(F); f += 32) phi[f] = T(0);
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const int d = lane + 32 * e;
@@ -445,8 +534,44 @@ struct PolyGaussian {
     }
   }
 
+  // gphi[f0 + f] (f < 8, f0 + f < lim) from each lane's partials s of
+  // eight features: the halving tree that `warp_sum` takes over the 32
+  // lanes' partials (x_l + x_{l+16}, then + 8, + 4, + 2, + 1), taken
+  // across lanes through the warp's scratch `red`: lane (q, f) = (lane / 8,
+  // lane % 8) halves feature f's partials l = q, q + 4, ..., q + 28 to the
+  // tree's node over l = q mod 4, and two shuffles join the four quarters.
+  // Every node adds the operands of a butterfly's node, so the bits are a
+  // butterfly's, with 2 shuffles a group instead of 40.
+  __device__ __forceinline__ void reduce8(const T (&s)[kBack], T* red,
+                                          T* gphi, int f0, int lim) const {
+    static_assert(kBack == 8, "the tree's lanes are 4 quarters x 8 features");
+    const int lane = threadIdx.x & 31, fq = lane & 7, q = lane >> 3;
+    __syncwarp();  // the last group's tree has read the scratch
+#pragma unroll
+    for (int b = 0; b < kBack; ++b) red[lane * kBack + b] = s[b];
+    __syncwarp();
+    T y[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) y[k] = red[(4 * k + q) * kBack + fq];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) y[k] += y[k + 4];
+    y[0] += y[2];
+    y[1] += y[3];
+    T t = y[0] + y[1];
+    t += __shfl_xor_sync(kFull, t, 16);
+    t += __shfl_xor_sync(kFull, t, 8);
+    if (q == 0 && f0 + fq < lim) gphi[f0 + fq] = t;
+  }
+
   __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
     const int lane = threadIdx.x & 31;
+    const Bufs b = bufs();
+    const T *const sHp = b.Hp, *const sHd = b.Hd, *const sW = b.W;
+    T *const xbuf = b.x, *const xa = b.xa, *const phi = b.phi;
+    T *const gphi = b.gphi, *const gbuf = b.g, *const rbuf = b.r;
+    T *const mbuf = b.m, *const red = b.red;
+    const int *const si1 = b.i1, *const si2 = b.i2, *const srp = b.rp;
+    const int *const scf = b.cf, *const scp = b.cp;
     T xm[NE], x0[NE], hdel[NE];
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
@@ -483,31 +608,59 @@ struct PolyGaussian {
     __syncwarp();
     for (int f = lane; f < F; f += 32) phi[f] = xa[si1[f]] * xa[si2[f]];
     __syncwarp();
-    // m_j = sum_f WT[f, j] phi_f in order of f, four of the lane's outputs
-    // at a time; then the likelihood and d logp / d m0
+    // m_j = sum_f WT[f, j] phi_f in order of f, kOut of the lane's outputs
+    // a pass: the staged features 16 bytes at a time (a padded feature is
+    // 0 * 0, and adding +0 to a sum that started at +0 changes no bit),
+    // then the rest from device memory; then the likelihood and
+    // d logp / d m0. The passes are warp-uniform, and an output past M
+    // reads output M - 1's row and is dropped, so that no load waits on a
+    // branch.
+    using V = Vec16<T>;
+    using VT = typename V::type;
+    const int Rp = (R + V::n - 1) / V::n * V::n;
     T part = T(0), sb = T(0);
-    for (int j0 = lane; j0 < M; j0 += 128) {
-      T acc[4] = {T(0), T(0), T(0), T(0)};
-      for (int f = 0; f < F; ++f) {
-        const T ph = phi[f];
-        const T* w = WT + (size_t)f * M + j0;
+    for (int p0 = 0; p0 < M; p0 += 32 * kOut) {
+      const int j0 = p0 + lane;
+      int jc[kOut];
+      T acc[kOut];
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (j0 + 32 * u < M) acc[u] += __ldg(w + 32 * u) * ph;
+      for (int u = 0; u < kOut; ++u) {
+        jc[u] = min(j0 + 32 * u, M - 1);
+        acc[u] = T(0);
+      }
+#pragma unroll 2
+      for (int f0 = 0; f0 < Rp; f0 += V::n) {
+        const VT pv = *reinterpret_cast<const VT*>(phi + f0);
+#pragma unroll
+        for (int u = 0; u < kOut; ++u) {
+          const VT wv = *reinterpret_cast<const VT*>(sW + jc[u] * RS + f0);
+#pragma unroll
+          for (int i = 0; i < V::n; ++i)
+            acc[u] += V::at(wv, i) * V::at(pv, i);
+        }
+      }
+      for (int f = R; f < F; ++f) {
+        const T ph = phi[f];
+        const T* w = WT + (size_t)f * M;
+#pragma unroll
+        for (int u = 0; u < kOut; ++u) acc[u] += __ldg(w + jc[u]) * ph;
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < kOut; ++u) {
         const int j = j0 + 32 * u;
+        // loaded before the branch, so that they need not wait on it
+        const T dv = __ldg(dat + jc[u]), vv = __ldg(vinv + jc[u]);
+        const T fv = __ldg(fmu + jc[u]);  // zeros without the bound
         if (j < M) {
           const T m0 = acc[u];
-          const T fm = outside ? __ldg(fmu + j) : T(0);
+          const T fm = outside ? fv : T(0);
           const T m = outside ? (beta * m0 - (beta - alpha) * fm) / alpha : m0;
-          const T r = m - __ldg(dat + j);
+          const T r = m - dv;
           if (full) {  // the likelihood waits for every r (below)
             rbuf[j] = r;
             if (outside) mbuf[j] = m0 - fm;
           } else {
-            const T rv = r * __ldg(vinv + j);
+            const T rv = r * vv;
             part += rv * r;
             const T gm = -rv;
             gbuf[j] = outside ? gm * beta / alpha : gm;
@@ -544,25 +697,48 @@ struct PolyGaussian {
     }
     __syncwarp();
     // d logp / d phi_f = sum_j WT[f, j] gm0_j: the lane's outputs in
-    // order, then the butterfly, four features at a time
-    for (int f0 = 0; f0 < F; f0 += 4) {
-      T s[4] = {T(0), T(0), T(0), T(0)};
-      for (int j = lane; j < M; j += 32) {
-        const T gj = gbuf[j];
+    // order, then the tree across lanes (`reduce8`), eight features a
+    // group: the staged ones first (each output's row 16 bytes at a time),
+    // then the rest from device memory. Warp-uniform trip counts: a lane
+    // past M adds WT * 0, a signed zero, which changes no bit of a sum
+    // that started at +0; a vector or feature past the end reads the last
+    // one again, and its sums are dropped.
+    constexpr int NV = kBack / V::n;
+    const int nj = (M + 31) / 32;
+    for (int f0 = 0; f0 < Rp; f0 += kBack) {
+      T s[kBack];
+      int col[NV];
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (f0 + u < F) s[u] += __ldg(WT + (size_t)(f0 + u) * M + j) * gj;
+      for (int i = 0; i < kBack; ++i) s[i] = T(0);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) col[v] = min(f0 + v * V::n, Rp - V::n);
+#pragma unroll (kBackUnroll)
+      for (int t = 0; t < nj; ++t) {
+        const int j = lane + 32 * t, jr = min(j, M - 1);
+        const T gj = j < M ? gbuf[jr] : T(0);
+        const T* w = sW + jr * RS;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const VT wv = *reinterpret_cast<const VT*>(w + col[v]);
+#pragma unroll
+          for (int i = 0; i < V::n; ++i)
+            s[v * V::n + i] += V::at(wv, i) * gj;
+        }
       }
+      reduce8(s, red, gphi, f0, R);
+    }
+    for (int f0 = R; f0 < F; f0 += kBack) {
+      T s[kBack];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
+      for (int i = 0; i < kBack; ++i) s[i] = T(0);
+      for (int t = 0; t < nj; ++t) {
+        const int j = lane + 32 * t, jr = min(j, M - 1);
+        const T gj = j < M ? gbuf[jr] : T(0);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) s[u] += __shfl_xor_sync(kFull, s[u], o);
+        for (int i = 0; i < kBack; ++i)
+          s[i] += __ldg(WT + (size_t)min(f0 + i, F - 1) * M + jr) * gj;
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (f0 + u < F) gphi[f0 + u] = s[u];
-      }
+      reduce8(s, red, gphi, f0, F);
     }
     __syncwarp();
     // d logp / d x0_d over the dimension's sparse row, in order
@@ -1082,7 +1258,7 @@ __device__ __forceinline__ T* stage_block(const Args<T>& a, Dens& dens,
 }
 
 template <typename T, int NE, class Dens, bool WARM>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 1)
     nuts_chunk_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -1231,7 +1407,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 // chain's short trees make up for its long ones; so per transition it
 // takes longer than a chunk.
 template <typename T, int NE, class Dens>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 1)
     nuts_block_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -1345,14 +1521,23 @@ Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
 
 // Shared memory of a launch: the density's parameters, plus every warp's
 // checkpoint stack when all of it fits in a block's shared memory (at depth
-// 10 it does for every dtype and D <= 64); else the stacks stay in global
-// scratch. Above 48 KB the kernel must opt in first.
+// 10 it does for the banana and the Gaussian at every dtype and D <= 64);
+// else the stacks stay in global scratch. Above 48 KB the kernel must opt
+// in first. `plan` is the layout that the caller computed (bytes, stacks in
+// shared memory; samplers/nuts_cuda.py::poly_smem_plan for PolyGaussian),
+// or bytes < 0 for none: a launch whose layout differs from its plan, or
+// that is over a block's shared memory, is cudaErrorInvalidValue.
 template <typename T, int NE, int KIND, class Dens>
-cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s) {
+cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s,
+                          long long plan_bytes = -1, int plan_stk = 0) {
   const size_t frames = (size_t)n_levels(a.maxdepth) * (4 * a.D + 3);
   size_t bytes = (d.smem_elems() + kWarps * frames) * sizeof(T);
   a.stk_smem = bytes <= kMaxSmem ? 1 : 0;
   if (!a.stk_smem) bytes = d.smem_elems() * sizeof(T);
+  if (bytes > kMaxSmem ||
+      (plan_bytes >= 0 &&
+       ((long long)bytes != plan_bytes || a.stk_smem != plan_stk)))
+    return cudaErrorInvalidValue;
   const void* fn;
   if constexpr (KIND == kBlock)
     fn = (const void*)nuts_block_kernel<T, NE, Dens>;
@@ -1391,7 +1576,8 @@ cudaError_t launch_t(const Args<T>& a, int dens, const double* f,
     return launch_kernel<T, NE, KIND>(a, g, s);
   }
   if (dens == 2) {  // f[8..15]: M, F, NNZ, bound on, decay on, alpha,
-                    // alpha^2, full precision
+                    // alpha^2, full precision; f[16..18]: the plan's
+                    // features staged, bytes, stacks in shared memory
     PolyGaussian<T, NE> p = {};
     p.par = a.dpar;
     p.D = a.D;
@@ -1405,9 +1591,13 @@ cudaError_t launch_t(const Args<T>& a, int dens, const double* f,
     p.alpha = T(f[13]);
     p.alpha2 = T(f[14]);
     p.full = f[15] != 0.0;
-    if (p.M < 1 || p.F < 1) return cudaErrorInvalidValue;
+    p.R = (int)f[16];
+    if (p.M < 1 || p.F < 1 || p.R < 0 || p.R > p.F)
+      return cudaErrorInvalidValue;
+    p.RS = coef_stride<T>(p.R);
     p.locate();
-    return launch_kernel<T, NE, KIND>(a, p, s);
+    return launch_kernel<T, NE, KIND>(a, p, s, (long long)f[17],
+                                      f[18] != 0.0);
   }
   return cudaErrorInvalidValue;
 }
@@ -1479,3 +1669,4 @@ extern "C" int nuts_block_launch(int f64, int dens, int C, int D,
 extern "C" const char* nuts_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+

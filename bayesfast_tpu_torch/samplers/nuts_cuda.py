@@ -460,7 +460,101 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # The CUDA kernels
 
 _MAX_D = 64
-_N_EXTRA = 8  # density scalars past the first two
+_N_EXTRA = 11  # density scalars past the first two, then the staging plan
+# a block's shared memory on sm_90 (csrc/nuts.cu kMaxSmem), and its warps
+# (chains)
+_MAX_SMEM, _WARPS = 232448, 8
+
+
+def _up(n, k):
+    return -(-int(n) // k) * k
+
+
+def _coef_stride(rows, itemsize):
+    """Row stride, in elements, of ``rows`` staged coefficients a row
+    (``csrc/nuts.cu::coef_stride``): whole 16-byte vectors, one more when
+    their count is even; 0 for no rows."""
+    n = 16 // itemsize
+    v = -(-int(rows) // n)
+    return 0 if rows <= 0 else (v + 1 - v % 2) * n
+
+
+def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows):
+    """A block of a launch with the PolyGaussian density that stages the
+    first ``rows`` features of the coefficients WT, as ``csrc/nuts.cu`` lays
+    it out: the two staged D x D Hessians, each warp's exchange buffers and
+    the integer tables; then those features, transposed (output j's
+    features as row j, ``row_stride`` elements); then every warp's
+    checkpoint stack if it still fits in a block, else the stacks stay in
+    global scratch. Returns a dict (rows, row_stride, stacks_smem,
+    bytes)."""
+    n = 16 // itemsize
+    P = 32 * max(1, -(-int(D) // 32))
+    # xbuf, xa, phi, gphi, the back pass's scratch (32 lanes x 8 features),
+    # the outputs' gradients, with a full precision r and m0 - f_mu
+    warp = (P + _up(P + 1, 4) + 2 * _up(F, 4) + 32 * 8
+            + (3 if full else 1) * _up(M, 4))
+    ints = _up(-(-(2 * F + D + 1 + 2 * NNZ) * 4 // itemsize), 4)
+    stride = _coef_stride(rows, itemsize)
+    own = (2 * P * (P + n) + _WARPS * warp + ints + M * stride) * itemsize
+    stacks = _WARPS * max(int(max_treedepth) - 1, 1) * (4 * D + 3) * itemsize
+    stk = own + stacks <= _MAX_SMEM
+    return dict(rows=int(rows), row_stride=stride, stacks_smem=stk,
+                bytes=own + stk * stacks)
+
+
+def poly_smem_plan(D, M, F, NNZ, full, max_treedepth, itemsize):
+    """The shared-memory plan of a launch with the PolyGaussian density
+    (``_poly_layout``): all of WT and the stacks when they fit; else the
+    coefficients get the room (faster than the stacks, PERF.md), as many
+    features as fit beside the density's own buffers, a whole number of
+    16-byte vectors. Returns a dict (rows, row_stride, stacks_smem, bytes);
+    ``ValueError`` when the density's own buffers do not fit."""
+    def layout(rows):
+        return _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize,
+                            rows)
+
+    if layout(0)['bytes'] > _MAX_SMEM:
+        raise ValueError(f'the PolyGaussian density takes '
+                         f'{layout(0)["bytes"]} bytes of shared memory a '
+                         f'block (M = {M}, full precision {bool(full)}), '
+                         f'over {_MAX_SMEM}.')
+    n = 16 // itemsize
+    rows = F if layout(F)['bytes'] <= _MAX_SMEM else (F - 1) // n * n
+    while rows > 0 and layout(rows)['bytes'] > _MAX_SMEM:
+        rows -= n
+    return layout(rows)
+
+
+def _spec_plan(dens_id, dscal, D, max_treedepth, itemsize):
+    """``poly_smem_plan`` of a PolyGaussian launch spec (scalars norm,
+    gamma, M, F, NNZ, bound on, decay on, alpha, alpha^2, full), else
+    None."""
+    from ..ops.densities import DENSITY_IDS
+    if dens_id != DENSITY_IDS['poly_gaussian']:
+        return None
+    M, F, NNZ = (int(v) for v in dscal[2:5])
+    return poly_smem_plan(D, M, F, NNZ, bool(dscal[9]), max_treedepth,
+                          itemsize)
+
+
+def _fargs(max_change, logw, dscal, adapt, plan):
+    """The launch's double arguments (``csrc/nuts.cu::make_args`` and
+    ``launch_t``): max_change, logw, the density's first two scalars,
+    target, gamma, k, t_0, the density's other scalars from index 8, and
+    after them the plan's features staged, bytes and stacks in shared
+    memory (PolyGaussian only; the launch fails if the kernel lays the
+    block out otherwise)."""
+    target, gamma, k_exp, t_0 = adapt[:4]
+    extra = [float(v) for v in dscal[2:]]
+    if plan is not None:
+        extra += [float(plan['rows']), float(plan['bytes']),
+                  float(plan['stacks_smem'])]
+    if len(extra) > _N_EXTRA:
+        raise ValueError(f'at most {_N_EXTRA + 2} density scalars.')
+    return [float(max_change), float(logw), float(dscal[0]), float(dscal[1]),
+            float(target), float(gamma), float(k_exp), float(t_0),
+            *extra, *[0.0] * (_N_EXTRA - len(extra))]
 
 
 # launch specs, by density (held weakly), then by (dtype, device):
@@ -596,17 +690,11 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
             'bg_raw', 'bg_w'))]
         rows.update(fin)
     lib = load_library('nuts')
-    target, gamma, k_exp, t_0, adapt_step, adapt_metric = \
-        adapt or (0., 0., 0., 0., False, False)
-    # the density's first two scalars ride in fargs[2:4], the rest in
-    # fargs[8:] (csrc/nuts.cu::launch_t)
-    extra = [float(v) for v in dscal[2:]]
-    if len(extra) > _N_EXTRA:
-        raise ValueError(f'at most {_N_EXTRA + 2} density scalars.')
+    adapt = adapt or (0., 0., 0., 0., False, False)
+    adapt_step, adapt_metric = adapt[4:]
+    plan = _spec_plan(dens_id, dscal, D, max_treedepth, q0.element_size())
     fargs = (ctypes.c_double * (8 + _N_EXTRA))(
-        float(max_change), logw, float(dscal[0]), float(dscal[1]),
-        float(target), float(gamma), float(k_exp), float(t_0),
-        *(extra + [0.0] * (_N_EXTRA - len(extra))))
+        *_fargs(max_change, logw, dscal, adapt, plan))
     parr = (ctypes.c_void_p * len(ptrs))(
         *[0 if p is None else p.data_ptr() for p in ptrs])
     stream = torch.cuda.current_stream(dev).cuda_stream

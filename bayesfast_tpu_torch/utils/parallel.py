@@ -14,7 +14,10 @@ pipeline (a cosmology code, a simulator) for seconds at a time.
   mapped callable and its arguments must be picklable (module-level
   functions, numpy arrays), and worker code must not touch CUDA: the
   pipeline's external dispatch ships only the raw user callable plus
-  prepared numpy inputs, so no worker does.
+  prepared numpy inputs, so no worker does. A process has one forkserver,
+  and the code that starts it fixes what its workers preload; when other
+  code (the JAX package's pool, which preloads jax) started it first, this
+  module's pools use ``'spawn'`` instead and say so in a warning.
 
 ``set_backend(n)`` fixes the worker count; ``set_backend((n, 'processes'))``
 or ``set_backend(ParallelBackend(n, kind='processes'))`` selects the
@@ -27,6 +30,7 @@ can also be passed and is used as-is (not shut down on exit).
 import atexit
 import multiprocessing
 import os
+import warnings
 from concurrent.futures import (Executor, ProcessPoolExecutor,
                                 ThreadPoolExecutor)
 
@@ -50,22 +54,53 @@ def _shutdown_proc_pools():
 atexit.register(_shutdown_proc_pools)
 
 
+# What the forkserver's template imports, so that workers skip the imports
+# they would otherwise pay unpickling user callables. Importing torch and
+# this package initializes no CUDA context, and the template is started
+# fresh rather than forked from this process, so its forks hold no CUDA
+# state. A module the template cannot import is skipped by multiprocessing
+# itself.
+_PRELOAD = ['numpy', 'torch', 'bayesfast_tpu_torch']
+# pid of the forkserver that this module started with _PRELOAD
+_own_server = None
+
+
+def _foreign_forkserver():
+    """The preload list of this process's forkserver when it runs and was
+    started by other code with another list, else None. The server's
+    preloads are fixed when it starts; ``set_forkserver_preload`` after
+    that changes only the list that a restart would read."""
+    from multiprocessing import forkserver
+    fs = forkserver._forkserver
+    if fs._forkserver_pid is None or fs._forkserver_pid == _own_server:
+        return None
+    preload = list(fs._preload_modules)
+    return None if preload == _PRELOAD else preload
+
+
 def _shared_proc_pool(mp_context, width):
+    global _own_server
     key = (mp_context, width)
     pool = _proc_pools.get(key)
     if pool is not None and not getattr(pool, '_broken', False):
         return pool
-    ctx = multiprocessing.get_context(mp_context)
     if mp_context == 'forkserver':
-        # Preload the scientific stack into the forkserver's template
-        # process (no-op once the server runs), so that workers skip the
-        # imports they would otherwise pay unpickling user callables.
-        # Importing torch and this package initializes no CUDA context,
-        # and the template is started fresh rather than forked from this
-        # process, so its forks hold no CUDA state. A module the template
-        # cannot import is skipped by multiprocessing itself.
-        ctx.set_forkserver_preload(['numpy', 'torch', 'bayesfast_tpu_torch'])
-    pool = ProcessPoolExecutor(width, mp_context=ctx)
+        foreign = _foreign_forkserver()
+        if foreign is not None:
+            warnings.warn(
+                "this process's forkserver was started by other code with "
+                f'preloads {foreign}, which its workers would carry; the '
+                "process pool uses 'spawn' instead.", RuntimeWarning,
+                stacklevel=3)
+            mp_context = 'spawn'
+        else:
+            from multiprocessing import forkserver
+            forkserver.set_forkserver_preload(_PRELOAD)
+            forkserver.ensure_running()
+            _own_server = forkserver._forkserver._forkserver_pid
+    pool = ProcessPoolExecutor(width,
+                               mp_context=multiprocessing.get_context(
+                                   mp_context))
     _proc_pools[key] = pool
     return pool
 

@@ -23,7 +23,14 @@ card, drives the port's paths and checks what comes out:
   compiled in; n_call and the IS-weighted posterior means against the
   truth ([10]); then both chunk kernels with that density held against
   their plain versions and timed, and held again with a full-covariance
-  likelihood ([10b]).
+  likelihood ([10b]); [10b] also prints each launch's shared-memory plan
+  (the features of the coefficients staged, the checkpoint stacks, the
+  bytes a block; a launch fails if the kernel lays a block out otherwise)
+  and times the chunks under other plans, whose draws must not change.
+
+The build's ``-Xptxas -v`` report, kept beside the library, gives each
+NUTS kernel's registers and spills ([2b]); a PolyGaussian instantiation
+that spills fails the run, except float64 at D > 32.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Every phase that fails makes the script exit non-zero; without
@@ -47,12 +54,18 @@ per checkout, in the order PARENT, this checkout, this checkout, PARENT,
 each in a process of its own that imports that checkout's package and
 builds its kernels, and prints every reading and the ratios of the two
 checkouts' means. Each process runs [3] and [8] (warmup and post-warmup
-it/s) and, on the final states and draws that the first process saved, so
-that every process times the same inputs, [5]'s chunks and [8c]'s block
-launch with their slowest chains, [7]'s KDE kernel, [8d]'s pooled
-transitions and busy share, and GBS on the per-chain draws under generator
-seeds 0 to N - 1 (default 5). Its readings go to ``--work`` (default
-``bayesfast_tpu_torch/build/ab``), one JSON file a process.
+it/s) and [10] (the Recipe's n_call, largest IS-weighted deviation and
+chunk-kernel device seconds) and, on the final states, draws and surrogate
+that the first process saved, so that every process times the same
+inputs, [5]'s chunks, [10b]'s PolyGaussian chunks (float32 and float64)
+and [8c]'s block launch with their slowest chains, [7]'s KDE kernel,
+[8d]'s pooled transitions and busy share, and GBS on the per-chain draws
+under generator seeds 0 to N - 1 (default 5). Its readings go to
+``--work`` (default ``bayesfast_tpu_torch/build/ab``), one JSON file a
+process. Last, the A/B says whether the banana draws of [3] and [8], the
+Recipe's n_call and deviation, and [10b]'s outputs are bitwise equal in
+all four processes, and exits 1 if one is not, or if this checkout's
+build spills ([2b]).
 """
 
 import argparse
@@ -358,7 +371,8 @@ def _time_chunks(torch, den, carry, plain=True, ops=None, suffix=''):
     the kernel warmed up first), and the chunk's bound from the leapfrogs
     its trees took times ``ops`` per leapfrog (default: the banana's).
     Returns ({name + suffix: (ms, plain_ms, bound_ms, bound_by)}, {name +
-    suffix: its slowest chain, ``_slowest_chain``})."""
+    suffix: its slowest chain, ``_slowest_chain``}, {name: the warm call's
+    outputs})."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     plain_lpg = nc.plain_lpg(den)
     q, metric, step = carry.q, carry.metric, carry.step
@@ -385,9 +399,10 @@ def _time_chunks(torch, den, carry, plain=True, ops=None, suffix=''):
                                                plain_lpg, 700),
             (q, steps, mets)),
     }
-    times, chains = {}, {}
+    times, chains, outs = {}, {}, {}
     for name, (kern, plain_fn, inputs) in runs.items():
         ms, out = _time_ms(torch, kern, 5)
+        outs[name] = out
         plain_ms = _time_ms(torch, plain_fn, 1)[0] if plain else None
         sizes = (out[2].tree_size if name == 'nuts_multi'
                  else out['tree_size'])
@@ -395,12 +410,12 @@ def _time_chunks(torch, den, carry, plain=True, ops=None, suffix=''):
         bound = _bound(leapfrogs * ops, _nbytes(inputs, out))
         times[name + suffix] = (ms, plain_ms) + bound
         print(f'  {name}{suffix}: one K={K_CMP} chunk at C={C}, D={dim}, '
-              f'float32: kernel {ms:.3f} ms, plain torch '
+              f'{str(q.dtype)[6:]}: kernel {ms:.3f} ms, plain torch '
               f'{_ms_text(plain_ms)}; {leapfrogs} leapfrogs, bound '
               f'{bound[0]:.4f} ms ({bound[1]})')
         chains[name + suffix] = _slowest_chain(f'  {name}{suffix}', ms,
                                                sizes.sum(dim=0))
-    return times, chains
+    return times, chains, outs
 
 
 def _slowest_chain(tag, ms, sizes):
@@ -790,7 +805,8 @@ def _des_recipe(torch, bt):
     PolyModel -> Gaussian density. Times each step and its parts, counts
     the launches of each sample() call, and checks n_call and the
     IS-weighted posterior means against the truth. Returns (the Recipe,
-    the run's launch counts)."""
+    the run's launch counts, its n_call, largest IS-weighted deviation in
+    sigma and the chunk kernels' device seconds)."""
     from bayesfast_tpu_torch.core import recipe as rmod
     from bayesfast_tpu_torch.samplers import nuts as tree
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -854,7 +870,7 @@ def _des_recipe(torch, bt):
         e0.record()
         out = launch(*a, **kw)
         e1.record()
-        events.append((e0, e1))
+        events.append((a[0], int(a[5]), e0, e1))  # kind, K
         return out
 
     nc._launch = launch_with_events
@@ -868,7 +884,12 @@ def _des_recipe(torch, bt):
         rmod.sample = sample
         nc._launch = launch
     torch.cuda.synchronize()
-    parts['kernels_s'] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    # the launch mix: (kind, K) -> launches, device ms
+    mix = {}
+    for kind, k, e0, e1 in events:
+        n, ms = mix.get((kind, k), (0, 0.0))
+        mix[kind, k] = (n + 1, ms + e0.elapsed_time(e1))
+    parts['kernels_s'] = sum(ms for _, ms in mix.values()) / 1e3
     launches = {k: f.launches for k, f in counters.items()}
     n_tree = tree.nuts_transition_batched.transitions
     res = rec.get()
@@ -892,6 +913,10 @@ def _des_recipe(torch, bt):
               f'transitions {nt}; post-warmup tree depth {depth:.3f}, '
               f'accept {acc:.3f}, |draw mean - {DES_TRUTH}| max '
               f'{zs.max():.3f} sigma')
+    print('    chunk launches (kind, K: launches, device s, ms a '
+          'transition): ' + '; '.join(
+              f'{kind} {k}: {n}, {ms / 1e3:.3f}, {ms / (n * k):.3f}'
+              for (kind, k), (n, ms) in sorted(mix.items())))
     print(f'    n_call {res.n_call} (JAX package record {DES_JAX_NCALL}, '
           f'reference {DES_REF_NCALL}); tree-loop transitions {n_tree}')
     print(f'    IS-weighted posterior means - {DES_TRUTH}, in analytic sigma:'
@@ -912,7 +937,9 @@ def _des_recipe(torch, bt):
         raise AssertionError(f'posterior means off: {z.max()} sigma')
     if not (res.n_call is not None and res.n_call <= DES_REF_NCALL):
         raise AssertionError(f'n_call {res.n_call} > {DES_REF_NCALL}')
-    return rec, launches
+    return rec, launches, dict(n_call=int(res.n_call),
+                               max_dev_sigma=float(z.max()),
+                               kernels_s=parts['kernels_s'])
 
 
 def _full_cov_density(den):
@@ -982,6 +1009,167 @@ def _poly_vs_plain(torch, den, carry, dtype, label=''):
     return errs
 
 
+def _ptxas_table(log):
+    """Registers, stack frame and spill bytes of each kernel in an ``nvcc
+    -Xptxas -v`` log, by a short name read off the mangled one: {name:
+    (registers, stack frame bytes, spill store bytes, spill load
+    bytes)}."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mn = m.group(1)
+            kern = re.search(r'nuts_chunk_kernel|nuts_block_kernel', mn)
+            name = kern.group(0) if kern else mn
+            dens = re.search(r'(PolyGaussian|Banana|Gaussian)', mn)
+            dt = re.search(r'kernelI([fd])Li(\d)E', mn)
+            parts = [name]
+            if dt:
+                parts += [{'f': 'f32', 'd': 'f64'}[dt.group(1)],
+                          f'NE={dt.group(2)}']
+            if dens:
+                parts.append(dens.group(1))
+            if name == 'nuts_chunk_kernel':
+                parts.append('warmup' if 'Lb1E' in mn else 'frozen')
+            cur = ' '.join(parts)
+            out[cur] = [None, None, None, None]
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and cur:
+            out[cur][1:] = [int(v) for v in m.groups()]
+        m = re.search(r'Used (\d+) registers', line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _check_registers():
+    """[2b] Registers and spills of every NUTS kernel, from the ``-Xptxas
+    -v`` output kept beside the library in use; fails if there is none, or
+    if a PolyGaussian instantiation spills, other than float64 at D > 32
+    (NE=2), where the transition's own state fills the 255 registers (as it
+    did before the coefficients were staged)."""
+    from bayesfast_tpu_torch import _build
+    log = _build.build_log('nuts')
+    if log is None:
+        raise AssertionError('no compiler output beside the NUTS library')
+    table = _ptxas_table(log)
+    print('[2b] NUTS kernels, -Xptxas -v (registers, stack frame, spill '
+          'stores, spill loads; bytes):')
+    for k in sorted(table):
+        print(f'    {k:52s} {table[k]}')
+    spills = [k for k, v in table.items()
+              if 'PolyGaussian' in k and (v[2] or v[3])]
+    print(f'    PolyGaussian instantiations that spill: {spills}')
+    bad = [k for k in spills if 'f64 NE=2' not in k]
+    if bad or not any('PolyGaussian' in k for k in table):
+        raise AssertionError(f'PolyGaussian instantiations spill: {bad}')
+
+
+class _SpecDensity:
+    """A density that is only a saved kernel spec (``Density.kernel_spec``
+    of a Recipe's last step), so that every process of an A/B launches the
+    same surrogate."""
+    has_kernel_spec = True
+
+    def __init__(self, spec):
+        self._spec = spec
+
+    def kernel_spec(self):
+        return self._spec
+
+    def kernel_spec_key(self):
+        return 'saved'
+
+
+def _cast(obj, dtype):
+    """A carry (nested NamedTuples of tensors) with its float tensors cast
+    to ``dtype``."""
+    import torch
+    if torch.is_tensor(obj):
+        return obj.to(dtype) if obj.is_floating_point() else obj
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*(_cast(v, dtype) for v in obj))
+    return obj
+
+
+def _tensors(obj):
+    """Every tensor in ``obj`` (tuples, NamedTuples, dicts), in order."""
+    import torch
+    if torch.is_tensor(obj):
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for k in sorted(obj) for t in _tensors(obj[k])]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _tensors(v)]
+    return []
+
+
+def _digest(obj):
+    """A hash of the bytes of an array or of every tensor in ``obj``: equal
+    digests are bitwise equal outputs."""
+    import hashlib
+    h = hashlib.sha256()
+    arrays = [obj] if isinstance(obj, np.ndarray) else [
+        t.detach().cpu().numpy() for t in _tensors(obj)]
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _poly_plans(torch, den, carry):
+    """[10b] The shared-memory plan of each PolyGaussian launch (the
+    launch fails if the kernel library lays a block out otherwise), and
+    one K = 4 chunk of each kernel under it on the last sample step's
+    state: float32 under its plan (all of WT and the stacks), with half of
+    WT (36 of 73 features) and with no feature staged; float64 under its
+    plan (the coefficients first) and with no feature. Every variant's
+    outputs must equal its dtype's plan's bit for bit. Returns {label:
+    slowest chain}."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    spec = nc._spec_entry(den, carry.q)[2]
+    F = int(spec['scalars'][3])
+    ops = _poly_leapfrog_ops(DES_D, spec)
+    plan_fn = nc._spec_plan
+
+    def rows(r):  # the layout with the first r features staged
+        return lambda dens_id, sc, dim, depth, itemsize: nc._poly_layout(
+            dim, *(int(v) for v in sc[2:5]), bool(sc[9]), depth, itemsize,
+            r)
+
+    variants = ((torch.float32, 'plan', plan_fn),
+                (torch.float32, 'half of WT', rows(F // 8 * 4)),
+                (torch.float32, 'no features', rows(0)),
+                (torch.float64, 'plan', plan_fn),
+                (torch.float64, 'no features', rows(0)))
+    firsts, chains = {}, {}
+    try:
+        for dt, label, plan_of in variants:
+            nc._spec_plan = plan_of
+            c = _cast(carry, dt)
+            dens_id, _, _, _, dscal = nc._spec_for(den, c.q)
+            plan = plan_of(dens_id, dscal, c.q.shape[1], MAX_TREEDEPTH,
+                           c.q.element_size())
+            tag = f'{str(dt)[6:]} {label}'
+            print(f'  plan {tag}: {plan["rows"]} of {F} features staged, '
+                  f'stacks in shared memory: {plan["stacks_smem"]}; '
+                  f'{plan["bytes"]} bytes a block')
+            _, ch, outs = _time_chunks(torch, den, c, plain=False, ops=ops,
+                                       suffix=f'_poly {tag}')
+            chains.update(ch)
+            first = firsts.setdefault(dt, outs)
+            same = all(all(torch.equal(a, b) for a, b in zip(
+                _tensors(outs[k]), _tensors(first[k]))) for k in outs)
+            print(f'  {tag}: outputs bitwise equal to the plan\'s: {same}')
+            if not same:
+                raise AssertionError(f'the {tag} plan changes the draws')
+    finally:
+        nc._spec_plan = plan_fn
+    return chains
+
+
 def _ab_one(tree, state, out_path, n_seeds):
     """One process of the A/B: the checkout at ``tree`` measured as
     ``main`` measures it, its readings written to ``out_path``; the first
@@ -1007,11 +1195,30 @@ def _ab_one(tree, state, out_path, n_seeds):
     tp, _, res['pooled'] = _sample_path(
         torch, bt, den, A, '[8]', {'nuts_block': N_WARMUP,
                                    'nuts_multi': 3 * 2}, pooled_metric=True)
+    rec, _, res['recipe'] = _des_recipe(torch, bt)
+    res['digests'] = {'draws [3]': _digest(tt.trace.samples),
+                      'draws [8]': _digest(tp.trace.samples),
+                      'n_call, max IS deviation [10]': '%d, %r' % (
+                          res['recipe']['n_call'],
+                          res['recipe']['max_dev_sigma'])}
     if not os.path.exists(state):
+        last = rec.recipe_trace.results.sample[-1].sample_trace.trace
         torch.save({'carry': tt.trace._carry, 'pooled': tp.trace._carry,
-                    'draws': tt.get(flatten=False)}, state)
+                    'draws': tt.get(flatten=False),
+                    'poly_spec': rec.density.kernel_spec(),
+                    'poly_carry': last._carry}, state)
     st = torch.load(state, weights_only=False)
     res.update(_time_chunks(torch, den, st['carry'], plain=False)[1])
+    # [10b]'s PolyGaussian chunks on the saved surrogate and state, float32
+    # (the Recipe's) and float64
+    for dt, suffix in ((torch.float32, '_poly'), (torch.float64, '_poly64')):
+        _, chains, outs = _time_chunks(
+            torch, _SpecDensity(st['poly_spec']),
+            _cast(st['poly_carry'], dt), plain=False,
+            ops=_poly_leapfrog_ops(DES_D, st['poly_spec']), suffix=suffix)
+        res.update(chains)
+        res['digests'].update({f'{k}{suffix} outputs [10b]': _digest(v)
+                               for k, v in outs.items()})
     res['nuts_block'] = _time_block(torch, den, st['pooled'], plain=False)[1]
     x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
     res['kde_ms'] = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, h),
@@ -1036,9 +1243,13 @@ def _ab_readings(res):
            'kde ms [7]': res['kde_ms'],
            'ms per pooled transition [8d]': res['pooled_ms'],
            'busy share [8d]': res['busy_share']}
-    for k in ('nuts_block', 'nuts_multi', 'nuts_warmup'):
+    for k in ('nuts_block', 'nuts_multi', 'nuts_warmup', 'nuts_multi_poly',
+              'nuts_warmup_poly', 'nuts_multi_poly64', 'nuts_warmup_poly64'):
         for f in ('ms', 'max_leapfrogs', 'mean_leapfrogs', 'ns_per_leapfrog'):
             out[f'{k} {f}'] = res[k][f]
+    out['recipe n_call [10]'] = res['recipe']['n_call']
+    out['recipe max IS dev, sigma [10]'] = res['recipe']['max_dev_sigma']
+    out['recipe chunk kernels s [10]'] = res['recipe']['kernels_s']
     logz = np.array([z for z, _ in res['gbs']])
     if len(logz) > 1:
         out['gbs logz, mean over seeds'] = float(logz.mean())
@@ -1047,7 +1258,17 @@ def _ab_readings(res):
 
 
 def _ab(parent, work, n_seeds):
-    """Parent, this checkout, this checkout, parent; then the table."""
+    """Parent, this checkout, this checkout, parent; then the table.
+    Exits 1 if this checkout's build spills ([2b]) or an output that must
+    not change differs."""
+    from bayesfast_tpu_torch import _build
+    _build.build_library()  # this checkout's processes reuse the build
+    try:
+        _check_registers()
+        spills = None
+    except AssertionError as exc:  # measured all the same, and then fails
+        spills = exc
+        print(f'[2b] {exc}')
     os.makedirs(work, exist_ok=True)
     state = os.path.join(work, 'state.pt')
     if os.path.exists(state):
@@ -1076,7 +1297,17 @@ def _ab(parent, work, n_seeds):
     for i, r in enumerate(runs):
         print(f'gbs run {i}: ' + ', '.join(f'{z:.4f} +- {e:.4f}'
                                            for z, e in r['gbs']))
-    return 0
+    # outputs that the change must leave bit for bit as they were
+    differ = 0
+    for k in runs[0]['digests']:
+        v = [r['digests'][k] for r in runs]
+        same = len(set(v)) == 1
+        differ += not same
+        verdict = 'bitwise equal in all four runs' if same else 'DIFFER'
+        print(f'{k:40s} {verdict}: {v[0] if same else v}')
+    if spills is not None:
+        print(f'[2b] {spills}')
+    return 1 if differ or spills is not None else 0
 
 
 def main():
@@ -1102,6 +1333,7 @@ def main():
           f' in {_build.last_build_seconds:.1f} s')
     for lib in paths:
         _build.load_library(lib)
+    _check_registers()
 
     # ---- [3] the sampling path at bench.py's configuration (the port's
     # default device is the card) ----
@@ -1181,7 +1413,7 @@ def main():
 
     # ---- [10] the DES-like Recipe at full width, every sample step on the
     # chunk kernels with the compiled-in PolyGaussian density ----
-    rec, des_launches = _des_recipe(torch, bt)
+    rec, des_launches, _ = _des_recipe(torch, bt)
     launches['nuts_multi_poly'] = des_launches['nuts_multi']
     launches['nuts_warmup_poly'] = des_launches['nuts_warmup']
 
@@ -1198,6 +1430,8 @@ def main():
     times.update(_time_chunks(torch, den_p, carry_p,
                               ops=_poly_leapfrog_ops(DES_D, spec_p),
                               suffix='_poly')[0])
+    print('[10b] shared-memory plans, and the chunks under other plans')
+    _poly_plans(torch, den_p, carry_p)
     print('[10b] the same with a full-covariance likelihood (the precision '
           'matvec)')
     den_f = _full_cov_density(den_p)

@@ -1,0 +1,164 @@
+"""The shared-memory plan of the PolyGaussian NUTS kernels
+(``samplers/nuts_cuda.py::poly_smem_plan``).
+
+A launch with the Recipe's surrogate density stages the first ``rows``
+features of the coefficients WT in a block's shared memory, beside the
+density's own buffers and, when they still fit, the checkpoint stacks. The
+plan is computed on the host and passed to ``csrc/nuts.cu`` in the launch's
+double arguments, so these CPU tests hold it: at the DES-like Recipe's shape
+(27 parameters, 457 outputs, 73 features) float32 stages all of WT and the
+stacks, float64 a part of WT, and no plan ever asks for more than a block
+may have (232,448 bytes on sm_90).
+"""
+
+import numpy as np
+import pytest
+
+from bayesfast_tpu_torch import config as tconfig
+from bayesfast_tpu_torch.ops.densities import DENSITY_IDS, poly_gaussian_spec
+from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+
+LIMIT = 232448
+# the DES-like Recipe's surrogate: linear in 27 parameters, quadratic in 9
+DES_D, DES_M, DES_NL = 27, 457, np.arange(9)
+
+
+@pytest.fixture(autouse=True, scope='module')
+def _on_cpu():
+    """The port runs on the GPU unless asked: these tests ask for the CPU."""
+    old = tconfig.set_device('cpu')
+    yield
+    tconfig.set_device(old)
+
+
+def _des_scalars(M=DES_M, full=False):
+    """The launch scalars of a DES-shaped PolyGaussian spec (random
+    coefficients, seeded)."""
+    rng = np.random.default_rng(0)
+    nq = DES_NL.size * (DES_NL.size + 1) // 2
+    configs = [('linear', np.arange(DES_D), np.arange(M),
+                rng.normal(size=(M, DES_D + 1))),
+               ('quadratic', DES_NL, np.arange(M), rng.normal(size=(M, nq)))]
+    prec = np.eye(M) if full else None
+    spec = poly_gaussian_spec(DES_D, configs, M, np.zeros(M),
+                              None if full else np.ones(M), 0.0, prec=prec)
+    return spec['scalars']
+
+
+def _plan(scalars, itemsize, depth=10, **kw):
+    M, F, NNZ = (int(v) for v in scalars[2:5])
+    return nc.poly_smem_plan(DES_D, M, F, NNZ, bool(scalars[9]), depth,
+                             itemsize, **kw)
+
+
+def test_des_float32_stages_all_of_wt_and_the_stacks():
+    sc = _des_scalars()
+    assert tuple(int(v) for v in sc[2:5]) == (457, 73, 117)
+    plan = _plan(sc, 4)
+    # 8,152 elements of the density's own buffers and 8 warps x 256 of the
+    # back pass's scratch, 457 rows of 76 (73 features in whole 16-byte
+    # vectors, an odd count of them), 8 warps x 9 frames x 111
+    assert plan == dict(rows=73, row_stride=76, stacks_smem=True,
+                        bytes=(8152 + 8 * 256 + 457 * 76 + 8 * 9 * 111) * 4)
+    assert plan['bytes'] == 211696 <= LIMIT
+    # the launch spec's own plan is the same
+    dens_id = DENSITY_IDS['poly_gaussian']
+    assert nc._spec_plan(dens_id, sc, DES_D, 10, 4) == plan
+
+
+def test_des_float64_stages_part_of_wt():
+    sc = _des_scalars()
+    # the coefficients get the room: 38 of 73 features beside 79 KB of the
+    # density's own buffers and scratch; the 64 KB of stacks, which would
+    # leave room for 22, stay in global scratch
+    plan = _plan(sc, 8)
+    assert plan == dict(rows=38, row_stride=38, stacks_smem=False,
+                        bytes=(9868 + 457 * 38) * 8)
+    assert plan['bytes'] <= LIMIT
+    assert (9868 + 457 * 38 + 7992) * 8 > LIMIT
+    assert (9868 + 457 * 22 + 7992) * 8 <= LIMIT
+
+
+def test_float32_at_m_2000_stages_part_of_wt():
+    sc = _des_scalars(M=2000)
+    plan = _plan(sc, 4)
+    assert 0 < plan['rows'] < 73 and plan['rows'] % 4 == 0
+    assert plan['bytes'] <= LIMIT
+    # four features more would not fit even without the stacks
+    assert plan['bytes'] + 2000 * 4 * 4 > LIMIT
+    # the full-precision likelihood's buffers leave less room
+    full = _plan(_des_scalars(M=2000, full=True), 4)
+    assert full['rows'] < plan['rows']
+
+
+def test_a_plan_of_no_rows_is_legal():
+    # M = 5000 in float32: the density's own buffers and the stacks fit,
+    # one 16-byte vector of features for every output does not
+    plan = nc.poly_smem_plan(DES_D, 5000, 73, 117, False, 10, 4)
+    assert plan == dict(rows=0, row_stride=0, stacks_smem=True,
+                        bytes=plan['bytes'])
+    assert plan['bytes'] <= LIMIT
+    fargs = nc._fargs(1000., 0.5, (1., 2., 5000, 73, 117, 1, 1, 3., 9., 0),
+                      (0., 0., 0., 0.), plan)
+    assert fargs[16:] == [0.0, float(plan['bytes']), 1.0]
+    # buffers that alone exceed a block raise before any launch
+    with pytest.raises(ValueError, match='shared memory'):
+        nc.poly_smem_plan(DES_D, 20000, 73, 117, True, 10, 4)
+
+
+@pytest.mark.parametrize('itemsize', [4, 8])
+def test_no_plan_exceeds_a_block(itemsize):
+    n = 16 // itemsize
+    cap = LIMIT // itemsize
+    for D in (1, 5, 27, 32, 33, 64):
+        for M in (1, 10, 457, 2000, 5000):
+            for F in (1, 7, 73, 300):
+                for full in (False, True):
+                    for depth in (1, 5, 10, 15):
+                        try:
+                            p = nc.poly_smem_plan(D, M, F, 2 * F, full,
+                                                  depth, itemsize)
+                        except ValueError:
+                            continue
+                        r = p['rows']
+                        assert p['bytes'] <= LIMIT
+                        assert 0 <= r <= F
+                        assert r == F or r % n == 0
+                        rs = p['row_stride']
+                        assert rs == nc._coef_stride(r, itemsize)
+                        assert rs >= r and rs % n == 0
+                        # an odd count of vectors a row: conflict-free
+                        assert r == 0 or (rs // n) % 2 == 1
+                        stacks = 8 * max(depth - 1, 1) * (4 * D + 3)
+                        if not p['stacks_smem']:
+                            assert p['bytes'] // itemsize + stacks > cap
+
+
+def test_fargs_carry_the_plan():
+    sc = _des_scalars()
+    plan = _plan(sc, 4)
+    fargs = nc._fargs(1000., -1.5, sc, (0.8, 0.05, 0.75, 10.), plan)
+    assert len(fargs) == 8 + nc._N_EXTRA == 19
+    assert fargs[:8] == [1000., -1.5, float(sc[0]), float(sc[1]), 0.8, 0.05,
+                         0.75, 10.]
+    # M, F, NNZ, bound on, decay on, alpha, alpha^2, full; then the plan's
+    # rows staged, bytes and stacks in shared memory, which the launch holds
+    # against the kernel's own layout
+    assert fargs[8:16] == [float(v) for v in sc[2:]]
+    assert fargs[16:] == [73.0, 211696.0, 1.0]
+    # a banana spec has no plan, and its extra slots stay zero
+    dens_id = DENSITY_IDS['banana']
+    assert nc._spec_plan(dens_id, (0.01, 3.0), 32, 10, 4) is None
+    fb = nc._fargs(1000., 0., (0.01, 3.0), (0., 0., 0., 0.), None)
+    assert fb[2:4] == [0.01, 3.0] and fb[8:] == [0.0] * nc._N_EXTRA
+
+
+def test_coef_stride_puts_rows_on_distinct_bank_groups():
+    # the 8 rows that one 16-byte load phase reads start in 8 distinct
+    # 16-byte slots of the 128-byte bank line
+    for itemsize in (4, 8):
+        for rows in range(1, 200):
+            rs = nc._coef_stride(rows, itemsize)
+            slots = {(j * rs * itemsize // 16) % 8 for j in range(8)}
+            assert len(slots) == 8, (itemsize, rows, rs)
+    assert nc._coef_stride(0, 4) == 0
