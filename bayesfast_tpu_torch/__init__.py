@@ -1,6 +1,7 @@
 """bayesfast_tpu_torch: the PyTorch / CUDA port of ``bayesfast_tpu``.
 
-NUTS posterior sampling, the surrogate Recipe (module pipelines,
+Posterior sampling (NUTS, HMC, tempered TNUTS / THMC, ChEES and the
+ensemble, with checkpoint and resume), the surrogate Recipe (module pipelines,
 polynomial surrogates, Laplace, importance sampling) and Gaussianized
 evidence (GBS, GIS, GHM on the SIT flow) on one NVIDIA GPU: the same API
 and numerics as the JAX package's paths, with its Pallas kernels rewritten

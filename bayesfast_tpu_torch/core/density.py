@@ -167,6 +167,14 @@ class DensityLite(_PipelineBase, _DensityBase):
             return self._logp_and_grad_b(x, original_space)
         return fn
 
+    def device_logp(self, original_space=False):
+        """Torch ``fn(x) -> logp`` of a batch ``x`` (..., D), evaluated
+        without autograd (the ensemble sampler's evaluation)."""
+        def fn(x):
+            with torch.no_grad():
+                return self._logp_b(x, original_space)
+        return fn
+
     @property
     def has_kernel_spec(self):
         """Whether the logp is a compiled-in density (``ops.densities``)."""

@@ -22,6 +22,7 @@ evaluation (``dynamic_params()``), so a refit is seen by the next call.
 """
 
 from collections import namedtuple
+import functools
 import warnings
 
 import numpy as np
@@ -302,6 +303,15 @@ class ModuleBase:
                              f'max_length={max_length}.')
         return names
 
+    @staticmethod
+    def _checker(tag, handle_repeat, min_length, max_length):
+        """The check of a var-name list, picklable (a checkpoint pickles
+        the modules)."""
+        return functools.partial(ModuleBase._var_check, tag=tag,
+                                 handle_repeat=handle_repeat,
+                                 min_length=min_length,
+                                 max_length=max_length)
+
     _input_min_length = 1
     _input_max_length = np.inf
     _output_min_length = 1
@@ -315,10 +325,9 @@ class ModuleBase:
 
     @input_vars.setter
     def input_vars(self, names):
-        self._input_vars = PropertyList(
-            names, lambda x: self._var_check(
-                x, 'input', 'ignore', self._input_min_length,
-                self._input_max_length))
+        self._input_vars = PropertyList(names, self._checker(
+            'input', 'ignore', self._input_min_length,
+            self._input_max_length))
 
     @property
     def output_vars(self):
@@ -326,10 +335,9 @@ class ModuleBase:
 
     @output_vars.setter
     def output_vars(self, names):
-        self._output_vars = PropertyList(
-            names, lambda x: self._var_check(
-                x, 'output', 'raise', self._output_min_length,
-                self._output_max_length))
+        self._output_vars = PropertyList(names, self._checker(
+            'output', 'raise', self._output_min_length,
+            self._output_max_length))
 
     @property
     def delete_vars(self):
@@ -337,10 +345,9 @@ class ModuleBase:
 
     @delete_vars.setter
     def delete_vars(self, names):
-        self._delete_vars = PropertyList(
-            names, lambda x: self._var_check(
-                x, 'delete', 'remove', self._delete_min_length,
-                self._delete_max_length))
+        self._delete_vars = PropertyList(names, self._checker(
+            'delete', 'remove', self._delete_min_length,
+            self._delete_max_length))
 
     def _shape_check(self, shapes, tag):
         shapes = np.atleast_1d(shapes).astype(int)

@@ -150,8 +150,7 @@ class Pipeline(_PipelineBase):
     @input_vars.setter
     def input_vars(self, names):
         self._input_vars = PropertyList(
-            names, lambda x: ModuleBase._var_check(x, 'input', 'raise', 1,
-                                                   np.inf))
+            names, ModuleBase._checker('input', 'raise', 1, np.inf))
 
     @property
     def input_shapes(self):

@@ -53,19 +53,20 @@ def _promote(spec, cls, what):
                      f'{cls.__name__}, got {type(spec).__name__}.')
 
 
+def _check_surrogates(items):
+    for k, s in enumerate(items):
+        if not isinstance(s, Surrogate):
+            raise ValueError(f'surrogate_list[{k}] is a '
+                             f'{type(s).__name__}, not a Surrogate.')
+    return items
+
+
 def _surrogate_tuple(sl):
-    """Validated PropertyList of Surrogates (single instance allowed)."""
+    """Validated PropertyList of Surrogates (single instance allowed); its
+    check is a module-level function, so a checkpoint can pickle it."""
     if isinstance(sl, Surrogate):
         sl = [sl]
-
-    def check(items):
-        for k, s in enumerate(items):
-            if not isinstance(s, Surrogate):
-                raise ValueError(f'surrogate_list[{k}] is a '
-                                 f'{type(s).__name__}, not a Surrogate.')
-        return items
-
-    return PropertyList(sl, check)
+    return PropertyList(sl, _check_surrogates)
 
 
 def _float64_call(fn, x):
@@ -978,17 +979,17 @@ class Recipe:
         return self._trace._r_post
 
     def save(self, path):
-        """Checkpoint the Recipe (all phase results and sampler carries) with
-        ``torch.save``. Requires the density's callables to be picklable
-        (module-level functions, not lambdas). ``run()`` on the loaded
-        Recipe resumes at the next unfinished phase."""
-        torch.save(self, path)
+        """Checkpoint the Recipe (all phase results and sampler carries)
+        through ``utils/checkpoint.py``, every tensor lowered to the CPU.
+        Requires the density's callables to be picklable (module-level
+        functions, not lambdas). ``run()`` on the loaded Recipe resumes at
+        the next unfinished phase."""
+        from ..utils.checkpoint import save as _save
+        _save(self, path)
 
     @staticmethod
-    def load(path, map_location=None):
-        """Load a Recipe saved with ``save``; its tensors go to
-        ``map_location`` (default: the configured device)."""
-        if map_location is None:
-            map_location = get_device()
-        return torch.load(path, map_location=map_location,
-                          weights_only=False)
+    def load(path):
+        """Load a Recipe saved with ``save``; a sample step that resumes
+        moves its trace's carry to the configured device."""
+        from ..utils.checkpoint import load as _load
+        return _load(path)

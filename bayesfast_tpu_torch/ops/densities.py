@@ -100,24 +100,45 @@ def _matvec_seq(M, x):
     return y
 
 
-def _density_lpg(spec, x):
+def _dense_matvec(M, x):
+    """``y_j = sum_k M[j, k] x_k`` as one matmul (x (C, D) -> (C, D))."""
+    return x @ M.T
+
+
+def _row_sum(x):
+    return torch.sum(x, dim=-1)
+
+
+def _ops(ordered):
+    """The (matvec, lane sum) pair: the kernels' order of operations, or
+    dense torch calls in their own order."""
+    return (_matvec_seq, warp_sum) if ordered else (_dense_matvec, _row_sum)
+
+
+def _density_lpg(spec, x, ordered=True):
     """Analytic (logp, grad) of the compiled-in density at original-space
-    ``x`` (C, D), operation for operation as ``csrc/nuts.cu`` computes it.
+    ``x`` (C, D), operation for operation as ``csrc/nuts.cu`` computes it
+    (``ordered``), or with each matvec one matmul and each sum one torch
+    sum (a few launches, for the samplers that have no kernel to match).
     Divisors are tensors: torch on the card turns division by a Python
     scalar into multiplication by its reciprocal."""
+    mv, sm = _ops(ordered)
     D = spec['dim']
     par = spec['params'][0].to(x)
     if spec['density'] == 'banana':
-        Q, const = (torch.as_tensor(v, dtype=x.dtype, device=x.device)
-                    for v in spec['scalars'])
+        # Python scalars copy nothing to the device (a scalar tensor made
+        # from one is a blocking host-to-device copy each call)
+        Q, const = ((torch.as_tensor(v, dtype=x.dtype, device=x.device)
+                     for v in spec['scalars']) if ordered
+                    else map(float, spec['scalars']))
         A = par[:D * D].reshape(D, D)
         idx = torch.arange(D, device=x.device)
-        z = _matvec_seq(A, x)
+        z = mv(A, x)
         even = (idx % 2) == 0
         r = z * z - z[:, (idx + 1) % D]
         zm = z - 1.0
         t = torch.where(even, r * r / Q + zm * zm, torch.zeros_like(z))
-        logp = -warp_sum(t) - const
+        logp = -sm(t) - const
         # d t_i / d z_i = 4 z_i r_i / Q + 2 (z_i - 1) on even i, and
         # d t_i / d z_{i+1} = -2 r_i / Q
         prv = (idx - 1) % D
@@ -126,13 +147,13 @@ def _density_lpg(spec, x):
         nb = torch.where(even[prv], -2.0 * r[:, prv] / Q,
                          torch.zeros_like(z))
         grad_z = -(own + nb)
-        return logp, _matvec_seq(A.T, grad_z)
+        return logp, mv(A.T, grad_z)
     if spec['density'] == 'gaussian':
         mean, var = par[:D], par[D:]
         dx = x - mean
-        return -0.5 * warp_sum(dx * dx / var), -dx / var
+        return -0.5 * sm(dx * dx / var), -dx / var
     if spec['density'] == 'poly_gaussian':
-        return _poly_gaussian_lpg(spec, x)
+        return _poly_gaussian_lpg(spec, x, ordered)
     raise NotImplementedError(spec['density'])
 
 
@@ -258,7 +279,7 @@ def _spec_arrays(spec, x):
     return cache[key]
 
 
-def _poly_gaussian_lpg(spec, x):
+def _poly_gaussian_lpg(spec, x, ordered=True):
     """(logp, grad) of ``poly_gaussian_spec`` at original-space x (C, D),
     operation for operation as ``csrc/nuts.cu::PolyGaussian`` computes it:
     a matvec by H sums over k in order (``_matvec_seq``), m_j sums over
@@ -266,22 +287,25 @@ def _poly_gaussian_lpg(spec, x):
     and the bound's scalars, over dimensions for the quadratic forms, over
     outputs for each feature's gradient) in the warp's order
     (``warp_sum``), and a dimension's gradient over its sparse row in
-    order."""
+    order. Not ``ordered``: the matvecs and feature sums as matmuls, the
+    lane sums as torch sums."""
+    mv, sm = _ops(ordered)
     a, ix = _spec_arrays(spec, x)
     (nrm, gamma, M, F, NNZ, bound_on, decay_on, alpha, alpha_2,
      full) = spec['scalars']
     C, D = x.shape
 
     def sc(v):
-        return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+        return (torch.as_tensor(v, dtype=x.dtype, device=x.device) if ordered
+                else float(v))
 
     alpha, gamma, alpha_2 = sc(alpha), sc(gamma), sc(alpha_2)
     outside = torch.zeros(C, dtype=torch.bool, device=x.device)
     x0 = x
     if bound_on:
         delta = x - a['mup']
-        hdel = _matvec_seq(a['Hp'], delta)
-        b2 = torch.clamp(warp_sum(delta * hdel), min=1e-30)
+        hdel = mv(a['Hp'], delta)
+        b2 = torch.clamp(sm(delta * hdel), min=1e-30)
         beta = torch.sqrt(b2)
         outside = beta > alpha
         bc = beta[:, None]
@@ -289,63 +313,72 @@ def _poly_gaussian_lpg(spec, x):
                          (alpha * x + (bc - alpha) * a['mup']) / bc, x)
     xa = torch.cat([x0, torch.ones_like(x0[:, :1])], dim=-1)
     phi = xa[:, ix['i1']] * xa[:, ix['i2']]
-    m0 = torch.zeros((C, M), dtype=x.dtype, device=x.device)
-    for f in range(F):
-        m0 = m0 + a['WT'][f] * phi[:, f:f + 1]
+    if ordered:
+        m0 = torch.zeros((C, M), dtype=x.dtype, device=x.device)
+        for f in range(F):
+            m0 = m0 + a['WT'][f] * phi[:, f:f + 1]
+    else:
+        m0 = phi @ a['WT']
     m = m0
     if bound_on:
         m = torch.where(outside[:, None],
                         (bc * m0 - (bc - alpha) * a['fmu']) / alpha, m0)
     r = m - a['dat']
     if full:
-        pr = torch.zeros_like(r)
-        for k in range(M):
-            pr = pr + a['P'][k] * r[:, k:k + 1]
+        if ordered:
+            pr = torch.zeros_like(r)
+            for k in range(M):
+                pr = pr + a['P'][k] * r[:, k:k + 1]
+        else:
+            pr = r @ a['P']
         gm = -pr
-        logp = -0.5 * warp_sum(r * pr) + sc(nrm)
+        logp = -0.5 * sm(r * pr) + sc(nrm)
     else:
         rv = r * a['vinv']
         gm = -rv
-        logp = -0.5 * warp_sum(rv * r) + sc(nrm)
+        logp = -0.5 * sm(rv * r) + sc(nrm)
     gm0 = gm
     if bound_on:
         gm0 = torch.where(outside[:, None], gm * bc / alpha, gm)
-    gphi = warp_sum(a['WT'][None] * gm0[:, None, :])
+    gphi = (warp_sum(a['WT'][None] * gm0[:, None, :]) if ordered
+            else gm0 @ a['WT'].T)
     gphi = torch.cat([gphi, torch.zeros_like(gphi[:, :1])], dim=-1)
     g = torch.zeros_like(x)
     for t in range(ix['fidx'].shape[1]):
         g = g + gphi[:, ix['fidx'][:, t]] * xa[:, ix['pidx'][:, t]]
     if bound_on:
-        s_beta = warp_sum(gm * (m0 - a['fmu'])) / alpha
-        dldb = s_beta + warp_sum(g * (a['mup'] - x0)) / beta
+        s_beta = sm(gm * (m0 - a['fmu'])) / alpha
+        dldb = s_beta + sm(g * (a['mup'] - x0)) / beta
         g = torch.where(outside[:, None],
                         g * alpha / bc + dldb[:, None] * hdel / bc, g)
     dec = torch.zeros_like(logp)
     if decay_on:
         dd = x - a['mud']
-        hdd = _matvec_seq(a['Hd'], dd)
-        ex = warp_sum(dd * hdd) - alpha_2
+        hdd = mv(a['Hd'], dd)
+        ex = sm(dd * hdd) - alpha_2
         pos = ex > 0
         dec = torch.where(pos, gamma * ex, dec)
         g = torch.where(pos[:, None], g - gamma * (2.0 * hdd), g)
     return logp - dec, g
 
 
-def spec_logp_and_grad(spec, x_t):
+def spec_logp_and_grad(spec, x_t, ordered=True):
     """Analytic transformed-space (logp, grad) of a ``DensityLite`` kernel
     spec at ``x_t`` (C, D): ``grad_t = grad_x * g + h`` with the fused
-    transform's rational tangent map; the plain twin of the kernels'
-    in-kernel density."""
+    transform's rational tangent map; with ``ordered`` the plain twin of
+    the kernels' in-kernel density, else in dense torch calls (see
+    ``_density_lpg``)."""
+    sm = _ops(ordered)[1]
     from .constraint import _fused_core
     tf = {k: (v.to(x_t) if torch.is_tensor(v) else v)
           for k, v in spec['transform'].items()}
     ep, s, s1s, x_o, m_none = _fused_core(
         x_t, tf['lo'], tf['width'], tf['m_lohi'], tf['m_lo'], tf['m_hi'])
     arg = tf['m_lohi'] * s1s + (1.0 - tf['m_lohi'])
-    logdet = warp_sum(torch.log(arg) + (tf['m_lo'] + tf['m_hi']) * x_t) \
+    logdet = sm(torch.log(arg) + (tf['m_lo'] + tf['m_hi']) * x_t) \
         + tf['logw']
     g = (tf['m_lohi'] * s1s + (tf['m_lo'] - tf['m_hi']) * ep + m_none) \
         * tf['width']
     h = tf['m_lohi'] * (1.0 - 2.0 * s) + tf['m_lo'] + tf['m_hi']
-    logp, grad_x = _density_lpg(spec, x_o)
+    logp, grad_x = _density_lpg(spec, x_o, ordered)
     return logp + logdet, grad_x * g + h

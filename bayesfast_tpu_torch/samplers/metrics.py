@@ -24,8 +24,9 @@ from typing import Any, NamedTuple
 import torch
 
 __all__ = ['DiagMetricState', 'FullMetricState', 'init_diag_metric',
-           'init_full_metric', 'velocity', 'sample_momentum_b',
-           'update_metric', 'update_metric_pooled']
+           'init_full_metric', 'velocity', 'kinetic_energy',
+           'sample_momentum', 'sample_momentum_b', 'update_metric',
+           'update_metric_pooled']
 
 
 class _Welford(NamedTuple):
@@ -97,18 +98,38 @@ def velocity(metric, p):
     return (metric.cov @ p.unsqueeze(-1)).squeeze(-1)
 
 
+def kinetic_energy(p, v):
+    """``0.5 p . v`` over the last axis: (C,) for (C, D) momenta."""
+    return 0.5 * torch.sum(p * v, dim=-1)
+
+
+def _momentum_from_normal(metric, z):
+    """``p ~ N(0, M)`` from standard normals ``z``: ``z / sqrt(var)`` for a
+    diag metric, ``L^-T z`` for a full one (``cov(p) = L^-T L^-1 =
+    cov^-1``)."""
+    if isinstance(metric, DiagMetricState):
+        return z.to(metric.var.device) / torch.sqrt(metric.var)
+    z = z.to(metric.chol.device)
+    return torch.linalg.solve_triangular(
+        metric.chol.mT, z.unsqueeze(-1), upper=True).squeeze(-1)
+
+
+def sample_momentum(metric, generator):
+    """Draw one momentum (D,) ``p ~ N(0, M)`` from a single (unbatched)
+    metric state, in the metric's dtype."""
+    leaf = metric.var if isinstance(metric, DiagMetricState) else metric.cov
+    z = torch.randn(leaf.shape[-1], generator=generator, dtype=leaf.dtype,
+                    device=generator.device)
+    return _momentum_from_normal(metric, z)
+
+
 def sample_momentum_b(metric, generator, shape, dtype):
     """Draw (C, D) momenta ``p ~ N(0, M)`` with ``M = cov^-1`` from one
     generator, on the generator's device, then moved to the metric's; the
     metric may be per-chain or shared."""
     z = torch.randn(shape, generator=generator, dtype=dtype,
                     device=generator.device)
-    if isinstance(metric, DiagMetricState):
-        return z.to(metric.var.device) / torch.sqrt(metric.var)
-    z = z.to(metric.chol.device)
-    # p = L^-T z: cov(p) = L^-T L^-1 = cov^-1
-    return torch.linalg.solve_triangular(
-        metric.chol.mT, z.unsqueeze(-1), upper=True).squeeze(-1)
+    return _momentum_from_normal(metric, z)
 
 
 def _welford_add(w, x, full):

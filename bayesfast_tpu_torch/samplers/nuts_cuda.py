@@ -728,15 +728,17 @@ def _mat(a, C, D, like):
     return torch.as_tensor(a).to(like).expand(C, D).contiguous()
 
 
-def plain_lpg(density):
+def plain_lpg(density, ordered=True):
     """The plain versions' ``(C, D) -> (logp, grad)`` in transformed space:
     for a density with a kernel spec, its analytic form in the kernels'
-    order of operations (``ops.densities.spec_logp_and_grad``); otherwise
-    autograd through the density's torch logp."""
+    order of operations (``ops.densities.spec_logp_and_grad``; not
+    ``ordered``: in dense torch calls, for the samplers that have no kernel
+    to match); otherwise autograd through the density's torch logp."""
     if getattr(density, 'has_kernel_spec', False):
         # the spec of the density as it stands at each call (cached like
         # the launches' own), so a refit between calls is seen
-        return lambda x: spec_logp_and_grad(_spec_entry(density, x)[2], x)
+        return lambda x: spec_logp_and_grad(_spec_entry(density, x)[2], x,
+                                            ordered)
     f = density.device_logp_and_grad(original_space=False)
     return lambda x: f((), x)
 

@@ -1,9 +1,11 @@
-"""Trace configuration and result objects for NUTS.
+"""Trace configuration and result objects, one trace type per sampler.
 
-Counterpart of ``bayesfast_tpu/samplers/sample_trace.py:41-460``: a trace
-holds all chains as stacked host arrays; ``TraceTuple`` and ``ChainTrace``
-give the per-chain views. The random generator is a ``torch.Generator``
-(``utils/random.py``) in place of a jax key.
+Counterpart of ``bayesfast_tpu/samplers/sample_trace.py``: a trace holds
+all chains as stacked host arrays; ``TraceTuple`` and ``ChainTrace`` give
+the per-chain views. The random generator is a ``torch.Generator``
+(``utils/random.py``) in place of a jax key. ``save`` / ``load`` (on a
+trace and on ``TraceTuple``) go through ``utils/checkpoint.py``; the
+sampler's carry rides along, so a loaded trace continues where it stopped.
 """
 
 from collections import OrderedDict
@@ -13,12 +15,27 @@ import torch
 
 from ..utils.random import generator_from_seed, get_generator
 
-__all__ = ['SampleTrace', 'NTrace', 'TraceTuple', 'ChainTrace', 'StatsView']
+__all__ = ['SampleTrace', 'NTrace', 'HTrace', 'TNTrace', 'THTrace', 'ETrace',
+           'CTrace', 'TraceTuple', 'ChainTrace', 'StatsView']
 
 
 nstats_items = ('logp', 'energy', 'tree_depth', 'tree_size',
                 'mean_tree_accept', 'step_size', 'step_size_bar', 'warmup',
                 'energy_change', 'max_energy_change', 'diverging')
+
+hstats_items = ('logp', 'energy', 'n_int_step', 'accept_stat', 'accepted',
+                'step_size', 'step_size_bar', 'warmup', 'energy_change',
+                'diverging')
+
+tnstats_items = ('u', 'weight') + nstats_items
+
+thstats_items = ('u', 'weight') + hstats_items
+
+cstats_items = ('logp', 'energy', 'n_int_step', 'accept_stat', 'accepted',
+                'traj_len', 'step_size', 'step_size_bar', 'warmup',
+                'energy_change', 'diverging')
+
+estats_items = ('logp', 'accept_stat', 'accepted', 'warmup')
 
 
 class StatsView:
@@ -131,6 +148,25 @@ class SampleTrace:
     def add_warmup(self, n):
         self.n_warmup = self.n_warmup + n
 
+    def __getstate__(self):
+        # the driver cache holds the density's callables: rebuilt on use
+        d = dict(self.__dict__)
+        d.pop('_driver_cache', None)
+        return d
+
+    def save(self, path):
+        """Checkpoint this trace (config, samples and the sampler's
+        carry)."""
+        from ..utils.checkpoint import save as _save
+        _save(self, path)
+
+    @staticmethod
+    def load(path):
+        """Load a trace saved with ``save``; sampling continues exactly
+        where it stopped, on the configured device."""
+        from ..utils.checkpoint import load as _load
+        return _load(path)
+
     @property
     def x_0(self):
         return self._x_0
@@ -169,6 +205,8 @@ class SampleTrace:
 
 class _HTrace(SampleTrace):
     """Shared config/storage for Hamiltonian traces."""
+
+    _stats_items = hstats_items
 
     def __init__(self, n_chain=4, n_iter=1500, n_warmup=500, x_0=None,
                  random_generator=None, step_size=None, adapt_step_size=True,
@@ -317,6 +355,70 @@ class _HTrace(SampleTrace):
                     [self._stats_arrays[k], stats_arrays[k]], axis=1)
 
 
+class HTrace(_HTrace):
+    """Trace for fixed-length HMC."""
+
+    _stats_items = hstats_items
+
+    def __init__(self, n_chain=4, n_iter=1500, n_warmup=500, n_int_step=32,
+                 x_0=None, random_generator=None, step_size=1.,
+                 adapt_step_size=True, metric='diag', adapt_metric=True,
+                 max_change=1000., target_accept=0.8, gamma=0.05, k=0.75,
+                 t_0=10., initial_mean=None, initial_weight=10.,
+                 adapt_window=60, update_window=1, doubling=True,
+                 pooled_metric=False, x_0_descent='auto', step_probe=True):
+        super().__init__(n_chain, n_iter, n_warmup, x_0, random_generator,
+                         step_size, adapt_step_size, metric, adapt_metric,
+                         max_change, target_accept, gamma, k, t_0,
+                         initial_mean, initial_weight, adapt_window,
+                         update_window, doubling, pooled_metric,
+                         x_0_descent, step_probe)
+        self.n_int_step = int(n_int_step)
+
+    @property
+    def n_call(self):
+        """Total density calls across chains: per chain n_iter x
+        (n_int_step + 1) + 1, plus the start-up evaluations."""
+        return (self.n_chain * (self.n_iter * (self.n_int_step + 1) + 1)
+                + self._descent_calls)
+
+
+class CTrace(_HTrace):
+    """Trace for ChEES-HMC: one adaptive trajectory length shared by all
+    chains (``samplers/chees.py``); ``target_accept`` defaults to 0.651,
+    the harmonic-mean acceptance of the shared step size."""
+
+    _stats_items = cstats_items
+
+    def __init__(self, n_chain=4, n_iter=1500, n_warmup=500, x_0=None,
+                 random_generator=None, step_size=1., adapt_step_size=True,
+                 metric='diag', adapt_metric=True, max_change=1000.,
+                 traj_len_0=1., adapt_traj_len=True, max_leapfrogs=1024,
+                 chees_lr=0.025, target_accept=0.651, gamma=0.05, k=0.75,
+                 t_0=10., initial_mean=None, initial_weight=10.,
+                 adapt_window=60, update_window=1, doubling=True,
+                 pooled_metric=False, x_0_descent='auto', step_probe=True):
+        super().__init__(n_chain, n_iter, n_warmup, x_0, random_generator,
+                         step_size, adapt_step_size, metric, adapt_metric,
+                         max_change, target_accept, gamma, k, t_0,
+                         initial_mean, initial_weight, adapt_window,
+                         update_window, doubling, pooled_metric,
+                         x_0_descent, step_probe)
+        self.traj_len_0 = float(traj_len_0)
+        self.adapt_traj_len = bool(adapt_traj_len)
+        self.max_leapfrogs = int(max_leapfrogs)
+        self.chees_lr = float(chees_lr)
+
+    @property
+    def n_call(self):
+        """Total density calls across chains: each iteration's leapfrogs
+        per chain, one initial state an iteration, plus the start-up
+        evaluations."""
+        ns = self._stats_arrays['n_int_step']
+        return int(np.sum(ns) + self.n_chain * (self.i_iter + 1)
+                   + self._descent_calls)
+
+
 class NTrace(_HTrace):
     """Trace for NUTS."""
 
@@ -344,6 +446,80 @@ class NTrace(_HTrace):
         ts = self._stats_arrays['tree_size']
         return int(np.sum(ts[:, 1:]) + self.n_chain * (self.i_iter + 1)
                    + self._descent_calls)
+
+
+class _TTraceMixin:
+    """Tempered-trace accessors: ``u`` and the importance ``weights``."""
+
+    @property
+    def u(self):
+        return self._stats_arrays['u']
+
+    @property
+    def weights(self):
+        return self._stats_arrays['weight']
+
+    def get(self, since_iter=None, include_warmup=False, original_space=True,
+            return_type='samples', flatten=True):
+        if return_type in ('u', 'weights'):
+            if since_iter is None:
+                since_iter = 0 if include_warmup else self.n_warmup
+            arr = (self.u if return_type == 'u' else
+                   self.weights)[:, int(since_iter):]
+            return arr.reshape(-1) if flatten else arr
+        if return_type == 'all':
+            return [self.get(since_iter, include_warmup, original_space, _,
+                             flatten)
+                    for _ in ('samples', 'u', 'weights', 'logp')]
+        return super().get(since_iter, include_warmup, original_space,
+                           return_type, flatten)
+
+
+class TNTrace(_TTraceMixin, NTrace):
+    """Trace for tempered NUTS; ``density_base`` is the base density and
+    ``logxi`` the log-normalizer shift added to its logp."""
+
+    _stats_items = tnstats_items
+
+    def __init__(self, density_base=None, logxi=0., **kwargs):
+        super().__init__(**kwargs)
+        self.density_base = density_base
+        self.logxi = float(logxi)
+
+
+class THTrace(_TTraceMixin, HTrace):
+    """Trace for tempered HMC (see ``TNTrace``)."""
+
+    _stats_items = thstats_items
+
+    def __init__(self, density_base=None, logxi=0., **kwargs):
+        super().__init__(**kwargs)
+        self.density_base = density_base
+        self.logxi = float(logxi)
+
+
+class ETrace(_HTrace):
+    """Trace for the affine-invariant ensemble sampler
+    (``samplers/ensemble.py``). ``n_chain`` is the walker count (even, and
+    at least 2 x dim for healthy mixing); ``a`` is the stretch
+    parameter."""
+
+    _stats_items = estats_items
+
+    def __init__(self, n_chain=64, n_iter=1500, n_warmup=500, x_0=None,
+                 random_generator=None, a=2.0):
+        SampleTrace.__init__(self, n_chain, n_iter, n_warmup, x_0,
+                             random_generator)
+        self.a = float(a)
+        self._samples = None
+        self._samples_original = None
+        self._logp_original = None
+        self._stats_arrays = None
+        self._carry = None
+
+    @property
+    def n_call(self):
+        return self.n_chain * (self.n_iter + 1)
 
 
 class ChainTrace:
@@ -433,8 +609,13 @@ class TraceTuple:
 
     @property
     def sampler(self):
-        if isinstance(self._trace, NTrace):
-            return 'NUTS'
+        # subclasses before their bases: TNTrace is an NTrace, THTrace an
+        # HTrace
+        for cls, name in ((TNTrace, 'TNUTS'), (THTrace, 'THMC'),
+                          (ETrace, 'Ensemble'), (CTrace, 'CHEES'),
+                          (NTrace, 'NUTS'), (HTrace, 'HMC')):
+            if isinstance(self._trace, cls):
+                return name
         raise RuntimeError('unexpected trace type.')
 
     @property
@@ -508,6 +689,16 @@ class TraceTuple:
 
     def __iter__(self):
         return iter(self.sample_traces)
+
+    def save(self, path):
+        """Checkpoint the trace (see ``SampleTrace.save``)."""
+        from ..utils.checkpoint import save as _save
+        _save(self, path)
+
+    @staticmethod
+    def load(path):
+        from ..utils.checkpoint import load as _load
+        return _load(path)
 
 
 def _get_step_size(sample_trace):

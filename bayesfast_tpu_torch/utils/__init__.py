@@ -1,10 +1,11 @@
 from . import random
 from . import sobol
+from . import checkpoint
 from .random import get_generator, set_generator, spawn_generator
 from .acor import integrated_time, effective_sample_size, rhat
 from .kde import kde
 
-__all__ = ['random', 'sobol', 'parallel', 'get_generator', 'set_generator',
+__all__ = ['random', 'sobol', 'checkpoint', 'parallel', 'get_generator', 'set_generator',
            'spawn_generator', 'integrated_time', 'effective_sample_size',
            'rhat', 'kde', 'all_isinstance', 'Laplace', 'SystematicResampler',
            'make_positive', 'VariableDict', 'PropertyList']

@@ -27,6 +27,17 @@ card, drives the port's paths and checks what comes out:
   (the features of the coefficients staged, the checkpoint stacks, the
   bytes a block; a launch fails if the kernel lays a block out otherwise)
   and times the chunks under other plans, whose draws must not change.
+* the other samplers, plain torch on the card as they are XLA in the JAX
+  package ([11]), each through ``sample`` at 1024 chains: HMC and ChEES on
+  the banana of [3] (its moments within 5 standard errors; ChEES's
+  trajectory length must adapt), TNUTS and THMC on a tempered Gaussian
+  pair at D = 32 in float64 (the importance-weighted moments), the
+  ensemble on the banana (rates and acceptance) and on [3b]'s Gaussian
+  ([3b]'s gates); each prints its rates, and a profiled HMC warmup call
+  its device busy share. Then [11e]: the NUTS run of [3] and the ChEES
+  run, each checkpointed at the end of warmup, loaded and continued, must
+  give the post-warmup draws and logp of the uninterrupted runs bit for
+  bit.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian instantiation
@@ -99,6 +110,16 @@ DES_NONLINEAR = np.arange(9)      # parameters with quadratic response
 DES_TRACES = ({'n_iter': 1500, 'n_warmup': 600},
               {'n_iter': 1200, 'n_warmup': 400})
 DES_N_IS, DES_JAX_NCALL, DES_REF_NCALL = 500, 1128, 2626
+# [11]: the other samplers at the bench width, plain torch on the card;
+# iterations cut below [3]'s 400 + 300 to fit the smoke's time
+H_WARMUP, H_POST, HMC_STEPS = 1000, 150, 32   # HMC on banana-32
+C_WARMUP, C_POST = 200, 100        # ChEES on banana-32, warm-started
+T_D, T_VAR, T_BASE_VAR = 32, 0.5, 4.0   # the tempered Gaussian pair
+T_WARMUP, T_POST = 70, 60          # TNUTS
+TH_WARMUP, TH_POST, THMC_STEPS = 100, 100, 16
+E_WARMUP, E_POST = 500, 500        # the ensemble on banana-32
+EG_WARMUP, EG_POST = 1000, 1500    # the ensemble on [3b]'s Gaussian
+N_PROFILE = 20                     # HMC warmup transitions profiled
 # one NVIDIA H100 SXM: fp32 outside the tensor cores, device memory
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # operations per Phi evaluation of the KDE kernel (csrc/kde.cu's note):
@@ -226,13 +247,15 @@ def _counters():
             'kde_cdf': tk.kde_cdf_batch}
 
 
-def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
+def _sample_path(torch, bt, den, A, tag, expect, checkpoint=None,
+                 **trace_kw):
     """The bench configuration through ``sample``: a 2-iteration start-up
     call, the rest of warmup, then post-warmup in three calls; every launch
     count set to 0 just before and read just after. Checks the counts
     against ``expect``, the samples and the banana's moments; returns
-    (trace tuple, launches, rates): warmup and post-warmup it/s, ESS/s."""
-    from bayesfast_tpu_torch.utils.acor import effective_sample_size
+    (trace tuple, launches, rates): warmup and post-warmup it/s, ESS/s.
+    With ``checkpoint`` a path, the trace is saved there at the end of
+    warmup ([11e] resumes it)."""
     bt.utils.set_generator(32)
     trace = bt.NTrace(n_chain=N_CHAIN, n_iter=N_WARMUP + N_POST,
                       n_warmup=N_WARMUP, **trace_kw)
@@ -246,6 +269,8 @@ def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
     tt = bt.sample(den, tt, n_run=N_WARMUP - 2, verbose=False, n_update=100)
     torch.cuda.synchronize()
     dt_warm = time.time() - t0
+    if checkpoint is not None:
+        bt.utils.checkpoint.save(tt, checkpoint)
     dt_post = 0.0
     for _ in range(3):
         torch.cuda.synchronize()
@@ -269,10 +294,7 @@ def _sample_path(torch, bt, den, A, tag, expect, **trace_kw):
     size_post = float(np.mean(st['tree_size'][:, N_WARMUP:]))
     depth_post = float(np.mean(st['tree_depth'][:, N_WARMUP:]))
     acc_post = float(np.mean(st['mean_tree_accept'][:, N_WARMUP:]))
-    n_grp = 8
-    gs = N_CHAIN // n_grp
-    ess = float(sum(np.sum(effective_sample_size(s[g * gs:(g + 1) * gs]))
-                    / D for g in range(n_grp)))
+    ess = float(np.mean(_ess(s)))
     rates = dict(warmup_its=N_CHAIN * (N_WARMUP - 2) / dt_warm,
                  post_its=N_CHAIN * N_POST / dt_post, ess_s=ess / dt_post)
     print(f'    start-up call (Sobol, descent, probe, 2 iterations) '
@@ -555,6 +577,321 @@ def _tree_loop(torch, bt):
     if any(launches.values()):
         raise AssertionError('the tree loop launched a kernel')
     return launches
+
+
+def _ess(s):
+    """ESS per dimension of draws ``s`` (C, N, D), summed over 8 chain
+    groups (``utils/acor.py``), as [3] reports it."""
+    from bayesfast_tpu_torch.utils.acor import effective_sample_size
+    gs = s.shape[0] // 8
+    return sum(effective_sample_size(s[g * gs:(g + 1) * gs])
+               for g in range(8))
+
+
+def _smoke_dir():
+    """A gitignored directory of the checkout for [11]'s checkpoints."""
+    path = os.path.join(_REPO, 'bayesfast_tpu_torch', 'build', 'smoke')
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _run_sampler(torch, bt, den, trace, tag, n_warm, n_post, saves=()):
+    """``trace`` through ``sample`` as [3] runs NUTS: a 2-iteration
+    start-up call, the rest of warmup, then post-warmup in one call; every
+    kernel's launch count set to 0 just before and read just after (these
+    samplers launch none). ``saves`` are (iteration, path) pairs at which
+    the trace is checkpointed. Prints warmup and post-warmup it/s,
+    leapfrogs/s (logp evaluations/s for the ensemble), ESS/s, the
+    post-warmup acceptance and divergence; returns (trace tuple, rates)."""
+    for f in _counters().values():
+        f.launches = 0
+    cuts = sorted({2, n_warm, *(i for i, _ in saves)})
+    t0 = time.time()
+    tt = bt.sample(den, trace, n_run=2, verbose=False)
+    t_start = time.time() - t0
+    dt_warm = 0.0
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tt = bt.sample(den, tt, n_run=b - a, verbose=False)
+        torch.cuda.synchronize()
+        dt_warm += time.time() - t0
+        for i, path in saves:
+            if i == b:
+                bt.utils.checkpoint.save(tt, path)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tt = bt.sample(den, tt, n_run=n_post, verbose=False)
+    torch.cuda.synchronize()
+    dt_post = time.time() - t0
+    launches = {k: f.launches for k, f in _counters().items()}
+    if any(launches.values()):
+        raise AssertionError(f'{tag} launched a NUTS kernel: {launches}')
+    C = trace.n_chain
+    s = tt.get(flatten=False)
+    if not (np.isfinite(tt.trace.samples).all() and np.isfinite(s).all()
+            and s.shape[:2] == (C, n_post)):
+        raise AssertionError(f'{tag}: non-finite or misshapen samples')
+    st = tt.trace._stats_arrays
+    post = {k: np.asarray(v[:, n_warm:], np.float64) for k, v in st.items()}
+    ensemble = isinstance(trace, bt.ETrace)
+    if ensemble:
+        steps, unit = 1.0, 'logp evaluations/s'
+        acc = post['accepted'].mean()
+        div = 0.0
+    else:
+        steps = post['tree_size' if 'tree_size' in post else
+                     'n_int_step'].mean()
+        unit = 'leapfrogs/s'
+        acc = post['mean_tree_accept' if 'mean_tree_accept' in post
+                   else 'accept_stat'].mean()
+        div = post['diverging'].mean()
+    ess = float(np.mean(_ess(s)))
+    rates = dict(warmup_its=C * (n_warm - 2) / dt_warm,
+                 post_its=C * n_post / dt_post, ess_s=ess / dt_post,
+                 steps_s=C * n_post * steps / dt_post, accept=float(acc),
+                 diverging=float(div), post_s=dt_post, start_s=t_start)
+    print(f'{tag}: {C} chains, D={s.shape[-1]}, {n_warm} + {n_post} '
+          f'iterations, launches {launches}')
+    print(f'    start-up call (2 iterations) {t_start:.2f} s; warmup '
+          f'{rates["warmup_its"]:.1f} it/s, post {rates["post_its"]:.1f} '
+          f'it/s, {unit} {rates["steps_s"]:.4g}, ESS/s '
+          f'{rates["ess_s"]:.1f} (ESS {ess:.1f} a dimension)')
+    print(f'    post-warmup: mean {"leapfrogs" if not ensemble else "steps"}'
+          f' an iteration {steps:.2f}, accept {acc:.4f}, divergent '
+          f'{div:.4f}')
+    if not div < 0.05:
+        raise AssertionError(f'{tag}: post-warmup divergence {div}')
+    return tt, rates
+
+
+def _group_se(stat, x, n_groups=32):
+    """Standard error of ``stat`` over the chains of ``x`` (C, ...) from
+    its spread over ``n_groups`` groups of chains: the chains are
+    independent, so this counts every correlation along a chain."""
+    n_groups = min(n_groups, x.shape[0])
+    gs = x.shape[0] // n_groups
+    vals = np.array([stat(x[g * gs:(g + 1) * gs]) for g in range(n_groups)])
+    return vals.std(0, ddof=1) / np.sqrt(n_groups)
+
+
+def _banana_moments(tt, A, tag):
+    """The banana's moments E[z_even] = 1 and E[z_odd] = 1.5 (z = A x),
+    each within 5 standard errors. The statistic is the per-draw mean of
+    the even (odd) coordinates; its standard error sd / sqrt(ESS) (ESS of
+    that series, ``utils/acor.py``), or the spread over 32 groups of chains
+    where that is larger (a slowly mixing run's short chains
+    underestimate their integrated time)."""
+    z = tt.get(flatten=False) @ A.T
+    for name, y, want in (('z_even', z[..., 0::2].mean(-1), 1.0),
+                          ('z_odd', z[..., 1::2].mean(-1), 1.5)):
+        ess = float(_ess(y[..., None])[0])
+        se_ess = float(y.std() / np.sqrt(ess))
+        se_grp = float(_group_se(np.mean, y))
+        tol = 5 * max(se_ess, se_grp)
+        m = float(y.mean())
+        print(f'    E[{name}] {m:.4f} ({want}), tolerance {tol:.4f} (5 se; '
+              f'sd / sqrt(ESS {ess:.1f}) {se_ess:.5f}, over chain groups '
+              f'{se_grp:.5f})')
+        if not abs(m - want) < tol:
+            raise AssertionError(f'{tag}: E[{name}] {m} off {want} by more '
+                                 f'than {tol}')
+
+
+def _weighted(s, w):
+    """Importance-weighted mean and variance per dimension of draws ``s``
+    (..., D) with weights ``w`` (...)."""
+    sf, wf = s.reshape(-1, s.shape[-1]), w.reshape(-1)
+    mean = (sf * wf[:, None]).sum(0) / wf.sum()
+    return mean, ((sf - mean) ** 2 * wf[:, None]).sum(0) / wf.sum()
+
+
+def _tempered_moments(tt, tag):
+    """[11c]'s gates: every weight > 0, u on both sides of 0 on > 2 % of
+    draws, and in every dimension the importance-weighted mean within 5
+    standard errors of 0 and variance within 5 of 0.5. The standard errors
+    are sd / sqrt(ESS) and 0.5 sqrt(2 / ESS), ESS the smaller of the
+    weights' Kish ESS and the ``utils/acor.py`` ESS, or the spread over 32
+    groups of chains where that is larger: a chain's draws stay in one
+    tempering phase for long stretches, which neither ESS sees."""
+    s = tt.get(flatten=False, original_space=False)
+    w = tt.get(return_type='weights', flatten=False)
+    u = tt.get(return_type='u', flatten=True)
+    wf = w.reshape(-1)
+    below, above = float((u < 0).mean()), float((u > 0).mean())
+    kish = float(wf.sum() ** 2 / (wf ** 2).sum())
+    ess_acor = _ess(s)
+    ess = np.minimum(kish, ess_acor)
+    mean, var = _weighted(s, w)
+    sw = np.concatenate([s, w[..., None]], axis=-1)
+    se_grp_m = _group_se(lambda x: _weighted(x[..., :-1], x[..., -1])[0], sw)
+    se_grp_v = _group_se(lambda x: _weighted(x[..., :-1], x[..., -1])[1], sw)
+    tol_m = 5 * np.maximum(np.sqrt(var / ess), se_grp_m)
+    tol_v = 5 * np.maximum(T_VAR * np.sqrt(2.0 / ess), se_grp_v)
+    print(f'    weights: min {wf.min():.4g}, Kish ESS {kish:.1f}; acor ESS '
+          f'min {ess_acor.min():.1f} / mean {ess_acor.mean():.1f}; u < 0 on '
+          f'{below:.3f}, u > 0 on {above:.3f} of draws')
+    print(f'    standard errors, mean over dimensions: from the ESS '
+          f'{np.mean(np.sqrt(var / ess)):.5f} (mean), '
+          f'{np.mean(T_VAR * np.sqrt(2.0 / ess)):.5f} (variance); over '
+          f'chain groups {se_grp_m.mean():.5f}, {se_grp_v.mean():.5f}')
+    print(f'    weighted mean: max |mean| / tolerance '
+          f'{np.max(np.abs(mean) / tol_m):.3f} (max |mean| '
+          f'{np.abs(mean).max():.4f}, tolerances {tol_m.min():.4f}-'
+          f'{tol_m.max():.4f}); weighted variance: max |var - {T_VAR}| / '
+          f'tolerance {np.max(np.abs(var - T_VAR) / tol_v):.3f} (max '
+          f'{np.abs(var - T_VAR).max():.4f}, tolerances {tol_v.min():.4f}-'
+          f'{tol_v.max():.4f})')
+    if not (np.all(wf > 0) and below > 0.02 and above > 0.02):
+        raise AssertionError(f'{tag}: weights or temperature off')
+    if not (np.all(np.abs(mean) < tol_m)
+            and np.all(np.abs(var - T_VAR) < tol_v)):
+        raise AssertionError(f'{tag}: weighted moments off')
+
+
+def _tempered_pair(torch, bt):
+    """The tempered Gaussian pair of ``tests/test_tempered.py`` at D = 32:
+    target variance 0.5, base variance 4 (unnormalized), and ``logxi`` that
+    puts the two normalizers level."""
+    def gauss(var):
+        return bt.DensityLite(logp=bt.ops.DiagGaussian(
+            np.zeros(T_D), np.full(T_D, var), dtype=torch.float64),
+            input_size=T_D)
+    return (gauss(T_VAR), gauss(T_BASE_VAR),
+            0.5 * T_D * np.log(T_VAR / T_BASE_VAR))
+
+
+def _other_samplers(torch, bt, den, A, nuts_tt, nuts_path):
+    """[11] HMC, ChEES, TNUTS, THMC and the ensemble through ``sample`` at
+    1024 chains, then the checkpoint resume of [11e] against the
+    uninterrupted NUTS run of [3] (``nuts_tt``, saved at the end of its
+    warmup to ``nuts_path``) and the ChEES run of [11b]. Returns the rates
+    by sampler."""
+    out = {}
+    work = _smoke_dir()
+    # ---- [11a] HMC on banana-32, from the Sobol starts (the descent and
+    # the step probe as for NUTS). With 32 leapfrogs its chains need ~1000
+    # warmup iterations before the banana's moments settle (700 leave
+    # E[z_odd] 6 standard errors high, in the JAX package too) ----
+    bt.utils.set_generator(32)
+    prof_path = os.path.join(work, 'hmc_warmup.pkl')
+    tt, out['HMC'] = _run_sampler(
+        torch, bt, den, bt.HTrace(n_chain=N_CHAIN, n_iter=H_WARMUP + H_POST,
+                                  n_warmup=H_WARMUP, n_int_step=HMC_STEPS),
+        '[11a] HMC, banana-32', H_WARMUP, H_POST,
+        saves=[(H_WARMUP - N_PROFILE, prof_path)])
+    _banana_moments(tt, A, '[11a]')
+    # one warmup call of N_PROFILE transitions, resumed from its checkpoint
+    tp = bt.utils.checkpoint.load(prof_path)
+    out['HMC']['busy'] = _device_share(
+        torch, f'[11a] profiled HMC warmup call ({N_PROFILE} transitions)',
+        lambda: bt.sample(den, tp, n_run=N_PROFILE, verbose=False))
+    # ---- [11b] ChEES on banana-32, warm-started as a Recipe step is: from
+    # [3]'s last draws with the diag metric of its draws, held fixed. From
+    # the Sobol starts its shared trajectory locks short (the clip at eps
+    # x max_leapfrogs meets the step's early dip) and 1000 warmup
+    # iterations leave E[z_odd] 10-20 standard errors low, in the JAX
+    # package too ----
+    bt.utils.set_generator(32)
+    chees_path = os.path.join(work, 'chees_warmup.pkl')
+    tc, out['CHEES'] = _run_sampler(
+        torch, bt, den, bt.CTrace(
+            n_chain=N_CHAIN, n_iter=C_WARMUP + C_POST, n_warmup=C_WARMUP,
+            x_0=nuts_tt.get(flatten=False)[:, -1],
+            metric=bt.samplers._get_metric(nuts_tt, 'diag'),
+            adapt_metric=False),
+        '[11b] ChEES, banana-32, warm-started', C_WARMUP, C_POST,
+        saves=[(C_WARMUP, chees_path)])
+    _banana_moments(tc, A, '[11b]')
+    tl = tc.trace._stats_arrays['traj_len'][0]
+    # the stats record the length each transition used: post-warmup
+    # transitions all use the last warmup update's
+    print(f'    trajectory length {tl[0]:.4f} at the start, '
+          f'{tl[C_WARMUP]:.4f} after warmup; mean leapfrogs an iteration '
+          f'{tc.trace._stats_arrays["n_int_step"][0].mean():.2f}')
+    if not (abs(np.log(tl[C_WARMUP])) > 0.01
+            and np.all(tl[C_WARMUP:] == tl[C_WARMUP])):
+        raise AssertionError('[11b]: the trajectory length did not adapt in '
+                             'warmup, or moved after it')
+    # ---- [11c] TNUTS and THMC on the tempered Gaussian pair, in float64:
+    # in float32 the base phase's weights (delta up to ~130 at D = 32)
+    # underflow to 0 ----
+    target, base, logxi = _tempered_pair(torch, bt)
+    bt.config.set_dtype(torch.float64)
+    for name, cls, n_w, n_p, kw in (
+            ('TNUTS', bt.TNTrace, T_WARMUP, T_POST, {}),
+            ('THMC', bt.THTrace, TH_WARMUP, TH_POST,
+             {'n_int_step': THMC_STEPS})):
+        bt.utils.set_generator(32)
+        trace = cls(density_base=base, logxi=logxi, n_chain=N_CHAIN,
+                    n_iter=n_w + n_p, n_warmup=n_w, **kw)
+        tt, out[name] = _run_sampler(
+            torch, bt, target, trace,
+            f'[11c] {name}, tempered Gaussian, float64', n_w, n_p)
+        _tempered_moments(tt, f'[11c] {name}')
+        if name == 'TNUTS':
+            print(f'    TNUTS on the tree loop: '
+                  f'{out[name]["post_s"] / n_p:.4f} s a post-warmup '
+                  'transition')
+    bt.config.set_dtype(torch.float32)
+    # ---- [11d] the ensemble: banana-32, then [3b]'s Gaussian ----
+    bt.utils.set_generator(32)
+    te, out['Ensemble'] = _run_sampler(
+        torch, bt, den, bt.ETrace(n_chain=N_CHAIN, n_iter=E_WARMUP + E_POST,
+                                  n_warmup=E_WARMUP),
+        '[11d] ensemble, banana-32', E_WARMUP, E_POST)
+    if not 0 < out['Ensemble']['accept'] < 1:
+        raise AssertionError('[11d]: ensemble acceptance out of (0, 1)')
+    mean, var_g, den_g = _diag_gaussian(torch, bt)
+    bt.utils.set_generator(3)
+    tg, out['Ensemble_gauss'] = _run_sampler(
+        torch, bt, den_g, bt.ETrace(n_chain=N_CHAIN,
+                                    n_iter=EG_WARMUP + EG_POST,
+                                    n_warmup=EG_WARMUP),
+        "[11d] ensemble, [3b]'s Gaussian", EG_WARMUP, EG_POST)
+    _gaussian_gate(tg.get(), mean, var_g, '[11d]')
+    # ---- [11e] checkpoint resume on the card ----
+    for name, path, ref, n_w in (('NUTS', nuts_path, nuts_tt, N_WARMUP),
+                                 ('ChEES', chees_path, tc, C_WARMUP)):
+        tr = bt.TraceTuple.load(path)
+        if any(t.device.type != 'cpu' for t in _tensors(tr.trace._carry)):
+            raise AssertionError(f'[11e] {name}: the checkpoint kept device '
+                                 'tensors')
+        tr = bt.sample(den, tr, verbose=False)
+        same = (np.array_equal(tr.trace.samples[:, n_w:],
+                               ref.trace.samples[:, n_w:])
+                and np.array_equal(tr.trace.logp[:, n_w:],
+                                   ref.trace.logp[:, n_w:]))
+        print(f'[11e] {name}: saved at the end of warmup ({n_w}), loaded '
+              f'(its carry on the CPU), {tr.i_iter - n_w} post-warmup '
+              f'iterations on the card: draws and logp bitwise equal to the '
+              f'uninterrupted run: {same}')
+        if not same:
+            raise AssertionError(f'[11e] {name}: the resumed run differs')
+    return out
+
+
+def _diag_gaussian(torch, bt):
+    """[3b]'s bounded diagonal Gaussian, D = 8: (mean, variance,
+    density)."""
+    mean = np.linspace(-2., 2., 8)
+    var_g = np.linspace(0.2, 3., 8)
+    den_g = bt.DensityLite(
+        logp=bt.ops.DiagGaussian(mean, var_g, dtype=torch.float32),
+        input_size=8, input_scales=np.stack([np.full(8, -20.),
+                                             np.full(8, 20.)]).T,
+        hard_bounds=True)
+    return mean, var_g, den_g
+
+
+def _gaussian_gate(sg, mean, var_g, tag):
+    """[3b]'s moment gates on draws ``sg`` (N, 8)."""
+    m_err = np.max(np.abs(sg.mean(0) - mean) / np.sqrt(var_g))
+    v_err = np.max(np.abs(sg.var(0) / var_g - 1))
+    print(f'{tag} diag Gaussian D=8: max |mean err| / sd {m_err:.4f} (gate '
+          f'0.05), max |var ratio - 1| {v_err:.4f} (gate 0.1)')
+    if not (np.isfinite(sg).all() and m_err < 0.05 and v_err < 0.1):
+        raise AssertionError(f'{tag}: diag Gaussian moments off')
 
 
 def _gbs_on_trace(bt, tt, den):
@@ -1340,28 +1677,18 @@ def main():
     config.set_dtype(torch.float32)
     config.set_nuts_kernel('cuda')
     A, den = _bench_density(torch.float32)
+    nuts_path = os.path.join(_smoke_dir(), 'nuts_warmup.pkl')
     tt, launches, _ = _sample_path(torch, bt, den, A, '[3] main path',
-                                {'nuts_warmup': 1 + 4 * 2,
-                                 'nuts_multi': 3 * 2})
+                                   {'nuts_warmup': 1 + 4 * 2,
+                                    'nuts_multi': 3 * 2},
+                                   checkpoint=nuts_path)
 
     # ---- [3b] known moments: a bounded diag Gaussian through the kernels
-    mean = np.linspace(-2., 2., 8)
-    var_g = np.linspace(0.2, 3., 8)
-    den_g = bt.DensityLite(
-        logp=bt.ops.DiagGaussian(mean, var_g, dtype=torch.float32),
-        input_size=8, input_scales=np.stack([np.full(8, -20.),
-                                             np.full(8, 20.)]).T,
-        hard_bounds=True)
+    mean, var_g, den_g = _diag_gaussian(torch, bt)
     tg = bt.sample(den_g, bt.NTrace(n_chain=N_CHAIN, n_iter=300,
                                     n_warmup=150, random_generator=3),
                    verbose=False)
-    sg = tg.get()
-    m_err = np.max(np.abs(sg.mean(0) - mean) / np.sqrt(var_g))
-    v_err = np.max(np.abs(sg.var(0) / var_g - 1))
-    print(f'[3b] diag Gaussian D=8: max |mean err| / sd {m_err:.4f}, max '
-          f'|var ratio - 1| {v_err:.4f}')
-    if not (np.isfinite(sg).all() and m_err < 0.05 and v_err < 0.1):
-        raise AssertionError('diag Gaussian moments off')
+    _gaussian_gate(tg.get(), mean, var_g, '[3b]')
 
     # ---- [4] each kernel against its plain version, on the main path's
     # final state ----
@@ -1437,6 +1764,11 @@ def main():
     den_f = _full_cov_density(den_p)
     for dt in (torch.float64, torch.float32):
         _poly_vs_plain(torch, den_f, carry_p, dt, label='full cov ')
+
+    # ---- [11] the other samplers (plain torch on the card) and the
+    # checkpoint resume of NUTS and ChEES ----
+    config.set_dtype(torch.float32)
+    _other_samplers(torch, bt, den, A, tt, nuts_path)
 
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',

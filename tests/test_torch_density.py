@@ -102,6 +102,21 @@ def test_kernel_spec_analytic_grad_matches_autograd(name):
                                atol=1e-10 * g_a.abs().max().item())
 
 
+@pytest.mark.parametrize('name', ['banana32', 'banana5_mixed',
+                                  'gaussian_unbounded'])
+def test_dense_order_matches_kernel_order(name):
+    """The analytic form in dense torch calls (what the samplers without a
+    kernel evaluate) against the kernels' order of operations."""
+    den = _specs()[name]
+    x = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(50, den.input_size)))
+    lp_o, g_o = spec_logp_and_grad(den.kernel_spec(), x)
+    lp_d, g_d = spec_logp_and_grad(den.kernel_spec(), x, ordered=False)
+    np.testing.assert_allclose(lp_d.numpy(), lp_o.numpy(), rtol=1e-12)
+    np.testing.assert_allclose(g_d.numpy(), g_o.numpy(), rtol=1e-12,
+                               atol=1e-12 * g_o.abs().max().item())
+
+
 def test_plain_logp_has_no_kernel_spec():
     den = DensityLite(logp=lambda x: -0.5 * torch.sum(x ** 2, dim=-1),
                       input_size=2)

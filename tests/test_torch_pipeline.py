@@ -175,6 +175,19 @@ def test_kernel_spec_plain_density_matches_jax(cov):
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize('cov', ['diag', 'full'])
+def test_kernel_spec_dense_density_matches_jax(cov):
+    """The same density in dense torch calls (``ordered=False``, what the
+    samplers without a kernel evaluate) against the JAX pipeline."""
+    den_j, den_t, _ = _fitted_pair(cov)
+    xt = _test_points(den_j)
+    lp_j, g_j = den_j.logp_and_grad(xt, original_space=False)
+    lp_d, g_d = spec_logp_and_grad(den_t.kernel_spec(), torch.as_tensor(xt),
+                                   ordered=False)
+    np.testing.assert_allclose(lp_d.numpy(), lp_j, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(g_d.numpy(), g_j, rtol=1e-10, atol=1e-10)
+
+
 def _chunk_inputs(den_j):
     rng = np.random.default_rng(4)
     xo = TRUTH + rng.normal(size=(C, D)) * 0.3
