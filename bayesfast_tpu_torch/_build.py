@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(_HERE, 'build')
 # arithmetic then rounds exactly as the plain torch versions' separate ops
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '--fmad=false',
-              '-lineinfo']
+              '-lineinfo', '--split-compile=0']
 #: library name -> its source in csrc/
 LIBRARIES = {'nuts': 'nuts.cu', 'kde': 'kde.cu'}
 

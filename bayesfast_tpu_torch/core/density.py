@@ -212,17 +212,19 @@ class DensityLite(_PipelineBase, _DensityBase):
         return torch.as_tensor(np.asarray(x), dtype=get_dtype(),
                                device=get_device())
 
-    def logp(self, x, original_space=None):
+    # ``use_surrogate`` is accepted, and ignored, for the signature of
+    # ``Density`` (a DensityLite has no surrogate), as in the JAX package
+    def logp(self, x, original_space=None, use_surrogate=None):
         original_space = self._check_os(original_space)
         with torch.no_grad():
             return self._logp_b(self._host(x), original_space).cpu().numpy()
 
     __call__ = logp
 
-    def grad(self, x, original_space=None):
+    def grad(self, x, original_space=None, use_surrogate=None):
         return self.logp_and_grad(x, original_space)[1]
 
-    def logp_and_grad(self, x, original_space=None):
+    def logp_and_grad(self, x, original_space=None, use_surrogate=None):
         original_space = self._check_os(original_space)
         lp, g = self._logp_and_grad_b(self._host(x), original_space)
         return lp.cpu().numpy(), g.cpu().numpy()

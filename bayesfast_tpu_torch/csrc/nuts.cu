@@ -366,6 +366,155 @@ struct Gaussian {  // logp = -0.5 sum (x - mean)^2 / var
   __device__ T finish(T sum) const { return T(-0.5) * sum; }
 };
 
+// ---- the GBS evidence anchors (benchmarks/suite.py:60-95) ------------------
+// Funnel, Ring and Cauchy take the place of the densities that
+// _nuts_multi_kernel and _nuts_warmup_kernel (nuts_pallas.py:462, :746) trace
+// in from examples/{funnel,ring,cauchy}_gbs.py. None stages anything in shared
+// memory: a handful of constants per lane, set in `bind` from the parameter
+// vector. Each is a few dozen operations a dimension, so a leapfrog's cost is
+// the transition's own (the transform, the integrator, the butterflies):
+// like the banana's, a launch is bound by its slowest chain's serial chain of
+// leapfrogs. Every operation is that of ops/densities.py::_{funnel,ring,
+// cauchy}_lpg, in its order.
+
+// Neal's funnel (dpar: a^2, b, -2b, (D - 1) b; d0 = c0, d1 = const):
+// logp = -x0^2 / (2 a^2) - S e^(-2 b x0) / 2 + c0 - (D - 1) b x0 - const,
+// S = sum_{i >= 1} x_i^2. The gradient needs x0 on every lane (a broadcast
+// from lane 0) and S on lane 0: a butterfly of its own, in the order of the
+// one in `energy`, so the lane parts returned (the x_i^2) sum to the same S
+// there and `finish` needs only x0 and the exponential of this evaluation.
+template <typename T, int NE>
+struct Funnel {
+  static constexpr int kSmem = 0;
+  __host__ __device__ size_t smem_elems() const { return kSmem; }
+  const T* par;
+  int D;
+  T c0, cst;
+  T a2, b, mb2, db;
+  mutable T x0, ex;  // x0 and e^(-2 b x0) of the last evaluation
+
+  __device__ void stage(T*) const {}
+
+  __device__ void bind(T*) {
+    a2 = par[0];
+    b = par[1];
+    mb2 = par[2];
+    db = par[3];
+  }
+
+  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+    const int lane = threadIdx.x & 31;
+    x0 = __shfl_sync(kFull, x[0], 0);
+    ex = m_exp(mb2 * x0);
+    T s = T(0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int d = lane + 32 * e;
+      if (d >= 1 && d < D) s += x[e] * x[e];
+    }
+    const T S = warp_sum(s);
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+      g[e] = lane + 32 * e < D ? -(x[e] * ex) : T(0);
+    if (lane == 0) g[0] = (b * S * ex - x0 / a2) - db;
+    return s;
+  }
+
+  __device__ T finish(T sum) const {
+    return ((T(-0.5) * (x0 * x0 / a2) - T(0.5) * sum * ex) + (c0 - db * x0)) -
+           cst;
+  }
+};
+
+// The ring (dpar: a, b; d1 = const): r_j = (x_{j-1}^2 + x_j^2) - a, cyclic,
+// logp = -sum r_j^2 / b - const, g_k = -(4 x_k (r_k + r_{k+1})) / b. At
+// D > 32 a lane holds j and j + 32, so both neighbour terms cross lanes, and
+// element 0's left one wraps to D - 1: the banana's wrapped indices and
+// `fetch`.
+template <typename T, int NE>
+struct Ring {
+  static constexpr int kSmem = 0;
+  __host__ __device__ size_t smem_elems() const { return kSmem; }
+  const T* par;
+  int D;
+  T a, b, cst;
+  int nxt[NE], prv[NE];  // this lane's wrapped neighbours j + 1, j - 1
+
+  __device__ void stage(T*) const {}
+
+  __device__ void bind(T*) {
+    const int lane = threadIdx.x & 31;
+    a = par[0];
+    b = par[1];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int j = lane + 32 * e;
+      nxt[e] = j < D ? (j + 1) % D : 0;
+      prv[e] = j < D ? (j + D - 1) % D : 0;
+    }
+  }
+
+  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+    const int lane = threadIdx.x & 31;
+    T x2[NE], r[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) x2[e] = lane + 32 * e < D ? x[e] * x[e] : T(0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+      r[e] = (fetch<T, NE>(x2, prv[e]) + x2[e]) - a;
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const T rn = fetch<T, NE>(r, nxt[e]);
+      g[e] = lane + 32 * e < D ? -(T(4) * x[e] * (r[e] + rn)) / b : T(0);
+    }
+    T part = T(0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e)
+      if (lane + 32 * e < D) part += r[e] * r[e] / b;
+    return part;
+  }
+
+  __device__ T finish(T sum) const { return -sum - cst; }
+};
+
+// The bimodal Cauchy (dpar: a; d0 = D log(1 / (2 pi)), d1 = const): per
+// element t = 1 / ((x + a)^2 + 1) + 1 / ((x - a)^2 + 1), logp = sum log t +
+// d0 - const, g = -2 ((x + a) ta^2 + (x - a) tb^2) / t. Lanes past D (16-31
+// of element 1 at D = 48) add nothing, as the plain version's zero padding
+// adds exact zeros.
+template <typename T, int NE>
+struct Cauchy {
+  static constexpr int kSmem = 0;
+  __host__ __device__ size_t smem_elems() const { return kSmem; }
+  const T* par;
+  int D;
+  T c0, cst, a;
+
+  __device__ void stage(T*) const {}
+
+  __device__ void bind(T*) { a = par[0]; }
+
+  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+    const int lane = threadIdx.x & 31;
+    T part = T(0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      g[e] = T(0);
+      if (lane + 32 * e < D) {
+        const T u = x[e] + a, v = x[e] - a;
+        const T ta = T(1) / (u * u + T(1));
+        const T tb = T(1) / (v * v + T(1));
+        const T t = ta + tb;
+        g[e] = T(-2) * (u * ta * ta + v * tb * tb) / t;
+        part += m_log(t);
+      }
+    }
+    return part;
+  }
+
+  __device__ T finish(T sum) const { return (sum + c0) - cst; }
+};
+
 // The surrogate density of a Recipe (ops/densities.py::poly_gaussian_spec):
 // m = PolyModel(x) with linear and quadratic configs, then the Gaussian
 // log-likelihood -0.5 sum_j (m_j - d_j)^2 vinv_j + norm (diagonal) or
@@ -1598,6 +1747,29 @@ cudaError_t launch_t(const Args<T>& a, int dens, const double* f,
     p.locate();
     return launch_kernel<T, NE, KIND>(a, p, s, (long long)f[17],
                                       f[18] != 0.0);
+  }
+  if (dens == 3) {
+    Funnel<T, NE> fn = {};
+    fn.par = a.dpar;
+    fn.D = a.D;
+    fn.c0 = a.d0;
+    fn.cst = a.d1;
+    return launch_kernel<T, NE, KIND>(a, fn, s);
+  }
+  if (dens == 4) {
+    Ring<T, NE> r = {};
+    r.par = a.dpar;
+    r.D = a.D;
+    r.cst = a.d1;
+    return launch_kernel<T, NE, KIND>(a, r, s);
+  }
+  if (dens == 5) {
+    Cauchy<T, NE> c = {};
+    c.par = a.dpar;
+    c.D = a.D;
+    c.c0 = a.d0;
+    c.cst = a.d1;
+    return launch_kernel<T, NE, KIND>(a, c, s);
   }
   return cudaErrorInvalidValue;
 }

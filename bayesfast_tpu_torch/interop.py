@@ -11,12 +11,14 @@ import torch
 
 from .config import get_device, get_dtype
 from .core.density import DensityLite
-from .ops.densities import RotatedBanana
+from .ops.densities import (CauchyPair, NealFunnel, RingDensity,
+                            RotatedBanana)
 from .samplers.chain import ChainCarry
 from .samplers.metrics import DiagMetricState, FullMetricState, _Welford
 from .samplers.step_size import StepSizeState
 
-__all__ = ['banana_density', 'carry_from_numpy', 'metric_from_numpy',
+__all__ = ['banana_density', 'funnel_density', 'ring_density',
+           'cauchy_density', 'carry_from_numpy', 'metric_from_numpy',
            'sit_from_numpy', 'poly_from_numpy', 'density_decay_from_numpy']
 
 
@@ -32,6 +34,47 @@ def banana_density(A, Q=0.01, bounds=None, const=0.0, hard_bounds=True,
         input_scales=None if bounds is None else np.asarray(bounds),
         hard_bounds=hard_bounds)
 
+
+
+def _anchor(logp, lower, upper):
+    """A ``DensityLite`` over ``logp`` with the hard bounds [lower, upper],
+    as ``benchmarks/suite.py:_density`` builds the GBS anchors."""
+    bound = np.stack((lower, upper)).T
+    return DensityLite(logp=logp, input_size=bound.shape[0],
+                       input_scales=bound, hard_bounds=True)
+
+
+def _log_width(lower, upper):
+    return float(np.sum(np.log(upper - lower)))
+
+
+def funnel_density(D=16, a=1., b=0.5):
+    """The funnel-16 anchor (``benchmarks/suite.py:60-74``): bounds [-4, 4]
+    on x0 and [-30, 30] elsewhere, ``const`` the sum of the log widths.
+    Returns ``(density, extra)``, ``extra`` the sampler options of the
+    anchor (``target_accept=0.95`` for the funnel's neck)."""
+    lower, upper = np.full(D, -30.), np.full(D, 30.)
+    lower[0], upper[0] = -4., 4.
+    den = _anchor(NealFunnel(D, a, b, _log_width(lower, upper)), lower,
+                  upper)
+    return den, {'target_accept': 0.95}
+
+
+def ring_density(D=64, a=2., b=1.):
+    """The ring-64 anchor (``benchmarks/suite.py:75-84``): bounds [-5, 5],
+    ``const`` the sum of the log widths. Returns ``(density, {})``."""
+    lower, upper = np.full(D, -5.), np.full(D, 5.)
+    return _anchor(RingDensity(D, a, b, _log_width(lower, upper)), lower,
+                   upper), {}
+
+
+def cauchy_density(D=48, a=5.):
+    """The bimodal cauchy-48 anchor (``benchmarks/suite.py:85-95``): bounds
+    [-100, 100], ``const`` the sum of the log widths. Returns ``(density,
+    {})``."""
+    lower, upper = np.full(D, -100.), np.full(D, 100.)
+    return _anchor(CauchyPair(D, a, _log_width(lower, upper)), lower,
+                   upper), {}
 
 def _tensor(a, dtype, device):
     return torch.as_tensor(np.asarray(a), dtype=dtype or get_dtype(),

@@ -15,11 +15,13 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ['RotatedBanana', 'DiagGaussian', 'poly_gaussian_spec',
-           'spec_logp_and_grad', 'warp_sum', 'DENSITY_IDS']
+__all__ = ['RotatedBanana', 'DiagGaussian', 'NealFunnel', 'RingDensity',
+           'CauchyPair', 'poly_gaussian_spec', 'spec_logp_and_grad',
+           'warp_sum', 'DENSITY_IDS']
 
 # density ids shared with csrc/nuts.cu
-DENSITY_IDS = {'banana': 0, 'gaussian': 1, 'poly_gaussian': 2}
+DENSITY_IDS = {'banana': 0, 'gaussian': 1, 'poly_gaussian': 2, 'funnel': 3,
+               'ring': 4, 'cauchy': 5}
 
 
 class RotatedBanana(nn.Module):
@@ -71,6 +73,91 @@ class DiagGaussian(nn.Module):
         return dict(density='gaussian', dim=self.mean.shape[0],
                     params=[torch.cat([self.mean, self.var])],
                     scalars=(0.0, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# The GBS evidence anchors (benchmarks/suite.py:60-95, examples/*_gbs.py).
+# Each kernel spec carries the shape constants in ``params`` and
+# ``scalars = (normalizing constant, const)``; ``const`` is subtracted last.
+
+def _buffer(module, name, values):
+    module.register_buffer(name, torch.as_tensor(
+        np.asarray(values, np.float64)))
+
+
+class NealFunnel(nn.Module):
+    """Neal's funnel: ``x_0 ~ N(0, a^2)`` and ``x_i ~ N(0, e^(2 b x_0))``
+    for ``i >= 1``, less ``const``::
+
+        logp = -x_0^2 / (2 a^2) - S e^(-2 b x_0) / 2 + c_0 - (D - 1) b x_0
+               - const,   S = sum_{i >= 1} x_i^2,
+        c_0 = -log(2 pi a^2) / 2 - (D - 1) log(2 pi) / 2.
+    """
+
+    def __init__(self, D=16, a=1., b=0.5, const=0.0):
+        super().__init__()
+        self.D, self.a, self.b = int(D), float(a), float(b)
+        self.const = float(const)
+        self.c0 = float(-0.5 * np.log(2 * np.pi * self.a ** 2)
+                        - 0.5 * (self.D - 1) * np.log(2 * np.pi))
+        # a^2, b, -2 b, (D - 1) b
+        _buffer(self, 'par', [self.a ** 2, self.b, -2 * self.b,
+                              (self.D - 1) * self.b])
+
+    def forward(self, x):
+        x0 = x[..., 0]
+        s = torch.sum(x[..., 1:] ** 2, dim=-1)
+        return (-0.5 * x0 ** 2 / self.a ** 2
+                - 0.5 * s * torch.exp(-2 * self.b * x0)
+                + (self.c0 - (self.D - 1) * self.b * x0) - self.const)
+
+    def kernel_spec(self):
+        return dict(density='funnel', dim=self.D, params=[self.par],
+                    scalars=(self.c0, self.const))
+
+
+class RingDensity(nn.Module):
+    """The ring: cyclic terms ``r_j = x_{j-1}^2 + x_j^2 - a`` (``x_{-1} =
+    x_{D-1}``), ``logp = -sum_j r_j^2 / b - const``."""
+
+    def __init__(self, D=64, a=2., b=1., const=0.0):
+        super().__init__()
+        self.D, self.a, self.b = int(D), float(a), float(b)
+        self.const = float(const)
+        _buffer(self, 'par', [self.a, self.b])
+
+    def forward(self, x):
+        x2 = x * x
+        r = torch.roll(x2, 1, dims=-1) + x2 - self.a
+        return -torch.sum(r * r / self.b, dim=-1) - self.const
+
+    def kernel_spec(self):
+        return dict(density='ring', dim=self.D, params=[self.par],
+                    scalars=(0.0, self.const))
+
+
+class CauchyPair(nn.Module):
+    """A pair of Cauchy bumps at +-a in every dimension, ``2^D`` modes::
+
+        logp = sum_i log(1 / ((x_i + a)^2 + 1) + 1 / ((x_i - a)^2 + 1))
+               + D log(1 / (2 pi)) - const.
+    """
+
+    def __init__(self, D=48, a=5., const=0.0):
+        super().__init__()
+        self.D, self.a = int(D), float(a)
+        self.const = float(const)
+        self.c0 = float(self.D * np.log(0.5 / np.pi))
+        _buffer(self, 'par', [self.a])
+
+    def forward(self, x):
+        ta = 1.0 / ((x + self.a) ** 2 + 1.0)
+        tb = 1.0 / ((x - self.a) ** 2 + 1.0)
+        return torch.sum(torch.log(ta + tb), dim=-1) + self.c0 - self.const
+
+    def kernel_spec(self):
+        return dict(density='cauchy', dim=self.D, params=[self.par],
+                    scalars=(self.c0, self.const))
 
 
 def warp_sum(x):
@@ -154,7 +241,68 @@ def _density_lpg(spec, x, ordered=True):
         return -0.5 * sm(dx * dx / var), -dx / var
     if spec['density'] == 'poly_gaussian':
         return _poly_gaussian_lpg(spec, x, ordered)
+    if spec['density'] in ('funnel', 'ring', 'cauchy'):
+        return _ANCHORS[spec['density']](spec, par, x, ordered)
     raise NotImplementedError(spec['density'])
+
+
+def _scalars(spec, x, ordered):
+    """The spec's (normalizing constant, const): tensors of x's dtype for
+    the kernels' order (as the kernels round them from double), floats
+    for the dense calls."""
+    if ordered:
+        return [torch.as_tensor(v, dtype=x.dtype, device=x.device)
+                for v in spec['scalars']]
+    return [float(v) for v in spec['scalars']]
+
+
+def _funnel_lpg(spec, par, x, ordered):
+    """``csrc/nuts.cu::Funnel``: S over the lanes in the warp's order (the
+    kernel's own butterfly, inside the gradient), then ``g_0 = b S
+    e^(-2 b x_0) - x_0 / a^2 - (D - 1) b`` and ``g_i = -x_i e^(-2 b x_0)``."""
+    sm = _ops(ordered)[1]
+    c0, const = _scalars(spec, x, ordered)
+    a2, b, mb2, db = par[0], par[1], par[2], par[3]
+    x0 = x[:, 0]
+    ex = torch.exp(mb2 * x0)
+    sq = x * x
+    S = sm(torch.cat([torch.zeros_like(sq[:, :1]), sq[:, 1:]], dim=-1))
+    logp = ((-0.5 * (x0 * x0 / a2) - 0.5 * S * ex) + (c0 - db * x0)) - const
+    g = -(x * ex[:, None])
+    g0 = (b * S * ex - x0 / a2) - db
+    return logp, torch.cat([g0[:, None], g[:, 1:]], dim=-1)
+
+
+def _ring_lpg(spec, par, x, ordered):
+    """``csrc/nuts.cu::Ring``: ``r_j = (x_{j-1}^2 + x_j^2) - a`` and
+    ``g_k = -(4 x_k (r_k + r_{k+1})) / b``, the neighbours cyclic."""
+    sm = _ops(ordered)[1]
+    const = _scalars(spec, x, ordered)[1]
+    a, b = par[0], par[1]
+    D = x.shape[-1]
+    idx = torch.arange(D, device=x.device)
+    x2 = x * x
+    r = (x2[:, (idx - 1) % D] + x2) - a
+    logp = -sm(r * r / b) - const
+    return logp, -(4.0 * x * (r + r[:, (idx + 1) % D])) / b
+
+
+def _cauchy_lpg(spec, par, x, ordered):
+    """``csrc/nuts.cu::Cauchy``: per element ``t = 1 / ((x + a)^2 + 1) +
+    1 / ((x - a)^2 + 1)``, its log summed, and ``g = -2 ((x + a) ta^2 +
+    (x - a) tb^2) / t``."""
+    sm = _ops(ordered)[1]
+    c0, const = _scalars(spec, x, ordered)
+    a = par[0]
+    u, v = x + a, x - a
+    ta = 1.0 / (u * u + 1.0)
+    tb = 1.0 / (v * v + 1.0)
+    t = ta + tb
+    logp = (sm(torch.log(t)) + c0) - const
+    return logp, -2.0 * (u * ta * ta + v * tb * tb) / t
+
+
+_ANCHORS = {'funnel': _funnel_lpg, 'ring': _ring_lpg, 'cauchy': _cauchy_lpg}
 
 
 # ---------------------------------------------------------------------------

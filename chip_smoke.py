@@ -38,10 +38,20 @@ card, drives the port's paths and checks what comes out:
   run, each checkpointed at the end of warmup, loaded and continued, must
   give the post-warmup draws and logp of the uninterrupted runs bit for
   bit.
+* the GBS evidence anchors ([12]): the funnel-16, ring-64 and cauchy-48
+  twins of ``examples/{funnel,ring,cauchy}_gbs.py``
+  (``bayesfast_tpu_torch/examples``), each ``main()`` at the example's
+  configuration (64 chains, 1000 warmup of 2500 iterations, float64, the
+  example's seed) under ``nuts_kernel='cuda'``: every transition on the
+  chunk kernels with the density compiled in, GBS with its SIT fit on the
+  KDE kernel; rhat and logz against the fiducial gated, n_call printed
+  beside the JAX package's. Then each density's chunk and block kernels
+  against their plain versions at 64 chains, K = 4, float64 and float32,
+  and timed.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
-NUTS kernel's registers and spills ([2b]); a PolyGaussian instantiation
-that spills fails the run, except float64 at D > 32.
+NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
+Cauchy instantiation that spills fails the run, except float64 at D > 32.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Every phase that fails makes the script exit non-zero; without
@@ -120,8 +130,16 @@ TH_WARMUP, TH_POST, THMC_STEPS = 100, 100, 16
 E_WARMUP, E_POST = 500, 500        # the ensemble on banana-32
 EG_WARMUP, EG_POST = 1000, 1500    # the ensemble on [3b]'s Gaussian
 N_PROFILE = 20                     # HMC warmup transitions profiled
-# one NVIDIA H100 SXM: fp32 outside the tensor cores, device memory
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# [12]: the GBS anchors, run as their twins run them (the examples'
+# configuration: 64 chains, 1000 warmup of 2500 iterations, float64); the
+# JAX package's n_call (benchmarks/results.jsonl) beside the port's, and
+# the fiducial logz each must meet within ANCHOR_SIGMAS quoted errors
+ANCHORS = (('funnel', 16, '3.06 M'), ('ring', 64, '10.2 M'),
+           ('cauchy', 48, '32.4-33.8 M'))
+ANCHOR_RHAT, ANCHOR_SIGMAS = 1.02, 4.0
+# one NVIDIA H100 SXM: fp32 and fp64 outside the tensor cores (NVIDIA's
+# data sheet), device memory
+PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
 # operations per Phi evaluation of the KDE kernel (csrc/kde.cu's note):
 # difference, divide, scale, some 20 for the erf, the multiply-add of the sum
 KDE_OPS_PER_PHI = 25
@@ -152,10 +170,11 @@ def _nbytes(*objs):
     return n
 
 
-def _bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of the operations over the fp32
-    peak and the bytes over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(ops, nbytes, peak=PEAK_FP32):
+    """(bound_ms, bound_by): the larger of the operations over the peak
+    rate of their type (default fp32) and the bytes over the memory
+    rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else \
         (t_bytes, 'bytes')
 
@@ -167,6 +186,20 @@ def _leapfrog_ops(dim):
     log-Jacobian, the banana terms and their gradient, the momentum and
     position updates, the energy and U-turn sums)."""
     return 4 * dim * dim + 85 * dim
+
+
+def _anchor_leapfrog_ops(name, dim):
+    """Operations of one leapfrog of an anchor density behind the fused
+    bound transform, read off csrc/nuts.cu: about 70 a dimension for the
+    transition's own (the banana's 85 less its terms: the transform and its
+    log-Jacobian, the integrator, the energy and U-turn sums), plus the
+    density's: the funnel's x_i^2, its sum and -x_i e^(-2 b x0) (4 a
+    dimension) and some 40 on lane 0 (the exponential, the butterfly, g_0,
+    logp); the ring's squares, two neighbour sums, the gradient's product
+    and divide and the logp term (10); the cauchy's two shifted squares,
+    two reciprocals, the sum, a log (~20) and the gradient (37)."""
+    per_dim = {'funnel': 4, 'ring': 10, 'cauchy': 37}[name]
+    return (70 + per_dim) * dim + (40 if name == 'funnel' else 0)
 
 
 def _time_ms(torch, fn, n):
@@ -182,6 +215,20 @@ def _time_ms(torch, fn, n):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n, out
+
+
+def _plain_once(torch, fn):
+    """One call of a plain version timed with CUDA events (its host syncs
+    wait on the card); returns (ms, its result). Each comparison times its
+    plain call so, and the timing tables quote that call."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
 
 
 def _ms_text(ms):
@@ -325,7 +372,7 @@ def _kernel_vs_plain(torch, den, carry, dtype):
     """Both kernels against their plain versions at C=1024, D=32, K=4 on
     the main path's final state (positions, adapted metric and step size)
     cast to ``dtype``, plus the chain_start split. Returns the max abs
-    errors."""
+    errors and the plain versions' ms (each the one call compared)."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
     from bayesfast_tpu_torch.samplers.step_size import init_step_size
@@ -336,16 +383,15 @@ def _kernel_vs_plain(torch, den, carry, dtype):
     plain_lpg = nc.plain_lpg(den)
     seed, i0 = 20240601, 37
     tag = str(dtype).replace('torch.', '')
-    errs = {}
+    errs, plain_ms = {}, {}
 
     # frozen chunk
     metric = init_diag_metric(q, var)
     ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, K_CMP,
                                           MAX_TREEDEPTH, MAX_CHANGE,
                                           density=den, i0=i0))
-    torch.cuda.synchronize()
-    o = nc.nuts_chunk_plain(seed, q, var, eps, K_CMP, MAX_TREEDEPTH,
-                            MAX_CHANGE, plain_lpg, i0)
+    plain_ms['nuts_multi'], o = _plain_once(torch, lambda: nc.nuts_chunk_plain(
+        seed, q, var, eps, K_CMP, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg, i0))
     ref = _as_dict(o['q'], o['q_final'], nc._chunk_stats(o, dtype))
     print(f'  frozen {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
@@ -359,10 +405,10 @@ def _kernel_vs_plain(torch, den, carry, dtype):
             True, wsched)
     ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
                                        density=den, i0=i0)
-    torch.cuda.synchronize()
     steps, mets = nc._warmup_leaves(q, step, metric)
-    ref = nc.nuts_warmup_chunk_plain(seed, q, steps, mets, *args, plain_lpg,
-                                     i0)
+    plain_ms['nuts_warmup'], ref = _plain_once(
+        torch, lambda: nc.nuts_warmup_chunk_plain(seed, q, steps, mets, *args,
+                                                  plain_lpg, i0))
     errs['nuts_warmup'] = _compare(f'nuts_warmup {tag}', ker, ref)
 
     # a chain_start split is bitwise equal within the kernel
@@ -384,19 +430,20 @@ def _kernel_vs_plain(torch, den, carry, dtype):
           f'{"bitwise equal" if split_ok else "FAIL"}')
     if not split_ok:
         raise AssertionError('chain_start split is not bitwise equal')
-    return errs
+    return errs, plain_ms
 
 
-def _time_chunks(torch, den, carry, plain=True, ops=None, suffix=''):
-    """One K=4 chunk of each kernel beside its plain version (unless
-    ``plain`` is false), at a path's shapes and final state (CUDA events;
-    the kernel warmed up first), and the chunk's bound from the leapfrogs
-    its trees took times ``ops`` per leapfrog (default: the banana's).
+def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
+                 peak=PEAK_FP32):
+    """One K=4 chunk of each kernel at a path's shapes and final state
+    (CUDA events; the kernel warmed up first), beside the plain version's
+    ms that its comparison measured (``plain_ms``, by name + suffix; None:
+    not timed), and the chunk's bound from the leapfrogs its trees took
+    times ``ops`` per leapfrog (default: the banana's) over ``peak``.
     Returns ({name + suffix: (ms, plain_ms, bound_ms, bound_by)}, {name +
     suffix: its slowest chain, ``_slowest_chain``}, {name: the warm call's
     outputs})."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
-    plain_lpg = nc.plain_lpg(den)
     q, metric, step = carry.q, carry.metric, carry.step
     C, dim = q.shape
     ops = _leapfrog_ops(dim) if ops is None else ops
@@ -411,29 +458,25 @@ def _time_chunks(torch, den, carry, plain=True, ops=None, suffix=''):
             lambda: nc.nuts_chunk_batched(5, q, metric, eps, K_CMP,
                                           MAX_TREEDEPTH, MAX_CHANGE,
                                           density=den, i0=700),
-            lambda: nc.nuts_chunk_plain(5, q, var, eps, K_CMP, MAX_TREEDEPTH,
-                                        MAX_CHANGE, plain_lpg, 700),
             (q, var, eps)),
         'nuts_warmup': (
             lambda: nc.nuts_warmup_chunk_batched(5, q, step, metric, *args,
                                                  density=den, i0=700),
-            lambda: nc.nuts_warmup_chunk_plain(5, q, steps, mets, *args,
-                                               plain_lpg, 700),
             (q, steps, mets)),
     }
     times, chains, outs = {}, {}, {}
-    for name, (kern, plain_fn, inputs) in runs.items():
+    for name, (kern, inputs) in runs.items():
         ms, out = _time_ms(torch, kern, 5)
         outs[name] = out
-        plain_ms = _time_ms(torch, plain_fn, 1)[0] if plain else None
+        p_ms = (plain_ms or {}).get(name + suffix)
         sizes = (out[2].tree_size if name == 'nuts_multi'
                  else out['tree_size'])
         leapfrogs = int(sizes.sum())
-        bound = _bound(leapfrogs * ops, _nbytes(inputs, out))
-        times[name + suffix] = (ms, plain_ms) + bound
+        bound = _bound(leapfrogs * ops, _nbytes(inputs, out), peak)
+        times[name + suffix] = (ms, p_ms) + bound
         print(f'  {name}{suffix}: one K={K_CMP} chunk at C={C}, D={dim}, '
               f'{str(q.dtype)[6:]}: kernel {ms:.3f} ms, plain torch '
-              f'{_ms_text(plain_ms)}; {leapfrogs} leapfrogs, bound '
+              f'{_ms_text(p_ms)}; {leapfrogs} leapfrogs, bound '
               f'{bound[0]:.4f} ms ({bound[1]})')
         chains[name + suffix] = _slowest_chain(f'  {name}{suffix}', ms,
                                                sizes.sum(dim=0))
@@ -466,7 +509,8 @@ def _block_vs_plain(torch, den, carry, dtype):
     """[8b] The block kernel against its plain version at C=1024, D=32 on
     the pooled path's final state, and 4 block launches under
     ``_transition_seed`` seeds against one K=4 chunk launch (bitwise).
-    Returns the max abs error."""
+    Returns the max abs error and the plain version's ms (the call
+    compared)."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     den = den if dtype == torch.float32 else _bench_density(dtype)[1]
     q, metric, eps = _block_inputs(torch, carry, dtype)
@@ -482,9 +526,8 @@ def _block_vs_plain(torch, den, carry, dtype):
     ker = rows(*nc.nuts_transition_batched(seed, q, metric, eps,
                                            MAX_TREEDEPTH, MAX_CHANGE,
                                            density=den))
-    torch.cuda.synchronize()
-    o = nc.nuts_block_plain(seed, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE,
-                            nc.plain_lpg(den))
+    plain_ms, o = _plain_once(torch, lambda: nc.nuts_block_plain(
+        seed, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, nc.plain_lpg(den)))
     ref = rows(o['q'], nc._chunk_stats(o, dtype))
     print(f'  block {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
@@ -507,30 +550,30 @@ def _block_vs_plain(torch, den, carry, dtype):
           f'{"bitwise equal" if same else "FAIL"}')
     if not same:
         raise AssertionError('block launches differ from the chunk')
-    return err
+    return err, plain_ms
 
 
-def _time_block(torch, den, carry, plain=True):
-    """[8c] One block launch at the pooled path's shapes and final state
-    beside its plain version (unless ``plain`` is false; CUDA events), and
-    its bound from the leapfrogs its trees took. Returns ((ms, plain_ms,
-    bound_ms, bound_by), its slowest chain)."""
+def _time_block(torch, den, q, metric, eps, plain_ms=None, ops=None,
+                peak=PEAK_FP32, tag='[8c]'):
+    """One block launch on ``q`` under ``metric`` and step sizes ``eps``
+    (CUDA events; [8c] on the pooled path's final state, [12] on an
+    anchor's) beside the plain version's ms that its comparison measured
+    (``plain_ms``; None: not timed), and its bound from the leapfrogs its
+    trees took times ``ops`` per leapfrog (default: the banana's) over
+    ``peak``. Returns ((ms, plain_ms, bound_ms, bound_by), its slowest
+    chain)."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
-    q, metric, eps = _block_inputs(torch, carry, torch.float32)
-    var = nc._mat(metric.var, N_CHAIN, D, q)
+    C, dim = q.shape
+    ops = _leapfrog_ops(dim) if ops is None else ops
     ms, out = _time_ms(torch, lambda: nc.nuts_transition_batched(
         5, q, metric, eps, MAX_TREEDEPTH, MAX_CHANGE, density=den), 10)
-    plain_ms = _time_ms(torch, lambda: nc.nuts_block_plain(
-        5, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, nc.plain_lpg(den)),
-        1)[0] if plain else None
     leapfrogs = int(out[1].tree_size.sum())
-    bound = _bound(leapfrogs * _leapfrog_ops(D),
-                   _nbytes(q, metric.var, eps, out))
-    print(f'[8c] one block transition at C={N_CHAIN}, D={D}, float32: '
-          f'kernel {ms:.3f} ms, plain torch {_ms_text(plain_ms)}; '
-          f'{leapfrogs} leapfrogs, bound {bound[0]:.4f} ms ({bound[1]})')
-    return (ms, plain_ms) + bound, _slowest_chain('[8c]', ms,
-                                                  out[1].tree_size)
+    bound = _bound(leapfrogs * ops, _nbytes(q, metric.var, eps, out), peak)
+    print(f'{tag} one block transition at C={C}, D={dim}, '
+          f'{str(q.dtype)[6:]}: kernel {ms:.3f} ms, plain torch '
+          f'{_ms_text(plain_ms)}; {leapfrogs} leapfrogs, bound '
+          f'{bound[0]:.4f} ms ({bound[1]})')
+    return (ms, plain_ms) + bound, _slowest_chain(tag, ms, out[1].tree_size)
 
 
 def _tree_loop(torch, bt):
@@ -991,15 +1034,16 @@ def _pooled_step_share(torch, den, carry, n):
 
 def _kde_inputs(torch, draws, dtype, n_cut=0, m=KDE_M):
     """The KDE kernel's inputs at the SIT fit's shape, on the card: the
-    first 512 chains' post-warmup ``draws`` (C, N_POST, D), standardized,
-    as D columns of N points (less the last ``n_cut``), ``m`` sorted
-    queries a column, equal weights and Scott-rule bandwidths; returns
-    (x, data, w, h) in ``dtype``."""
-    y = draws[:N_CHAIN // 2].reshape(-1, D)
+    first half of the chains' post-warmup ``draws`` (C, N, D), as GBS fits
+    them, standardized, as D columns of points (less the last ``n_cut``),
+    ``m`` sorted queries a column, equal weights and Scott-rule
+    bandwidths; returns (x, data, w, h) in ``dtype``."""
+    dim = draws.shape[-1]
+    y = draws[:draws.shape[0] // 2].reshape(-1, dim)
     y = (y - y.mean(0)) / y.std(0)
     y = y[:y.shape[0] - n_cut]
     N = y.shape[0]
-    xq = np.sort(np.random.default_rng(7).normal(size=(D, KDE_M)) * 1.5,
+    xq = np.sort(np.random.default_rng(7).normal(size=(dim, KDE_M)) * 1.5,
                  axis=1)[:, :m]
     h = y.std(0) * N ** -0.2
     return [torch.as_tensor(a, dtype=dtype, device=torch.device('cuda', 0))
@@ -1303,47 +1347,216 @@ def _poly_leapfrog_ops(dim, spec):
     return 4 * F * M + 10 * F + 8 * M + 2 * NNZ + 4 * dim * dim + 85 * dim
 
 
-def _poly_vs_plain(torch, den, carry, dtype, label=''):
-    """[10b] Both chunk kernels with the PolyGaussian density against their
-    plain versions at DES_CHAINS chains, D = 27, M = 457 and the last
-    sample step's coefficients, bound and decay, on that step's final
-    state cast to ``dtype``. Returns the max abs errors."""
+def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
+                     block=False):
+    """Both chunk kernels (and with ``block`` one block launch) with the
+    density ``den`` (``name`` in the printed lines) against their plain
+    versions at K = 4 on a path's final state cast to ``dtype``: [10b]'s
+    PolyGaussian, [12]'s anchors. Returns the max abs errors and the plain
+    versions' ms (each the one call compared), keyed by kernel + suffix."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
     from bayesfast_tpu_torch.samplers.step_size import init_step_size
     q = carry.q.to(dtype).contiguous()
-    C = q.shape[0]
-    var = nc._mat(carry.metric.var, C, DES_D, q)
+    C, dim = q.shape
+    var = nc._mat(carry.metric.var, C, dim, q)
     eps = torch.exp(carry.step.log_bar).to(dtype)
     plain_lpg = nc.plain_lpg(den)
     seed, i0 = 20240601, 37
     tag = label + str(dtype).replace('torch.', '')
     metric = init_diag_metric(q, var)
+    errs, plain_ms = {}, {}
     ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, K_CMP,
                                           MAX_TREEDEPTH, MAX_CHANGE,
                                           density=den, i0=i0))
-    torch.cuda.synchronize()
-    o = nc.nuts_chunk_plain(seed, q, var, eps, K_CMP, MAX_TREEDEPTH,
-                            MAX_CHANGE, plain_lpg, i0)
+    ms, o = _plain_once(torch, lambda: nc.nuts_chunk_plain(
+        seed, q, var, eps, K_CMP, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg, i0))
     ref = _as_dict(o['q'], o['q_final'], nc._chunk_stats(o, dtype))
-    print(f'  poly frozen {tag}: mean tree depth '
+    print(f'  {name} frozen {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
           f'{ref["diverging"].float().mean().item():.4f}')
-    errs = {'nuts_multi_poly': _compare(f'nuts_multi PolyGaussian {tag}',
-                                        ker, ref, C)}
+    errs['nuts_multi' + suffix] = _compare(f'nuts_multi {name} {tag}', ker,
+                                           ref, C)
+    plain_ms['nuts_multi' + suffix] = ms
     wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
     step = init_step_size(eps)
     args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
             True, wsched)
     ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
                                        density=den, i0=i0)
-    torch.cuda.synchronize()
     steps, mets = nc._warmup_leaves(q, step, metric)
-    ref = nc.nuts_warmup_chunk_plain(seed, q, steps, mets, *args, plain_lpg,
-                                     i0)
-    errs['nuts_warmup_poly'] = _compare(f'nuts_warmup PolyGaussian {tag}',
-                                        ker, ref, C)
-    return errs
+    ms, ref = _plain_once(torch, lambda: nc.nuts_warmup_chunk_plain(
+        seed, q, steps, mets, *args, plain_lpg, i0))
+    errs['nuts_warmup' + suffix] = _compare(f'nuts_warmup {name} {tag}', ker,
+                                            ref, C)
+    plain_ms['nuts_warmup' + suffix] = ms
+    if block:
+        def rows(q_new, stats):
+            d = dict(stats._asdict(), q=q_new)
+            d['diverging'] = d['diverging'].int()
+            return d
+
+        ker = rows(*nc.nuts_transition_batched(
+            seed, q, metric, eps, MAX_TREEDEPTH, MAX_CHANGE, density=den))
+        ms, o = _plain_once(torch, lambda: nc.nuts_block_plain(
+            seed, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg))
+        errs['nuts_block' + suffix] = _compare(
+            f'nuts_block {name} {tag}', ker,
+            rows(o['q'], nc._chunk_stats(o, dtype)), C)
+        plain_ms['nuts_block' + suffix] = ms
+    return errs, plain_ms
+
+
+def _anchor_run(torch, bt, name, jax_ncall):
+    """[12] One GBS anchor through its twin's ``main()``
+    (``bayesfast_tpu_torch/examples/{name}_gbs.py``: the JAX example's
+    configuration and seed, float64), every launch count set to 0 just
+    before and read just after. Times the warmup and post-warmup chunk
+    calls (host clock around ``ChainDriver``'s, the card synchronized) and
+    the Recipe's sample and post (GBS) steps; prints the launches, the
+    tree-loop transitions, it/s, ESS/s, rhat, n_call, logz against the
+    fiducial and GBS's profile. Gates: every transition on the chunk
+    kernels (0 block launches and tree-loop transitions), KDE launches,
+    rhat_max < ANCHOR_RHAT, |logz - fiducial| <= ANCHOR_SIGMAS errors.
+    Returns (density, the trace's final carry, the launch counts)."""
+    import importlib
+    from bayesfast_tpu_torch.samplers import chain as chain_mod
+    from bayesfast_tpu_torch.samplers import nuts as tree
+    from bayesfast_tpu_torch.utils.acor import effective_sample_size, rhat
+    mod = importlib.import_module(f'bayesfast_tpu_torch.examples.{name}_gbs')
+    secs = dict(warmup=0.0, post=0.0, sample=0.0, gbs=0.0)
+    patches = ((chain_mod.ChainDriver, 'run_warmup_chunk', 'warmup'),
+               (chain_mod.ChainDriver, 'run_frozen_chunk', 'post'),
+               (bt.Recipe, '_sam_step', 'sample'),
+               (bt.Recipe, '_pos_step', 'gbs'))
+    originals = [getattr(cls, attr) for cls, attr, _ in patches]
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[key] += time.time() - t0
+            return out
+        return wrapped
+
+    for (cls, attr, key), fn in zip(patches, originals):
+        setattr(cls, attr, timed(fn, key))
+    for f in _counters().values():
+        f.launches = 0
+    tree.nuts_transition_batched.transitions = 0
+    try:
+        t0 = time.time()
+        rec = mod.main()
+        wall = time.time() - t0
+    finally:
+        for (cls, attr, _), fn in zip(patches, originals):
+            setattr(cls, attr, fn)
+    launches = {k: f.launches for k, f in _counters().items()}
+    n_tree = tree.nuts_transition_batched.transitions
+    res = rec.get()
+    tt = rec.recipe_trace.results.sample[-1].sample_trace
+    s = tt.get(flatten=False)
+    C, n_post, dim = s.shape
+    n_warm = tt.trace.n_warmup
+    st = {k: np.asarray(v[:, n_warm:], np.float64)
+          for k, v in tt.trace._stats_arrays.items()}
+    ess = float(np.sum(effective_sample_size(s)) / dim)
+    r_max = float(np.max(rhat(s)))
+    gbs = rec.recipe_trace._s_post.evidence_method
+    prof = {k: round(v, 3) for k, v in gbs.last_profile.items()}
+    fit = {k: round(v, 3) for k, v in gbs.sit.last_profile.items()}
+    off = abs(res.logz - mod.FIDUCIAL)
+    print(f'[12] {name}-{dim}: {C} chains, {n_warm} + {n_post} iterations, '
+          f'float64, Recipe.run() {wall:.2f} s (sample step '
+          f'{secs["sample"]:.2f} s, post {secs["gbs"]:.2f} s)')
+    print(f'    launches {launches}; tree-loop transitions {n_tree}')
+    print(f'    chunk calls: warmup {C * n_warm / secs["warmup"]:.1f} it/s '
+          f'({secs["warmup"]:.2f} s), post {C * n_post / secs["post"]:.1f} '
+          f'it/s ({secs["post"]:.2f} s), ESS/s {ess / secs["post"]:.1f}; '
+          f'the sample step (start-up and copies too) '
+          f'{C * (n_warm + n_post) / secs["sample"]:.1f} it/s, ESS/s '
+          f'{ess / secs["sample"]:.1f}; ESS {ess:.1f} a dimension, rhat_max '
+          f'{r_max:.4f} (gate {ANCHOR_RHAT})')
+    print(f'    post-warmup: tree size mean {st["tree_size"].mean():.2f}, '
+          f'max {int(st["tree_size"].max())}; depth mean '
+          f'{st["tree_depth"].mean():.3f}; accept '
+          f'{st["mean_tree_accept"].mean():.4f}; divergent '
+          f'{st["diverging"].mean():.5f}')
+    print(f'    n_call {res.n_call} (JAX package: {jax_ncall})')
+    print(f'    logz {res.logz:.4f} +- {res.logz_err:.4f}, fiducial '
+          f'{mod.FIDUCIAL}: off by {off:.4f} = {off / res.logz_err:.2f} '
+          f'errors (gate {ANCHOR_SIGMAS})')
+    print(f'    GBS {secs["gbs"]:.2f} s on {C // 2} x {n_post} fit rows, '
+          f'{gbs.sit.i_iter} SIT layers: {prof}')
+    print(f'    SIT fit stages (s): {fit}')
+    n_expect = (int(os.environ.get('N_CHAIN', 64)),
+                int(os.environ.get('N_ITER', 2500))
+                - int(os.environ.get('N_WARMUP', 1000)), dim)
+    if not (np.isfinite(s).all() and s.shape == n_expect):
+        raise AssertionError(f'[12] {name}: non-finite or misshapen draws')
+    if not (launches['nuts_warmup'] > 0 and launches['nuts_multi'] > 0
+            and launches['nuts_block'] == 0 and n_tree == 0):
+        raise AssertionError(f'[12] {name}: a transition left the chunk '
+                             'kernels')
+    if launches['kde_cdf'] == 0:
+        raise AssertionError(f'[12] {name}: the SIT fit did not launch the '
+                             'KDE kernel')
+    if not r_max < ANCHOR_RHAT:
+        raise AssertionError(f'[12] {name}: rhat_max {r_max}')
+    if not (np.isfinite(res.logz) and off <= ANCHOR_SIGMAS * res.logz_err):
+        raise AssertionError(f'[12] {name}: logz {res.logz} +- '
+                             f'{res.logz_err}, fiducial {mod.FIDUCIAL}')
+    _anchor_kde(torch, s)
+    return rec.density, tt.trace._carry, launches
+
+
+def _anchor_kde(torch, draws):
+    """[12] The KDE kernel at an anchor's SIT fit shape (its fit rows, D
+    columns, 512 queries a column), float64 as GBS runs it: bitwise
+    against its plain version, then timed beside its bound."""
+    from bayesfast_tpu_torch.ops import kde as tk
+    x, data, w, h = _kde_inputs(torch, draws, torch.float64)
+    dim, N = data.shape
+    k = tk.kde_cdf_batch(x, data, w, h)
+    plain_ms, p = _plain_once(torch, lambda: tk.kde_cdf_batch_plain(
+        x, data, w, h))
+    ms = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, h), 10)[0]
+    bound = _bound(KDE_OPS_PER_PHI * dim * KDE_M * N,
+                   _nbytes(x, data, w, h, k), PEAK_FP64)
+    same = torch.equal(k, p)
+    print(f'    kde_cdf float64 at D={dim}, M={KDE_M}, N={N}: kernel '
+          f'{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms '
+          f'({bound[1]}); bitwise equal to the plain version: {same}')
+    if not same:
+        raise AssertionError(f'kde_cdf at D={dim} disagrees with its plain '
+                             'version')
+
+
+def _anchor_kernels(torch, name, den, carry):
+    """[12] The chunk and block kernels with an anchor density against
+    their plain versions (bitwise), then timed, at K = 4 on the anchor's
+    final state, float64 then float32. Returns {dtype: (max abs errors,
+    times)}, keyed by kernel + '_' + name."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    ops = _anchor_leapfrog_ops(name, carry.q.shape[1])
+    out = {}
+    for dt, peak in ((torch.float64, PEAK_FP64), (torch.float32, PEAK_FP32)):
+        c = _cast(carry, dt)
+        errs, plain_ms = _chunks_vs_plain(torch, den, c, dt, name,
+                                          f'_{name}', block=True)
+        times = _time_chunks(torch, den, c, plain_ms, ops, f'_{name}',
+                             peak)[0]
+        key = f'nuts_block_{name}'
+        C, dim = c.q.shape
+        metric = init_diag_metric(c.q, nc._mat(c.metric.var, C, dim, c.q))
+        times[key] = _time_block(torch, den, c.q, metric,
+                                 torch.exp(c.step.log_bar), plain_ms[key],
+                                 ops, peak, f'  {key}')[0]
+        out[dt] = (errs, times)
+    return out
 
 
 def _ptxas_table(log):
@@ -1359,7 +1572,8 @@ def _ptxas_table(log):
             mn = m.group(1)
             kern = re.search(r'nuts_chunk_kernel|nuts_block_kernel', mn)
             name = kern.group(0) if kern else mn
-            dens = re.search(r'(PolyGaussian|Banana|Gaussian)', mn)
+            dens = re.search(
+                r'(PolyGaussian|Banana|Gaussian|Funnel|Ring|Cauchy)', mn)
             dt = re.search(r'kernelI([fd])Li(\d)E', mn)
             parts = [name]
             if dt:
@@ -1385,9 +1599,10 @@ def _ptxas_table(log):
 def _check_registers():
     """[2b] Registers and spills of every NUTS kernel, from the ``-Xptxas
     -v`` output kept beside the library in use; fails if there is none, or
-    if a PolyGaussian instantiation spills, other than float64 at D > 32
-    (NE=2), where the transition's own state fills the 255 registers (as it
-    did before the coefficients were staged)."""
+    if a PolyGaussian, Funnel, Ring or Cauchy instantiation spills, other
+    than float64 at D > 32 (NE=2), where the transition's own state fills
+    the 255 registers (as it did for PolyGaussian before the coefficients
+    were staged)."""
     from bayesfast_tpu_torch import _build
     log = _build.build_log('nuts')
     if log is None:
@@ -1397,12 +1612,13 @@ def _check_registers():
           'stores, spill loads; bytes):')
     for k in sorted(table):
         print(f'    {k:52s} {table[k]}')
+    gated = ('PolyGaussian', 'Funnel', 'Ring', 'Cauchy')
     spills = [k for k, v in table.items()
-              if 'PolyGaussian' in k and (v[2] or v[3])]
-    print(f'    PolyGaussian instantiations that spill: {spills}')
+              if any(g in k for g in gated) and (v[2] or v[3])]
+    print(f'    {", ".join(gated)} instantiations that spill: {spills}')
     bad = [k for k in spills if 'f64 NE=2' not in k]
-    if bad or not any('PolyGaussian' in k for k in table):
-        raise AssertionError(f'PolyGaussian instantiations spill: {bad}')
+    if bad or not all(any(g in k for k in table) for g in gated):
+        raise AssertionError(f'instantiations spill: {bad}')
 
 
 class _SpecDensity:
@@ -1493,7 +1709,7 @@ def _poly_plans(torch, den, carry):
             print(f'  plan {tag}: {plan["rows"]} of {F} features staged, '
                   f'stacks in shared memory: {plan["stacks_smem"]}; '
                   f'{plan["bytes"]} bytes a block')
-            _, ch, outs = _time_chunks(torch, den, c, plain=False, ops=ops,
+            _, ch, outs = _time_chunks(torch, den, c, ops=ops,
                                        suffix=f'_poly {tag}')
             chains.update(ch)
             first = firsts.setdefault(dt, outs)
@@ -1545,18 +1761,19 @@ def _ab_one(tree, state, out_path, n_seeds):
                     'poly_spec': rec.density.kernel_spec(),
                     'poly_carry': last._carry}, state)
     st = torch.load(state, weights_only=False)
-    res.update(_time_chunks(torch, den, st['carry'], plain=False)[1])
+    res.update(_time_chunks(torch, den, st['carry'])[1])
     # [10b]'s PolyGaussian chunks on the saved surrogate and state, float32
     # (the Recipe's) and float64
     for dt, suffix in ((torch.float32, '_poly'), (torch.float64, '_poly64')):
         _, chains, outs = _time_chunks(
             torch, _SpecDensity(st['poly_spec']),
-            _cast(st['poly_carry'], dt), plain=False,
+            _cast(st['poly_carry'], dt),
             ops=_poly_leapfrog_ops(DES_D, st['poly_spec']), suffix=suffix)
         res.update(chains)
         res['digests'].update({f'{k}{suffix} outputs [10b]': _digest(v)
                                for k, v in outs.items()})
-    res['nuts_block'] = _time_block(torch, den, st['pooled'], plain=False)[1]
+    res['nuts_block'] = _time_block(
+        torch, den, *_block_inputs(torch, st['pooled'], torch.float32))[1]
     x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
     res['kde_ms'] = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, h),
                              10)[0]
@@ -1694,12 +1911,12 @@ def main():
     # final state ----
     print('[4] kernel vs plain, C=1024, D=32, K=4, bench banana with bounds')
     carry = tt.trace._carry
-    errs64 = _kernel_vs_plain(torch, den, carry, torch.float64)
-    errs32 = _kernel_vs_plain(torch, den, carry, torch.float32)
+    errs64 = _kernel_vs_plain(torch, den, carry, torch.float64)[0]
+    errs32, plain32 = _kernel_vs_plain(torch, den, carry, torch.float32)
 
     # ---- [5] one chunk: kernel time beside the plain version's ----
     print('[5] chunk timing (CUDA events)')
-    times = _time_chunks(torch, den, tt.trace._carry)[0]
+    times = _time_chunks(torch, den, tt.trace._carry, plain32)[0]
     print(f'    max abs err float64 {errs64}, float32 {errs32}')
 
     # ---- [6] the evidence path: GBS on the sampling path's trace ----
@@ -1726,13 +1943,16 @@ def main():
     # ---- [8b] the block kernel against its plain version ----
     print('[8b] block kernel vs plain, C=1024, D=32, pooled final state')
     carry = tp.trace._carry
-    errs64['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float64)
-    errs32['nuts_block'] = _block_vs_plain(torch, den, carry, torch.float32)
+    errs64['nuts_block'] = _block_vs_plain(torch, den, carry,
+                                           torch.float64)[0]
+    errs32['nuts_block'], plain32 = _block_vs_plain(torch, den, carry,
+                                                    torch.float32)
     print(f'    max abs err float64 {errs64["nuts_block"]}, float32 '
           f'{errs32["nuts_block"]}')
 
     # ---- [8c] one block launch: kernel time beside the plain version's
-    times['nuts_block'] = _time_block(torch, den, carry)[0]
+    times['nuts_block'] = _time_block(
+        torch, den, *_block_inputs(torch, carry, torch.float32), plain32)[0]
     _pooled_step_share(torch, den, carry, 50)
 
     # ---- [9] the full metric on the torch tree loop ----
@@ -1750,11 +1970,14 @@ def main():
           f'D={DES_D}, M={DES_N_DATA}, K={K_CMP}, step-2 coefficients')
     den_p = rec.density
     carry_p = rec.recipe_trace.results.sample[-1].sample_trace.trace._carry
-    errs64.update(_poly_vs_plain(torch, den_p, carry_p, torch.float64))
-    errs32.update(_poly_vs_plain(torch, den_p, carry_p, torch.float32))
+    errs64.update(_chunks_vs_plain(torch, den_p, carry_p, torch.float64,
+                                   'PolyGaussian', '_poly')[0])
+    e32, plain32 = _chunks_vs_plain(torch, den_p, carry_p, torch.float32,
+                                    'PolyGaussian', '_poly')
+    errs32.update(e32)
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     spec_p = nc._spec_entry(den_p, carry_p.q)[2]
-    times.update(_time_chunks(torch, den_p, carry_p,
+    times.update(_time_chunks(torch, den_p, carry_p, plain32,
                               ops=_poly_leapfrog_ops(DES_D, spec_p),
                               suffix='_poly')[0])
     print('[10b] shared-memory plans, and the chunks under other plans')
@@ -1763,12 +1986,31 @@ def main():
           'matvec)')
     den_f = _full_cov_density(den_p)
     for dt in (torch.float64, torch.float32):
-        _poly_vs_plain(torch, den_f, carry_p, dt, label='full cov ')
+        _chunks_vs_plain(torch, den_f, carry_p, dt, 'PolyGaussian', '_poly',
+                         label='full cov ')
 
     # ---- [11] the other samplers (plain torch on the card) and the
     # checkpoint resume of NUTS and ChEES ----
     config.set_dtype(torch.float32)
     _other_samplers(torch, bt, den, A, tt, nuts_path)
+
+    # ---- [12] the GBS anchors through their twins' main(), every
+    # transition on the chunk kernels with the density compiled in; then
+    # each density's chunk and block kernels held against their plain
+    # versions and timed, float64 and float32 ----
+    config.set_nuts_kernel('cuda')
+    anchor_runs = [(anchor, *_anchor_run(torch, bt, anchor, jax_ncall))
+                   for anchor, _, jax_ncall in ANCHORS]
+    anchor_rows = {}
+    for anchor, den_a, carry_a, launches_a in anchor_runs:
+        print(f'[12] {anchor} kernels vs plain, C={carry_a.q.shape[0]}, '
+              f'D={carry_a.q.shape[1]}, K={K_CMP}, final state')
+        by_dt = _anchor_kernels(torch, anchor, den_a, carry_a)
+        for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
+            k = f'{kind}_{anchor}'
+            anchor_rows[k] = (
+                launches_a[kind], max(e[k] for e, _ in by_dt.values()),
+                by_dt[torch.float64][1][k])
 
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
@@ -1794,6 +2036,20 @@ def main():
                      'max_abs_err': errs32[k], 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': lib_ms})
+    # [12]'s instantiations: launches on the anchors' float64 path (none of
+    # them runs the block kernel), the float64 kernel's times; no PyTorch
+    # call computes a NUTS transition
+    pallas = {'nuts_multi': 462, 'nuts_warmup': 746, 'nuts_block': 431}
+    for k, (n, err, (ms, plain_ms, bound_ms, bound_by)) in \
+            anchor_rows.items():
+        line = pallas[k.rsplit('_', 1)[0]]
+        rows.append({'name': k, 'route': 'cuda',
+                     'source': 'bayesfast_tpu_torch/csrc/nuts.cu',
+                     'replaces': f'bayesfast_tpu/samplers/nuts_pallas.py:'
+                                 f'{line}',
+                     'launches': n, 'max_abs_err': err, 'ms': ms,
+                     'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                     'bound_by': bound_by, 'library_ms': None})
     print(smi)
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

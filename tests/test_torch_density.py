@@ -11,7 +11,8 @@ from scipy.stats import special_ortho_group
 import bayesfast_tpu as bf
 from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.core.density import DensityLite
-from bayesfast_tpu_torch.interop import banana_density
+from bayesfast_tpu_torch.interop import (banana_density, cauchy_density,
+                                         funnel_density, ring_density)
 from bayesfast_tpu_torch.ops.densities import (DiagGaussian,
                                                spec_logp_and_grad)
 
@@ -86,11 +87,20 @@ def _specs():
             input_scales=sc5, hard_bounds=mixed),
         'gaussian_unbounded': DensityLite(
             logp=DiagGaussian([1., -2., 0.5], [0.5, 2., 1.]), input_size=3),
+        # the GBS anchors (ring and cauchy also past one element a lane)
+        'funnel16': funnel_density()[0],
+        'ring64': ring_density()[0],
+        'ring40': ring_density(40)[0],
+        'cauchy48': cauchy_density()[0],
+        'cauchy36': cauchy_density(36)[0],
     }
 
 
+_ANCHORS = ['funnel16', 'ring64', 'ring40', 'cauchy48', 'cauchy36']
+
+
 @pytest.mark.parametrize('name', ['banana32', 'banana5_mixed',
-                                  'gaussian_unbounded'])
+                                  'gaussian_unbounded'] + _ANCHORS)
 def test_kernel_spec_analytic_grad_matches_autograd(name):
     den = _specs()[name]
     D = den.input_size
@@ -103,7 +113,7 @@ def test_kernel_spec_analytic_grad_matches_autograd(name):
 
 
 @pytest.mark.parametrize('name', ['banana32', 'banana5_mixed',
-                                  'gaussian_unbounded'])
+                                  'gaussian_unbounded'] + _ANCHORS)
 def test_dense_order_matches_kernel_order(name):
     """The analytic form in dense torch calls (what the samplers without a
     kernel evaluate) against the kernels' order of operations."""
