@@ -549,10 +549,11 @@ class Density(Pipeline, _DensityBase):
     def _kernel_parts(self):
         """``(PolyModel, Gaussian)`` when the active plan is exactly the
         surrogate the CUDA kernels compile in, else None: with
-        ``use_surrogate`` on, one ``PolyModel`` of linear and quadratic
-        configs (no ``input_scales``) from the density's input vars to one
-        var, then one ``Gaussian`` (diagonal or full covariance) from that
-        var to ``density_name``, at D <= 64."""
+        ``use_surrogate`` on, one ``PolyModel`` (any mix of its orders,
+        with or without its own ``input_scales``) from the density's input
+        vars to one var, then one ``Gaussian`` (diagonal or full
+        covariance, no ``input_scales``) from that var to
+        ``density_name``, at D <= 64."""
         from ..modules import Gaussian, PolyModel
         if not self.use_surrogate:
             return None
@@ -564,9 +565,7 @@ class Density(Pipeline, _DensityBase):
         D = self.input_size
         ok = (isinstance(su, PolyModel) and isinstance(ga, Gaussian)
               and D is not None and D <= 64 and su.input_size == D
-              and all(c.order in ('linear', 'quadratic')
-                      for c in su.configs)
-              and su.input_scales is None and ga.input_scales is None
+              and ga.input_scales is None
               and list(su.input_vars) == list(self.input_vars)
               and len(su.output_vars) == 1
               and list(ga.input_vars) == list(su.output_vars)
@@ -577,7 +576,9 @@ class Density(Pipeline, _DensityBase):
     @property
     def has_kernel_spec(self):
         """Whether the CUDA NUTS kernels can sample this density as it
-        stands (see ``_kernel_parts``)."""
+        stands: a PolyModel surrogate of any orders, with or without its
+        own input scales, then a Gaussian, at D <= 64 (see
+        ``_kernel_parts``)."""
         return self._kernel_parts() is not None
 
     def _kernel_sources(self):
@@ -587,8 +588,8 @@ class Density(Pipeline, _DensityBase):
         if parts is None:
             raise NotImplementedError(
                 'this density has no kernel_spec(): the CUDA NUTS kernels '
-                'compile in a PolyModel surrogate (linear and quadratic '
-                'configs) followed by a Gaussian likelihood only.')
+                'compile in a PolyModel surrogate followed by a Gaussian '
+                'likelihood only, at D <= 64.')
         su, ga = parts
         # the surrogate's own arrays, not copies: the spec (or its key) is
         # built from them at once
@@ -606,18 +607,20 @@ class Density(Pipeline, _DensityBase):
         return dict(dim=self.input_size, configs=configs,
                     n_out=su.output_size, mean=ga.mean, var_inv=ga.var_inv,
                     prec=None if ga.var_inv is not None else ga.cov_inv,
-                    norm=norm_0 + norm_1, bound=bound, decay=decay)
+                    norm=norm_0 + norm_1, bound=bound, decay=decay,
+                    scales=su.input_scales)
 
     def kernel_spec_key(self):
         """A value equal between two calls exactly when ``kernel_spec()``
         would be: the bytes of every array and float it is built from, so
         a refit in place (new coefficients in the same arrays), a new
-        bound or decay, or new scales all change it."""
+        bound or decay, or new scales (the density's or the surrogate's)
+        all change it."""
         src = self._kernel_sources()
         out = [src['dim'], src['n_out'], src['norm']]
         for order, im, om, a in src['configs']:
             out += [order, im.tobytes(), om.tobytes(), a.tobytes()]
-        for k in ('mean', 'var_inv', 'prec'):
+        for k in ('mean', 'var_inv', 'prec', 'scales'):
             out.append(None if src[k] is None else src[k].tobytes())
         for k in ('bound', 'decay'):
             d = src[k]

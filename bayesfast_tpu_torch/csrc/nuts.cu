@@ -516,17 +516,26 @@ struct Cauchy {
 };
 
 // The surrogate density of a Recipe (ops/densities.py::poly_gaussian_spec):
-// m = PolyModel(x) with linear and quadratic configs, then the Gaussian
+// m = PolyModel(u) with any mix of linear, quadratic, cubic-2 and cubic-3
+// configs on u = (x - lo) / diff (the PolyModel's input scales,
+// bayesfast_tpu/core/module.py:83-101; lo = 0 and diff = 1 without, which
+// leave x and the gradient as they are bit for bit), then the Gaussian
 // log-likelihood -0.5 sum_j (m_j - d_j)^2 vinv_j + norm (diagonal) or
 // -0.5 r' P r + norm, r = m - d (full: a precision matvec), with the
 // PolyModel's linear extrapolation beyond its alpha-ellipsoid
 // (bayesfast_tpu/modules/poly.py:319-341) and the Density's decay penalty
 // -gamma max(dd' Hd dd - alpha_d^2, 0) (core/pipeline.py:470-474), and
-// the analytic gradient of all of it. The features phi_f = xa[i1_f] *
-// xa[i2_f] over xa = [x0, 1]; m = phi WT, WT (F, M). In the chunk kernels
-// this functor takes the place of the density that _nuts_multi_kernel and
-// _nuts_warmup_kernel (bayesfast_tpu/samplers/nuts_pallas.py:462, :746)
-// trace in from the JAX pipeline's surrogate.
+// the analytic gradient of all of it. The bound and the features are in
+// u-space: phi_f = (xa[i1_f] * xa[i2_f]) * xa[i3_f] over xa = [u0, 1]
+// (index D is the 1, so a quadratic feature is times an exact 1);
+// m = phi WT, WT (F, M). The gradient in u goes through a sparse row per
+// dimension, an entry (f, partner 1, partner 2) for each place of the
+// dimension in feature f's triple, then is divided by diff. The third
+// index and the scales are read at run time: one library serves every
+// order. In the chunk kernels this functor takes the place of the density
+// that _nuts_multi_kernel and _nuts_warmup_kernel
+// (bayesfast_tpu/samplers/nuts_pallas.py:462, :746) trace in from the JAX
+// pipeline's surrogate.
 //
 // Work per evaluation: F M multiply-adds forward (lanes over outputs, a
 // sum over the features in order each) and F M back (for each feature a
@@ -559,12 +568,12 @@ struct Cauchy {
 // over outputs runs a warp-uniform count, an output past M reads row
 // M - 1 and is dropped), and the tree across lanes through shared memory
 // in place of 40 shuffles a group of eight features.
-// Beside WT: the two D x D Hessians, staged for `matvec`, each warp's
-// exchange buffers (x, xa, phi with zeros to whole vectors, its gradient,
-// the outputs' gradients; with a full precision also r and m0 - f_mu) and
-// the integer tables. P (M x M, 835 KB in f32 at M = 457) is read from
-// device memory, one row of it for each k, as each lane's outputs sum over
-// k in order.
+// Beside WT: the two D x D Hessians, staged for `matvec`, the input
+// scales, each warp's exchange buffers (x, xa, phi with zeros to whole
+// vectors, its gradient, the outputs' gradients; with a full precision
+// also r and m0 - f_mu) and the integer tables. P (M x M, 835 KB in f32
+// at M = 457) is read from device memory, one row of it for each k, as
+// each lane's outputs sum over k in order.
 template <typename T, int NE>
 struct PolyGaussian {
   static constexpr int P = 32 * NE, S = row_stride<T, NE>();
@@ -581,21 +590,23 @@ struct PolyGaussian {
   int R, RS;  // features staged in shared memory, their row stride
   bool bound_on, decay_on, full;
   T nrm, gamma, alpha, alpha2;
-  const T *WT, *dat, *vinv, *fmu, *mup, *Hp, *mud, *Hd, *Pm, *ints;
+  const T *WT, *dat, *vinv, *fmu, *mup, *Hp, *mud, *Hd, *slo, *sdf, *Pm,
+      *ints;
   T mp[NE], md[NE];  // this lane's bound and decay centres
   mutable T dec;     // the decay penalty of the last evaluation
 
   __host__ __device__ static int up4(int n) { return (n + 3) & ~3; }
-  __host__ __device__ int n_ints() const { return 2 * F + D + 1 + 2 * NNZ; }
+  __host__ __device__ int n_ints() const { return 3 * F + D + 1 + 3 * NNZ; }
   __host__ __device__ int warp_elems() const {
     return P + up4(P + 1) + 2 * up4(F) + 32 * kBack + (full ? 3 : 1) * up4(M);
   }
   __host__ __device__ int int_elems() const {
     return up4((n_ints() * 4 + (int)sizeof(T) - 1) / (int)sizeof(T));
   }
-  // layout: Hp, Hd, the warps' buffers, the integer tables, staged WT
+  // layout: Hp, Hd, the scales (lo, then diff; 0 and 1 past D), the
+  // warps' buffers, the integer tables, staged WT
   __host__ __device__ int coef_offset() const {
-    return 2 * P * S + kWarps * warp_elems() + int_elems();
+    return 2 * P * S + 2 * P + kWarps * warp_elems() + int_elems();
   }
   __host__ __device__ size_t smem_elems() const {
     return coef_offset() + (size_t)M * RS;
@@ -606,9 +617,9 @@ struct PolyGaussian {
   // that every access compiles to a shared-memory one and no store to a
   // buffer can alias the functor's own fields
   struct Bufs {
-    const T *Hp, *Hd, *W;
+    const T *Hp, *Hd, *lo, *dv, *W;
     T *x, *xa, *phi, *gphi, *red, *g, *r, *m;
-    const int *i1, *i2, *rp, *cf, *cp;
+    const int *i1, *i2, *i3, *rp, *cf, *c1, *c2;
   };
   __device__ __forceinline__ Bufs bufs() const {
     extern __shared__ __align__(16) unsigned char g_smem[];
@@ -616,7 +627,9 @@ struct PolyGaussian {
     Bufs b;
     b.Hp = sm;
     b.Hd = sm + P * S;
-    b.x = sm + 2 * P * S + (threadIdx.x >> 5) * warp_elems();
+    b.lo = sm + 2 * P * S;
+    b.dv = b.lo + P;
+    b.x = sm + 2 * P * S + 2 * P + (threadIdx.x >> 5) * warp_elems();
     b.xa = b.x + P;
     b.phi = b.xa + up4(P + 1);
     b.gphi = b.phi + up4(F);
@@ -624,19 +637,20 @@ struct PolyGaussian {
     b.g = b.red + 32 * kBack;
     b.r = b.g + up4(M);
     b.m = b.r + up4(M);
-    b.i1 = reinterpret_cast<const int*>(sm + 2 * P * S +
-                                        kWarps * warp_elems());
+    b.i1 = reinterpret_cast<const int*>(b.dv + P + kWarps * warp_elems());
     b.i2 = b.i1 + F;
-    b.rp = b.i2 + F;
+    b.i3 = b.i2 + F;
+    b.rp = b.i3 + F;
     b.cf = b.rp + D + 1;
-    b.cp = b.cf + NNZ;
+    b.c1 = b.cf + NNZ;
+    b.c2 = b.c1 + NNZ;
     b.W = sm + coef_offset();
     return b;
   }
 
   // offsets of the packed vector: WT, dat, vinv, fmu, mup, Hp, mud, Hd,
-  // P (full precision only), then the integer tables i1, i2, rowptr, cf,
-  // cp (as T values)
+  // lo, diff, P (full precision only), then the integer tables i1, i2,
+  // i3, rowptr, cf, c1, c2 (as T values)
   __host__ void locate() {
     WT = par;
     dat = WT + (size_t)F * M;
@@ -646,7 +660,9 @@ struct PolyGaussian {
     Hp = mup + D;
     mud = Hp + D * D;
     Hd = mud + D;
-    Pm = Hd + D * D;
+    slo = Hd + D * D;
+    sdf = slo + D;
+    Pm = sdf + D;
     ints = Pm + (full ? (size_t)M * M : 0);
   }
 
@@ -657,7 +673,11 @@ struct PolyGaussian {
       smem[r * S + c] = in ? Hp[r * D + c] : T(0);
       smem[P * S + r * S + c] = in ? Hd[r * D + c] : T(0);
     }
-    int* ip = reinterpret_cast<int*>(smem + 2 * P * S +
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      smem[2 * P * S + i] = i < D ? slo[i] : T(0);
+      smem[2 * P * S + P + i] = i < D ? sdf[i] : T(1);
+    }
+    int* ip = reinterpret_cast<int*>(smem + 2 * P * S + 2 * P +
                                      kWarps * warp_elems());
     for (int i = threadIdx.x; i < n_ints(); i += blockDim.x)
       ip[i] = (int)ints[i];
@@ -719,13 +739,16 @@ struct PolyGaussian {
     T *const xbuf = b.x, *const xa = b.xa, *const phi = b.phi;
     T *const gphi = b.gphi, *const gbuf = b.g, *const rbuf = b.r;
     T *const mbuf = b.m, *const red = b.red;
-    const int *const si1 = b.i1, *const si2 = b.i2, *const srp = b.rp;
-    const int *const scf = b.cf, *const scp = b.cp;
+    const int *const si1 = b.i1, *const si2 = b.i2, *const si3 = b.i3;
+    const int *const srp = b.rp, *const scf = b.cf, *const sc1 = b.c1;
+    const int *const sc2 = b.c2;
+    // x0: u = (x - lo) / diff, then projected onto the bound
     T xm[NE], x0[NE], hdel[NE];
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
-      xm[e] = lane + 32 * e < D ? x[e] : T(0);
-      x0[e] = xm[e];
+      const int d = lane + 32 * e;
+      xm[e] = d < D ? x[e] : T(0);
+      x0[e] = (xm[e] - b.lo[d]) / b.dv[d];
       hdel[e] = T(0);
     }
     // the bound: beta^2 = delta' Hp delta, warp-uniform
@@ -734,7 +757,7 @@ struct PolyGaussian {
     if (bound_on) {
       T del[NE];
 #pragma unroll
-      for (int e = 0; e < NE; ++e) del[e] = xm[e] - mp[e];
+      for (int e = 0; e < NE; ++e) del[e] = x0[e] - mp[e];
       matvec<T, NE>(sHp, xbuf, del, hdel);
       T s = T(0);
 #pragma unroll
@@ -746,7 +769,7 @@ struct PolyGaussian {
       if (outside) {
 #pragma unroll
         for (int e = 0; e < NE; ++e)
-          x0[e] = (alpha * xm[e] + (beta - alpha) * mp[e]) / beta;
+          x0[e] = (alpha * x0[e] + (beta - alpha) * mp[e]) / beta;
       }
     }
     __syncwarp();  // the buffers' last readers are done
@@ -755,7 +778,8 @@ struct PolyGaussian {
       if (lane + 32 * e < D) xa[lane + 32 * e] = x0[e];
     if (lane == 0) xa[D] = T(1);
     __syncwarp();
-    for (int f = lane; f < F; f += 32) phi[f] = xa[si1[f]] * xa[si2[f]];
+    for (int f = lane; f < F; f += 32)
+      phi[f] = (xa[si1[f]] * xa[si2[f]]) * xa[si3[f]];
     __syncwarp();
     // m_j = sum_f WT[f, j] phi_f in order of f, kOut of the lane's outputs
     // a pass: the staged features 16 bytes at a time (a padded feature is
@@ -897,7 +921,8 @@ struct PolyGaussian {
       const int d = lane + 32 * e;
       T s = T(0);
       if (d < D)
-        for (int t = srp[d]; t < srp[d + 1]; ++t) s += gphi[scf[t]] * xa[scp[t]];
+        for (int t = srp[d]; t < srp[d + 1]; ++t)
+          s += gphi[scf[t]] * (xa[sc1[t]] * xa[sc2[t]]);
       g0[e] = s;
     }
     if (outside) {
@@ -920,6 +945,9 @@ struct PolyGaussian {
 #pragma unroll
       for (int e = 0; e < NE; ++e) g[e] = g0[e];
     }
+    // from u to x
+#pragma unroll
+    for (int e = 0; e < NE; ++e) g[e] = g[e] / b.dv[lane + 32 * e];
     dec = T(0);
     if (decay_on) {
       T dd[NE], hdd[NE];

@@ -156,7 +156,9 @@ def poly_from_numpy(configs, mu, hess, alpha, f_mu, bound_options=None,
     per config (its ``_input_mask``, ``_output_mask`` and ``_a``), then its
     ``_mu``, ``_hess``, ``_alpha`` (None before a fit) and ``_f_mu``;
     ``bound_options`` and ``kwargs`` (``input_size``, ``output_size``,
-    ``input_vars``, ...) go to ``PolyModel``."""
+    ``input_vars``, ``input_scales``, ...) go to ``PolyModel``. Any order
+    carries across, cubic-2 and cubic-3 included; the bound is in the
+    scaled inputs, as the JAX model fitted it."""
     from .modules import PolyConfig, PolyModel
     pcs = [PolyConfig(o, im, om) for o, im, om, _ in configs]
     model = PolyModel(pcs, bound_options, **kwargs)

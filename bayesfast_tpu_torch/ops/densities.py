@@ -308,72 +308,98 @@ _ANCHORS = {'funnel': _funnel_lpg, 'ring': _ring_lpg, 'cauchy': _cauchy_lpg}
 # ---------------------------------------------------------------------------
 # The surrogate density of a Recipe: PolyModel -> diagonal Gaussian
 
+def _triples(order, im, D):
+    """The features of one PolyModel config as index triples over ``xa =
+    [u, 1]`` (index ``D`` is the 1), in the JAX ``PolyConfig``'s order
+    (``bayesfast_tpu/modules/poly.py:43-86``): linear ``[1, u_i]``,
+    quadratic ``u_k u_l`` (k <= l row-major), cubic-2 ``u_k u_k u_l`` over
+    all (k, l), cubic-3 ``u_k u_l u_p`` (k < l < p); ``im`` maps a config's
+    inputs to the density's dimensions."""
+    im = np.append(np.asarray(im, int), D)
+    n = im.size - 1
+    if order == 'linear':
+        idx = [np.append(n, np.arange(n)), np.full(n + 1, n),
+               np.full(n + 1, n)]
+    elif order == 'quadratic':
+        k, l = np.triu_indices(n)
+        idx = [k, l, np.full(k.size, n)]
+    elif order == 'cubic-2':
+        k, l = (a.reshape(-1) for a in np.mgrid[0:n, 0:n])
+        idx = [k, k, l]
+    elif order == 'cubic-3':
+        kl = [(k, l, p) for k in range(n) for l in range(k + 1, n)
+              for p in range(l + 1, n)]
+        idx = list(np.asarray(kl, int).reshape(-1, 3).T)
+    else:
+        raise ValueError(f'unexpected order {order}.')
+    return np.stack([im[i] for i in idx], axis=-1).reshape(-1, 3)
+
+
 def poly_gaussian_spec(dim, configs, n_out, mean, var_inv, norm, bound=None,
-                       decay=None, prec=None):
-    """The kernel spec of ``m = PolyModel(x)`` (linear and quadratic configs)
-    followed by the Gaussian log-likelihood ``-0.5 sum (m - mean)^2 var_inv
-    + norm``, or ``-0.5 r' prec r + norm`` with ``r = m - mean`` for a full
-    precision matrix ``prec`` (``var_inv`` None), with the PolyModel's
-    bound extrapolation and the Density's
-    decay penalty (``bayesfast_tpu/modules/poly.py:319-341``,
+                       decay=None, prec=None, scales=None):
+    """The kernel spec of ``m = PolyModel(x)`` (any mix of linear,
+    quadratic, cubic-2 and cubic-3 configs) followed by the Gaussian
+    log-likelihood ``-0.5 sum (m - mean)^2 var_inv + norm``, or ``-0.5 r'
+    prec r + norm`` with ``r = m - mean`` for a full precision matrix
+    ``prec`` (``var_inv`` None), with the PolyModel's input scales and
+    bound extrapolation and the Density's decay penalty
+    (``bayesfast_tpu/core/module.py:83-101``,
+    ``bayesfast_tpu/modules/poly.py:319-341``,
     ``bayesfast_tpu/core/pipeline.py:470-474``).
 
     ``configs`` is a list of ``(order, input_mask, output_mask, a)``, ``a``
     the (len(output_mask), n_features) coefficients; ``bound`` a dict of
     ``mu``, ``hess``, ``alpha``, ``f_mu`` (None: no extrapolation);
     ``decay`` a dict of ``mu``, ``hess``, ``alpha_2``, ``gamma`` (None: no
-    penalty).
+    penalty); ``scales`` the surrogate's ``input_scales`` (D, 2) of (lo,
+    hi) (None: ``u = x``).
 
-    The features of all configs form one vector phi (F,) over ``xa = [x,
-    1]``: feature f is ``xa[i1[f]] * xa[i2[f]]`` (index ``dim`` is the 1),
-    so ``[1, x_k]`` for a linear config and ``x_k x_l`` (k <= l) for a
-    quadratic one; ``WT`` (F, M) holds every config's coefficients at its
-    outputs, so ``m = phi @ WT``. The gradient through phi goes by a sparse
-    row per dimension: the (feature, partner) pairs whose product holds it.
-    Both Hessians and the precision are symmetrized, which leaves each
+    The surrogate sees ``u = (x - lo) / (hi - lo)``, and its bound was
+    fitted there. The features of all configs form one vector phi (F,)
+    over ``xa = [u, 1]``: feature f is ``(xa[i1[f]] * xa[i2[f]]) *
+    xa[i3[f]]`` (index ``dim`` is the 1; ``_triples``); ``WT`` (F, M) holds
+    every config's coefficients at its outputs, so ``m = phi @ WT``. The
+    gradient through phi goes by a sparse row per dimension: an entry
+    (feature, partner 1, partner 2) for each position of the feature's
+    triple that holds the dimension, in position order, the partners the
+    triple's other two indices; then it is divided by ``hi - lo``. Both
+    Hessians and the precision are symmetrized, which leaves each
     quadratic form as it is and makes its gradient ``2 H delta``; row k of
     the symmetric precision is its column k, which the kernel reads
-    coalesced. Returns the spec dict: the
-    structured ``arrays`` for the plain version, one packed float64
-    parameter vector for the kernel (``csrc/nuts.cu``, ``PolyGaussian``)
-    and the ``scalars`` (norm, gamma, M, F, NNZ, bound on, decay on, alpha,
-    alpha^2, full precision)."""
+    coalesced. Returns the spec dict: the structured ``arrays`` for the
+    plain version, one packed float64 parameter vector for the kernel
+    (``csrc/nuts.cu``, ``PolyGaussian``) and the ``scalars`` (norm, gamma,
+    M, F, NNZ, bound on, decay on, alpha, alpha^2, full precision)."""
     D, M = int(dim), int(n_out)
-    i1, i2, blocks = [], [], []
+    if D > 64:
+        raise NotImplementedError(
+            f'the CUDA NUTS kernels take D <= 64, got {D}.')
+    trip, blocks = [], []
     for order, im, om, a in configs:
-        im = np.asarray(im, int)
-        if order == 'linear':
-            i1 += [D] + list(im)
-            i2 += [D] * (1 + im.size)
-        elif order == 'quadratic':
-            k, l = np.triu_indices(im.size)
-            i1 += list(im[k])
-            i2 += list(im[l])
-        else:
-            raise NotImplementedError(f'{order} configs are not compiled in.')
+        trip.append(_triples(order, im, D))
         blocks.append((np.asarray(om, int), np.asarray(a, np.float64)))
-    F = len(i1)
+    trip = np.concatenate(trip)
+    F = trip.shape[0]
     WT = np.zeros((F, M))
     off = 0
     for om, a in blocks:
         WT[off:off + a.shape[1], om] = a.T
         off += a.shape[1]
     rows = [[] for _ in range(D)]
-    for f in range(F):
-        if i1[f] < D:
-            rows[i1[f]].append((f, i2[f]))
-        if i2[f] < D:
-            rows[i2[f]].append((f, i1[f]))
+    for f, t in enumerate(trip.tolist()):
+        for pos in range(3):
+            if t[pos] < D:
+                rows[t[pos]].append((f, *(t[:pos] + t[pos + 1:])))
     rowptr = np.cumsum([0] + [len(r) for r in rows])
-    flat = [e for r in rows for e in r]
-    NNZ = len(flat)
+    flat = np.asarray([e for r in rows for e in r], int).reshape(-1, 3)
+    NNZ = flat.shape[0]
     L = max(1, max(len(r) for r in rows))
     # padded rows for the plain version: feature F is a zero, partner D a 1
-    fidx = np.full((D, L), F)
-    pidx = np.full((D, L), D)
+    pad = np.empty((D, L, 3), int)
+    pad[...] = (F, D, D)
     for d, r in enumerate(rows):
-        for t, (f, p) in enumerate(r):
-            fidx[d, t], pidx[d, t] = f, p
+        if r:
+            pad[d, :len(r)] = r
 
     def sym(h):
         h = np.asarray(h, np.float64)
@@ -396,20 +422,26 @@ def poly_gaussian_spec(dim, configs, n_out, mean, var_inv, norm, bound=None,
     full = prec is not None
     vinv = np.zeros(M) if full else np.asarray(var_inv, np.float64)
     P = sym(prec) if full else np.zeros((0, M))
+    # lo = 0 and hi - lo = 1 without scales: u = (x - 0) / 1 and g / 1 are
+    # x and g bit for bit
+    if scales is None:
+        slo, sdiff = np.zeros(D), np.ones(D)
+    else:
+        scales = np.asarray(scales, np.float64)
+        slo, sdiff = scales[:, 0], scales[:, 1] - scales[:, 0]
     packed = np.concatenate([
-        WT.ravel(), dat, vinv, fmu, mup, Hp.ravel(), mud, Hd.ravel(),
-        P.ravel(), np.asarray(i1, np.float64), np.asarray(i2, np.float64),
-        rowptr.astype(np.float64),
-        np.asarray([f for f, _ in flat], np.float64),
-        np.asarray([p for _, p in flat], np.float64)])
+        WT.ravel(), dat, vinv, fmu, mup, Hp.ravel(), mud, Hd.ravel(), slo,
+        sdiff, P.ravel(), trip.T.ravel(), rowptr, flat.T.ravel()]
+    ).astype(np.float64)
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a))
 
     arrays = dict(WT=t(WT), dat=t(dat), vinv=t(vinv), fmu=t(fmu), mup=t(mup),
-                  Hp=t(Hp), mud=t(mud), Hd=t(Hd), P=t(P))
-    index = dict(i1=t(np.asarray(i1, np.int64)),
-                 i2=t(np.asarray(i2, np.int64)), fidx=t(fidx), pidx=t(pidx))
+                  Hp=t(Hp), mud=t(mud), Hd=t(Hd), P=t(P), slo=t(slo),
+                  sdiff=t(sdiff))
+    index = dict(trip=t(trip.T.astype(np.int64)),
+                 rows=t(pad.transpose(2, 0, 1).astype(np.int64)))
     return dict(density='poly_gaussian', dim=D, params=[t(packed)],
                 scalars=(float(norm), gamma, M, F, NNZ, int(bound_on),
                          int(decay_on), alpha, alpha_2, int(full)),
@@ -430,13 +462,15 @@ def _spec_arrays(spec, x):
 def _poly_gaussian_lpg(spec, x, ordered=True):
     """(logp, grad) of ``poly_gaussian_spec`` at original-space x (C, D),
     operation for operation as ``csrc/nuts.cu::PolyGaussian`` computes it:
-    a matvec by H sums over k in order (``_matvec_seq``), m_j sums over
-    the features in order, (P r)_j over k in order, each lane sum (over outputs for the likelihood
-    and the bound's scalars, over dimensions for the quadratic forms, over
-    outputs for each feature's gradient) in the warp's order
-    (``warp_sum``), and a dimension's gradient over its sparse row in
-    order. Not ``ordered``: the matvecs and feature sums as matmuls, the
-    lane sums as torch sums."""
+    ``u = (x - lo) / diff`` as the port's ``Surrogate`` scales its input,
+    the bound in u-space, a matvec by H sums over k in order
+    (``_matvec_seq``), m_j sums over the features in order, (P r)_j over k
+    in order, each lane sum (over outputs for the likelihood and the
+    bound's scalars, over dimensions for the quadratic forms, over outputs
+    for each feature's gradient) in the warp's order (``warp_sum``), a
+    dimension's gradient over its sparse row in order, then divided by
+    ``diff``, and the decay penalty in x. Not ``ordered``: the matvecs and
+    feature sums as matmuls, the lane sums as torch sums."""
     mv, sm = _ops(ordered)
     a, ix = _spec_arrays(spec, x)
     (nrm, gamma, M, F, NNZ, bound_on, decay_on, alpha, alpha_2,
@@ -449,18 +483,20 @@ def _poly_gaussian_lpg(spec, x, ordered=True):
 
     alpha, gamma, alpha_2 = sc(alpha), sc(gamma), sc(alpha_2)
     outside = torch.zeros(C, dtype=torch.bool, device=x.device)
-    x0 = x
+    u = (x - a['slo']) / a['sdiff']
+    x0 = u
     if bound_on:
-        delta = x - a['mup']
+        delta = u - a['mup']
         hdel = mv(a['Hp'], delta)
         b2 = torch.clamp(sm(delta * hdel), min=1e-30)
         beta = torch.sqrt(b2)
         outside = beta > alpha
         bc = beta[:, None]
         x0 = torch.where(outside[:, None],
-                         (alpha * x + (bc - alpha) * a['mup']) / bc, x)
+                         (alpha * u + (bc - alpha) * a['mup']) / bc, u)
     xa = torch.cat([x0, torch.ones_like(x0[:, :1])], dim=-1)
-    phi = xa[:, ix['i1']] * xa[:, ix['i2']]
+    i1, i2, i3 = ix['trip']
+    phi = (xa[:, i1] * xa[:, i2]) * xa[:, i3]
     if ordered:
         m0 = torch.zeros((C, M), dtype=x.dtype, device=x.device)
         for f in range(F):
@@ -492,13 +528,15 @@ def _poly_gaussian_lpg(spec, x, ordered=True):
             else gm0 @ a['WT'].T)
     gphi = torch.cat([gphi, torch.zeros_like(gphi[:, :1])], dim=-1)
     g = torch.zeros_like(x)
-    for t in range(ix['fidx'].shape[1]):
-        g = g + gphi[:, ix['fidx'][:, t]] * xa[:, ix['pidx'][:, t]]
+    fidx, p1, p2 = ix['rows']
+    for t in range(fidx.shape[1]):
+        g = g + gphi[:, fidx[:, t]] * (xa[:, p1[:, t]] * xa[:, p2[:, t]])
     if bound_on:
         s_beta = sm(gm * (m0 - a['fmu'])) / alpha
         dldb = s_beta + sm(g * (a['mup'] - x0)) / beta
         g = torch.where(outside[:, None],
                         g * alpha / bc + dldb[:, None] * hdel / bc, g)
+    g = g / a['sdiff']
     dec = torch.zeros_like(logp)
     if decay_on:
         dd = x - a['mud']

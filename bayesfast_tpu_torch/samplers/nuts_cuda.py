@@ -482,21 +482,23 @@ def _coef_stride(rows, itemsize):
 def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows):
     """A block of a launch with the PolyGaussian density that stages the
     first ``rows`` features of the coefficients WT, as ``csrc/nuts.cu`` lays
-    it out: the two staged D x D Hessians, each warp's exchange buffers and
-    the integer tables; then those features, transposed (output j's
-    features as row j, ``row_stride`` elements); then every warp's
-    checkpoint stack if it still fits in a block, else the stacks stay in
-    global scratch. Returns a dict (rows, row_stride, stacks_smem,
-    bytes)."""
+    it out: the two staged D x D Hessians, the input scales, each warp's
+    exchange buffers and the integer tables (three indices a feature, the
+    row pointers, three a sparse-row entry); then those features,
+    transposed (output j's features as row j, ``row_stride`` elements);
+    then every warp's checkpoint stack if it still fits in a block, else
+    the stacks stay in global scratch. Returns a dict (rows, row_stride,
+    stacks_smem, bytes)."""
     n = 16 // itemsize
     P = 32 * max(1, -(-int(D) // 32))
     # xbuf, xa, phi, gphi, the back pass's scratch (32 lanes x 8 features),
     # the outputs' gradients, with a full precision r and m0 - f_mu
     warp = (P + _up(P + 1, 4) + 2 * _up(F, 4) + 32 * 8
             + (3 if full else 1) * _up(M, 4))
-    ints = _up(-(-(2 * F + D + 1 + 2 * NNZ) * 4 // itemsize), 4)
+    ints = _up(-(-(3 * F + D + 1 + 3 * NNZ) * 4 // itemsize), 4)
     stride = _coef_stride(rows, itemsize)
-    own = (2 * P * (P + n) + _WARPS * warp + ints + M * stride) * itemsize
+    own = (2 * P * (P + n) + 2 * P + _WARPS * warp + ints
+           + M * stride) * itemsize
     stacks = _WARPS * max(int(max_treedepth) - 1, 1) * (4 * D + 3) * itemsize
     stk = own + stacks <= _MAX_SMEM
     return dict(rows=int(rows), row_stride=stride, stacks_smem=stk,

@@ -48,6 +48,19 @@ card, drives the port's paths and checks what comes out:
   beside the JAX package's. Then each density's chunk and block kernels
   against their plain versions at 64 chains, K = 4, float64 and float32,
   and timed.
+* the cubic surrogate ([13]): [10]'s Recipe with both sample steps on a
+  linear + quadratic + cubic-2 + cubic-3 PolyModel (the reference's
+  'cubic-3' order on the nine nonlinear parameters, 238 features), every
+  transition on the chunk kernels with that density compiled in; n_call,
+  the walls, the launches and the IS-weighted means as [10] prints them.
+  The true model is quadratic in those parameters, so the cubic terms fit
+  to about 0, and the surrogate has no input_scales: [13] shows the cubic
+  spec routed and launched, [13b] runs the cubic arithmetic and the scales.
+  Then [13b]: the frozen chunk, warmup chunk and block kernels with a
+  cubic surrogate refitted to a seeded cubic term, without and with the
+  surrogate's own input_scales, against their plain versions in float64
+  and float32 (bitwise), each dtype's shared-memory plan, and the chunks
+  and a block launch timed.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
@@ -120,6 +133,8 @@ DES_NONLINEAR = np.arange(9)      # parameters with quadratic response
 DES_TRACES = ({'n_iter': 1500, 'n_warmup': 600},
               {'n_iter': 1200, 'n_warmup': 400})
 DES_N_IS, DES_JAX_NCALL, DES_REF_NCALL = 500, 1128, 2626
+# [13b]: the cubic surrogate's fit points (of [13]'s last step's draws)
+CUBIC_FIT = 1000
 # [11]: the other samplers at the bench width, plain torch on the card;
 # iterations cut below [3]'s 400 + 300 to fit the smoke's time
 H_WARMUP, H_POST, HMC_STEPS = 1000, 150, 32   # HMC on banana-32
@@ -1050,6 +1065,18 @@ def _kde_inputs(torch, draws, dtype, n_cut=0, m=KDE_M):
             for a in (xq, y.T.copy(), np.full(N, 1.0 / N), h)]
 
 
+def _kde_library(torch, x, data, w, h):
+    """The KDE cdf sums as PyTorch calls, 1024 points a block: ``ndtr`` of
+    the standardized differences and a ``matmul`` with the weights (the
+    library time beside the KDE kernel; the port never calls it). x (D,
+    M), data (D, N), w (N,), h (D,) -> (D, M)."""
+    acc = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    for j in range(0, data.shape[1], 1024):
+        z = (x[:, :, None] - data[:, None, j:j + 1024]) / h[:, None, None]
+        acc += torch.matmul(torch.special.ndtr(z), w[j:j + 1024])
+    return acc
+
+
 def _kde_vs_plain(torch, tt):
     """[7] The KDE kernel against its plain version at the SIT fit's shape
     (D = 32 columns of the main path's draws, M = 512 queries, N = 153,600
@@ -1099,20 +1126,12 @@ def _kde_vs_plain(torch, tt):
             raise AssertionError(f'kde_cdf float32 {erf} is off the float64 '
                                  'plain version')
     x, data, w, hd = _kde_inputs(torch, draws, torch.float32)
-    N, dev = data.shape[1], x.device
-
-    def library():
-        acc = torch.zeros((D, KDE_M), dtype=torch.float32, device=dev)
-        for j in range(0, N, 1024):
-            z = (x[:, :, None] - data[:, None, j:j + 1024]) / hd[:, None,
-                                                                   None]
-            acc += torch.matmul(torch.special.ndtr(z), w[j:j + 1024])
-        return acc
-
+    N = data.shape[1]
     ms, _ = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, hd), 10)
     plain_ms, _ = _time_ms(torch, lambda: tk.kde_cdf_batch_plain(
         x, data, w, hd), 2)
-    lib_ms, _ = _time_ms(torch, library, 2)
+    lib_ms, _ = _time_ms(torch, lambda: _kde_library(torch, x, data, w, hd),
+                         2)
     bound = _bound(KDE_OPS_PER_PHI * D * KDE_M * N,
                    _nbytes(x, data, w, hd) + D * KDE_M * 4)
     print(f'  kde_cdf float32 exact at D={D}, M={KDE_M}, N={N}: kernel '
@@ -1146,9 +1165,24 @@ def _make_des_model(seed=0):
     return forward, data, jac
 
 
-def _des_recipe_objects(bt):
-    """The example's Density, surrogates and steps at DES_CHAINS chains."""
-    from bayesfast_tpu_torch.modules import Gaussian, PolyConfig, PolyModel
+def _des_surrogate(cubic, scales=None):
+    """The sample steps' PolyModel: linear in every parameter plus
+    quadratic in the nine nonlinear ones ([10]), or plus quadratic, cubic-2
+    and cubic-3 there, the reference's 'cubic-3' order on them ([13]: 28 +
+    45 + 81 + 84 = 238 features); ``scales`` its own input_scales."""
+    from bayesfast_tpu_torch.modules import PolyConfig, PolyModel
+    orders = ('quadratic', 'cubic-2', 'cubic-3') if cubic else (
+        'quadratic',)
+    return PolyModel([PolyConfig('linear')] + [
+        PolyConfig(o, input_mask=DES_NONLINEAR) for o in orders],
+        input_size=DES_D, output_size=DES_N_DATA, input_vars='x',
+        output_vars='m', input_scales=scales)
+
+
+def _des_recipe_objects(bt, cubic=False):
+    """The example's Density, surrogates and steps at DES_CHAINS chains;
+    with ``cubic`` both sample steps fit the cubic surrogate."""
+    from bayesfast_tpu_torch.modules import Gaussian, PolyModel
     forward, data, jac = _make_des_model()
     para_range = np.stack([np.full(DES_D, -5.0), np.full(DES_D, 5.0)]).T
     model = bt.Module(fun=forward, input_vars='x', output_vars='m',
@@ -1162,10 +1196,7 @@ def _des_recipe_objects(bt):
                          decay_options={'use_decay': True})
     surro_0 = PolyModel('linear', input_size=DES_D, output_size=DES_N_DATA,
                         input_vars='x', output_vars='m')
-    surro_1 = PolyModel([PolyConfig('linear'),
-                         PolyConfig('quadratic', input_mask=DES_NONLINEAR)],
-                        input_size=DES_D, output_size=DES_N_DATA,
-                        input_vars='x', output_vars='m')
+    surro_1 = _des_surrogate(cubic)
     tr = [dict(n_chain=DES_CHAINS, **t) for t in DES_TRACES]
     opt = bt.recipe.OptimizeStep(surrogate_list=surro_0, alpha_n=2,
                                  sample_trace=dict(tr[0]))
@@ -1179,20 +1210,22 @@ def _des_recipe_objects(bt):
     return rec, sigma
 
 
-def _des_recipe(torch, bt):
+def _des_recipe(torch, bt, cubic=False):
     """[10] The DES-like Recipe (optimize, two sample steps, IS) at full
     width with DES_CHAINS chains in float32 through ``Recipe.run``: every
     surrogate sample step on the NUTS chunk kernels with the compiled-in
-    PolyModel -> Gaussian density. Times each step and its parts, counts
-    the launches of each sample() call, and checks n_call and the
+    PolyModel -> Gaussian density; [13] with ``cubic``, the same with the
+    cubic surrogate in both sample steps. Times each step and its parts,
+    counts the launches of each sample() call, and checks n_call and the
     IS-weighted posterior means against the truth. Returns (the Recipe,
     the run's launch counts, its n_call, largest IS-weighted deviation in
     sigma and the chunk kernels' device seconds)."""
     from bayesfast_tpu_torch.core import recipe as rmod
     from bayesfast_tpu_torch.samplers import nuts as tree
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    tag = '[13]' if cubic else '[10]'
     bt.utils.set_generator(27)
-    rec, sigma = _des_recipe_objects(bt)
+    rec, sigma = _des_recipe_objects(bt, cubic)
     counters = _counters()
     # per sample() call: seconds, launches, tree-loop transitions, |draw
     # mean - truth| / sigma, post-warmup tree depth and acceptance
@@ -1220,6 +1253,8 @@ def _des_recipe(torch, bt):
                       float(st['mean_tree_accept'][:, n_w:].mean())))
         return out
 
+    wrapped_on = []
+
     def timed(obj, name, key, into):
         fn = getattr(obj, name)
 
@@ -1229,6 +1264,7 @@ def _des_recipe(torch, bt):
             into[key] += time.time() - t0
             return out
         setattr(obj, name, wrapped)
+        wrapped_on.append((obj, name))
 
     phases = dict(optimize=0.0, sample=0.0, post=0.0)
     for name, key in (('_opt_step', 'optimize'), ('_sam_step', 'sample'),
@@ -1264,6 +1300,10 @@ def _des_recipe(torch, bt):
     finally:
         rmod.sample = sample
         nc._launch = launch
+        # the objects' own methods again (a copy of the density must fit
+        # its own surrogates)
+        for obj, name in wrapped_on:
+            delattr(obj, name)
     torch.cuda.synchronize()
     # the launch mix: (kind, K) -> launches, device ms
     mix = {}
@@ -1282,11 +1322,16 @@ def _des_recipe(torch, bt):
     z_q = np.abs(x_q.mean(0) - DES_TRUTH) / sigma
     ess = np.sum(res.weights) ** 2 / np.sum(res.weights ** 2)
     n_cut = int(np.sum(res.weights_trunc < res.weights))
-    print(f'[10] DES-like Recipe, D={DES_D}, N_DATA={DES_N_DATA}, '
-          f'{DES_CHAINS} chains, float32, Recipe.run(): ' +
+    print(f'{tag} DES-like Recipe, D={DES_D}, N_DATA={DES_N_DATA}, '
+          f'{DES_CHAINS} chains, float32, '
+          f'{"cubic" if cubic else "quadratic"} surrogate, Recipe.run(): ' +
           ', '.join(f'{k} {v:.2f} s' for k, v in phases.items()))
     print(f'    parts (s): ' + ', '.join(f'{k} {v:.3f}'
                                         for k, v in parts.items()))
+    if cubic:
+        print('    the true model is quadratic in the nine parameters, so the '
+              'cubic terms fit to about 0 and no input_scales are set: '
+              '[13b] runs non-zero cubic coefficients and the scales')
     for i, (dt, ln, nt, zs, depth, acc) in enumerate(calls):
         step = 'optimize' if i == 0 else f'sample #{i - 1}'
         print(f'    {step}: sample() {dt:.2f} s, launches '
@@ -1298,8 +1343,9 @@ def _des_recipe(torch, bt):
           'transition): ' + '; '.join(
               f'{kind} {k}: {n}, {ms / 1e3:.3f}, {ms / (n * k):.3f}'
               for (kind, k), (n, ms) in sorted(mix.items())))
-    print(f'    n_call {res.n_call} (JAX package record {DES_JAX_NCALL}, '
-          f'reference {DES_REF_NCALL}); tree-loop transitions {n_tree}')
+    print(f'    n_call {res.n_call} ([10]: JAX package record '
+          f'{DES_JAX_NCALL}, reference {DES_REF_NCALL}); tree-loop '
+          f'transitions {n_tree}')
     print(f'    IS-weighted posterior means - {DES_TRUTH}, in analytic sigma:'
           f' max {z.max():.3f} (JAX record < 0.5), mean {z.mean():.3f}; '
           f'sigma {sigma.min():.4f}-{sigma.max():.4f}')
@@ -1312,12 +1358,13 @@ def _des_recipe(torch, bt):
             ln['nuts_warmup'] > 0 and ln['nuts_multi'] > 0
             and ln['nuts_block'] == 0 and nt == 0
             for _, ln, nt, *_ in calls)):
-        raise AssertionError('a Recipe sample step did not run every '
-                             'transition on the chunk kernels')
+        raise AssertionError(f'{tag}: a Recipe sample step did not run '
+                             'every transition on the chunk kernels')
     if not (np.isfinite(mean).all() and z.max() < 1.0):
-        raise AssertionError(f'posterior means off: {z.max()} sigma')
+        raise AssertionError(f'{tag}: posterior means off: {z.max()} sigma')
     if not (res.n_call is not None and res.n_call <= DES_REF_NCALL):
-        raise AssertionError(f'n_call {res.n_call} > {DES_REF_NCALL}')
+        raise AssertionError(f'{tag}: n_call {res.n_call} > '
+                             f'{DES_REF_NCALL}')
     return rec, launches, dict(n_call=int(res.n_call),
                                max_dev_sigma=float(z.max()),
                                kernels_s=parts['kernels_s'])
@@ -1337,14 +1384,24 @@ def _full_cov_density(den):
 
 def _poly_leapfrog_ops(dim, spec):
     """Operations of one leapfrog of the PolyGaussian density behind the
-    fused bound transform, read off csrc/nuts.cu: F M multiply-adds forward
-    and F M back (4 F M), a butterfly per feature (10 F), the likelihood
-    per output (8 M), the sparse rows of the gradient (2 NNZ), the bound's
-    and the decay's D x D matvecs (4 D^2), and about 85 elementwise
-    operations per dimension (transform, integrator, energy and U-turn
-    sums)."""
+    fused bound transform, read off csrc/nuts.cu and counted from the spec:
+    F M multiply-adds forward and F M back (4 F M), a butterfly per feature
+    (10 F), the third factor of each feature whose triple has one (i3 < D),
+    the likelihood per output (8 M), the sparse rows of the gradient (a
+    product and an add an entry, 2 NNZ, and the partners' product where
+    both partners are inputs), the bound's and the decay's D x D matvecs
+    (4 D^2), about 85 elementwise operations per dimension (transform,
+    integrator, energy and U-turn sums), and with input scales their
+    subtract and two divides per dimension. Without cubic features and
+    scales this is the two-index density's count."""
     M, F, NNZ = (int(v) for v in spec['scalars'][2:5])
-    return 4 * F * M + 10 * F + 8 * M + 2 * NNZ + 4 * dim * dim + 85 * dim
+    trip, rows = spec['index']['trip'], spec['index']['rows']
+    n_third = int((trip[2] < dim).sum())
+    n_pair = int(((rows[0] < F) & (rows[1] < dim) & (rows[2] < dim)).sum())
+    a = spec['arrays']
+    scaled = bool((a['slo'] != 0).any() or (a['sdiff'] != 1).any())
+    return (4 * F * M + 10 * F + n_third + 8 * M + 2 * NNZ + n_pair
+            + 4 * dim * dim + 85 * dim + 3 * dim * scaled)
 
 
 def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
@@ -1405,6 +1462,85 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
             rows(o['q'], nc._chunk_stats(o, dtype)), C)
         plain_ms['nuts_block' + suffix] = ms
     return errs, plain_ms
+
+
+def _cubic_density(bt, rec, scaled):
+    """[13b] A copy of [13]'s density with a fresh cubic surrogate, fitted
+    to the true model plus a seeded cubic term in the nine nonlinear
+    parameters (so that every cubic coefficient is non-zero) at CUBIC_FIT
+    of the last step's draws, evenly strided; with ``scaled`` the
+    surrogate has its own input_scales, the box of the fit points."""
+    import copy
+    x = rec.recipe_trace.results.sample[-1].samples
+    x = x[::x.shape[0] // CUBIC_FIT][:CUBIC_FIT]
+    T3 = np.random.default_rng(13).normal(
+        size=(DES_N_DATA,) + (DES_NONLINEAR.size,) * 3) / 27.0
+    scales = np.stack([x.min(0), x.max(0)]).T if scaled else None
+    den = copy.deepcopy(rec.density)
+    den.surrogate_list = [_des_surrogate(True, scales)]
+    vds = den.fun(x, original_space=True, use_surrogate=False)
+    for vd, xi in zip(vds, x):
+        xn = xi[DES_NONLINEAR]
+        vd._fun['m'] = vd._fun['m'] + np.einsum('dijk,i,j,k->d', T3, xn, xn,
+                                                 xn)
+    den.fit(vds)
+    den.use_surrogate = True
+    return den
+
+
+def _cubic_kernels(torch, bt, rec):
+    """[13b] The frozen chunk, warmup chunk and block kernels with the cubic
+    PolyGaussian density (F = 238 features, M = 457 outputs) against their
+    plain versions at C = DES_CHAINS, K = 4, on [13]'s last sample step's
+    state, float64 and float32, without and with the surrogate's own input
+    scales; each dtype's shared-memory plan printed; the unscaled density's
+    K = 4 chunks and one block launch timed in both dtypes. Returns (max abs
+    errors by kernel, {dtype: times by kernel + '_cubic'})."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    carry = rec.recipe_trace.results.sample[-1].sample_trace.trace._carry
+    errs, times = {}, {}
+    for scaled in (False, True):
+        den = _cubic_density(bt, rec, scaled)
+        spec = nc._spec_entry(den, carry.q)[2]
+        a = [c._a for c in den.surrogate_list[0].configs]
+        print(f'  cubic surrogate{" with input_scales" if scaled else ""}: '
+              f'F = {int(spec["scalars"][3])}, NNZ = '
+              f'{int(spec["scalars"][4])}; non-zero coefficients: cubic-2 '
+              f'{np.count_nonzero(a[2])} of {a[2].size}, cubic-3 '
+              f'{np.count_nonzero(a[3])} of {a[3].size}')
+        if not (np.count_nonzero(a[2]) and np.count_nonzero(a[3])):
+            raise AssertionError('[13b]: the cubic coefficients are zero')
+        ops = _poly_leapfrog_ops(DES_D, spec)
+        print(f'  bound: {ops} operations a leapfrog (_poly_leapfrog_ops)')
+        for dt, peak in ((torch.float64, PEAK_FP64),
+                         (torch.float32, PEAK_FP32)):
+            c = _cast(carry, dt)
+            dens_id, _, _, _, dscal = nc._spec_for(den, c.q)
+            plan = nc._spec_plan(dens_id, dscal, DES_D, MAX_TREEDEPTH,
+                                 c.q.element_size())
+            print(f'  plan {str(dt)[6:]}: {plan["rows"]} of '
+                  f'{int(dscal[3])} features staged, stacks in shared '
+                  f'memory: {plan["stacks_smem"]}; {plan["bytes"]} bytes a '
+                  f'block')
+            e, plain_ms = _chunks_vs_plain(
+                torch, den, c, dt, 'cubic PolyGaussian', '_cubic',
+                label='scaled ' if scaled else '', block=True)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            if scaled:
+                continue
+            t, _, _ = _time_chunks(torch, den, c, plain_ms, ops, '_cubic',
+                                   peak)
+            C, dim = c.q.shape
+            metric = init_diag_metric(c.q, nc._mat(c.metric.var, C, dim,
+                                                   c.q))
+            t['nuts_block_cubic'] = _time_block(
+                torch, den, c.q, metric, torch.exp(c.step.log_bar),
+                plain_ms['nuts_block_cubic'], ops, peak,
+                '  nuts_block_cubic')[0]
+            times[dt] = t
+    return errs, times
 
 
 def _anchor_run(torch, bt, name, jax_ncall):
@@ -1515,7 +1651,8 @@ def _anchor_run(torch, bt, name, jax_ncall):
 def _anchor_kde(torch, draws):
     """[12] The KDE kernel at an anchor's SIT fit shape (its fit rows, D
     columns, 512 queries a column), float64 as GBS runs it: bitwise
-    against its plain version, then timed beside its bound."""
+    against its plain version, then timed beside its bound and the blocked
+    ndtr + matmul formulation."""
     from bayesfast_tpu_torch.ops import kde as tk
     x, data, w, h = _kde_inputs(torch, draws, torch.float64)
     dim, N = data.shape
@@ -1523,12 +1660,15 @@ def _anchor_kde(torch, draws):
     plain_ms, p = _plain_once(torch, lambda: tk.kde_cdf_batch_plain(
         x, data, w, h))
     ms = _time_ms(torch, lambda: tk.kde_cdf_batch(x, data, w, h), 10)[0]
+    lib_ms = _time_ms(torch, lambda: _kde_library(torch, x, data, w, h),
+                      2)[0]
     bound = _bound(KDE_OPS_PER_PHI * dim * KDE_M * N,
                    _nbytes(x, data, w, h, k), PEAK_FP64)
     same = torch.equal(k, p)
     print(f'    kde_cdf float64 at D={dim}, M={KDE_M}, N={N}: kernel '
-          f'{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms '
-          f'({bound[1]}); bitwise equal to the plain version: {same}')
+          f'{ms:.3f} ms, plain {plain_ms:.3f} ms, blocked ndtr + matmul '
+          f'{lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); bitwise '
+          f'equal to the plain version: {same}')
     if not same:
         raise AssertionError(f'kde_cdf at D={dim} disagrees with its plain '
                              'version')
@@ -1622,13 +1762,18 @@ def _check_registers():
 
 
 class _SpecDensity:
-    """A density that is only a saved kernel spec (``Density.kernel_spec``
-    of a Recipe's last step), so that every process of an A/B launches the
-    same surrogate."""
+    """A density that is only a kernel spec, built by the checkout in use
+    from a Recipe's saved surrogate (``Density._kernel_sources``) and
+    transform, so that every process of an A/B launches the same
+    surrogate, each in its own checkout's packing."""
     has_kernel_spec = True
 
-    def __init__(self, spec):
-        self._spec = spec
+    def __init__(self, sources, transform):
+        from bayesfast_tpu_torch.ops.densities import poly_gaussian_spec
+        src = {k: v for k, v in sources.items()
+               if not (k == 'scales' and v is None)}
+        self._spec = poly_gaussian_spec(**src)
+        self._spec['transform'] = transform
 
     def kernel_spec(self):
         return self._spec
@@ -1758,17 +1903,19 @@ def _ab_one(tree, state, out_path, n_seeds):
         last = rec.recipe_trace.results.sample[-1].sample_trace.trace
         torch.save({'carry': tt.trace._carry, 'pooled': tp.trace._carry,
                     'draws': tt.get(flatten=False),
-                    'poly_spec': rec.density.kernel_spec(),
+                    'poly_src': rec.density._kernel_sources(),
+                    'poly_tf': rec.density.kernel_spec()['transform'],
                     'poly_carry': last._carry}, state)
     st = torch.load(state, weights_only=False)
     res.update(_time_chunks(torch, den, st['carry'])[1])
     # [10b]'s PolyGaussian chunks on the saved surrogate and state, float32
     # (the Recipe's) and float64
+    den_p = _SpecDensity(st['poly_src'], st['poly_tf'])
     for dt, suffix in ((torch.float32, '_poly'), (torch.float64, '_poly64')):
         _, chains, outs = _time_chunks(
-            torch, _SpecDensity(st['poly_spec']),
-            _cast(st['poly_carry'], dt),
-            ops=_poly_leapfrog_ops(DES_D, st['poly_spec']), suffix=suffix)
+            torch, den_p, _cast(st['poly_carry'], dt),
+            ops=_poly_leapfrog_ops(DES_D, den_p.kernel_spec()),
+            suffix=suffix)
         res.update(chains)
         res['digests'].update({f'{k}{suffix} outputs [10b]': _digest(v)
                                for k, v in outs.items()})
@@ -2012,6 +2159,20 @@ def main():
                 launches_a[kind], max(e[k] for e, _ in by_dt.values()),
                 by_dt[torch.float64][1][k])
 
+    # ---- [13] the DES-like Recipe with the cubic surrogate in both sample
+    # steps, every transition on the chunk kernels; [13b] the three kernels
+    # with the cubic density against their plain versions, then timed ----
+    config.set_dtype(torch.float32)
+    rec_c, cubic_launches, _ = _des_recipe(torch, bt, cubic=True)
+    print(f'[13b] cubic PolyGaussian kernels vs plain, C={DES_CHAINS}, '
+          f'D={DES_D}, M={DES_N_DATA}, K={K_CMP}, [13]\'s last state')
+    errs_c, times_c = _cubic_kernels(torch, bt, rec_c)
+    for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
+        k = f'{kind}_cubic'
+        launches[k] = cubic_launches[kind]
+        errs32[k] = errs_c[k]
+        times[k] = times_c[torch.float32][k]
+
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
                        'bayesfast_tpu/samplers/nuts_pallas.py:462'),
@@ -2025,7 +2186,16 @@ def main():
         'nuts_multi_poly': ('bayesfast_tpu_torch/csrc/nuts.cu',
                             'bayesfast_tpu/samplers/nuts_pallas.py:462'),
         'nuts_warmup_poly': ('bayesfast_tpu_torch/csrc/nuts.cu',
-                             'bayesfast_tpu/samplers/nuts_pallas.py:746')}
+                             'bayesfast_tpu/samplers/nuts_pallas.py:746'),
+        # the three kernels with the cubic PolyGaussian density ([13],
+        # [13b]); the Recipe does not pool its metric, so the block kernel
+        # has no launch on its path
+        'nuts_multi_cubic': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                             'bayesfast_tpu/samplers/nuts_pallas.py:462'),
+        'nuts_warmup_cubic': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                              'bayesfast_tpu/samplers/nuts_pallas.py:746'),
+        'nuts_block_cubic': ('bayesfast_tpu_torch/csrc/nuts.cu',
+                             'bayesfast_tpu/samplers/nuts_pallas.py:431')}
     rows = []
     for k, (src, replaces) in meta.items():
         ms, plain_ms, bound_ms, bound_by = times[k][:4]

@@ -11,10 +11,15 @@ state carried into the port (``interop.poly_from_numpy``,
 * ``Density.logp_and_grad`` with the surrogate, the decay and the bound
   transform agree to 1e-10;
 * the plain version of the kernels' ``PolyGaussian`` density
-  (``ops.densities.spec_logp_and_grad``) agrees with that to 1e-10;
+  (``ops.densities.spec_logp_and_grad``) agrees with that to 1e-10, for
+  the quadratic surrogate and for cubic ones (``CONFIGS``: cubic-2 and
+  cubic-3 configs, the ``'cubic-3'`` string, all orders mixed, fitted to a
+  model with a cubic term in 4 of the inputs), with and without the
+  surrogate's own ``input_scales``, the bound off and on;
 * the frozen and warmup chunk plain paths on the ``PolyGaussian`` spec
-  agree with ``make_nuts_pallas_multi`` / ``make_nuts_pallas_warmup`` run
-  in interpret mode on the JAX pipeline's ``device_logp_and_grad``: equal
+  (quadratic, and the scaled mix of every order) agree with
+  ``make_nuts_pallas_multi`` / ``make_nuts_pallas_warmup`` run in
+  interpret mode on the JAX pipeline's ``device_logp_and_grad``: equal
   tree statistics, floats to the tolerances of
   ``test_torch_nuts_kernel.py`` (1e-6 with the real momenta, 1e-9 with one
   correctly rounded Box-Muller patched into both sides);
@@ -56,17 +61,38 @@ def _on_cpu():
 D, M, NL, TRUTH = 6, 24, np.arange(3), 0.1
 C, K, MAXDEPTH, MAX_CHANGE = 8, 2, 5, 1000.
 BOUNDS = np.stack([np.full(D, -5.), np.full(D, 5.)]).T
+NLC = np.array([0, 2, 3, 5])        # the cubic model's and configs' inputs
+# the surrogate's own input scales: a box around the fit cloud, another
+# width in each dimension
+SCALES = np.stack([TRUTH - 1.0 - 0.1 * np.arange(D),
+                   TRUTH + 0.5 + 0.3 * np.arange(D)]).T
+# each surrogate's PolyModel configs: (order, input mask) pairs, or a string
+CONFIGS = {
+    'quadratic': [('linear', None), ('quadratic', NL)],
+    'cubic-2': [('linear', None), ('cubic-2', NLC)],
+    'cubic-3': [('linear', None), ('cubic-3', NLC)],
+    'sugar': 'cubic-3',
+    'mix': [('linear', None), ('quadratic', NLC), ('cubic-2', NLC),
+            ('cubic-3', NLC)],
+}
 
 
-def _model(seed=0):
+def _model(seed=0, cubic=False):
+    """The true model: linear, quadratic in ``NL`` and, with ``cubic``, a
+    cubic term in ``NLC``."""
     rng = np.random.default_rng(seed)
     A = rng.normal(size=(M, D)) / np.sqrt(D)
     B = rng.normal(size=(M, 3, 3)) / 6.0
     B = (B + np.swapaxes(B, 1, 2)) / 2
+    T = rng.normal(size=(M, 4, 4, 4)) / 16.0 if cubic else None
 
     def forward(x, *args, **kwargs):
         x = np.asarray(x)
-        return A @ x + np.einsum('dij,i,j->d', B, x[NL], x[NL])
+        y = A @ x + np.einsum('dij,i,j->d', B, x[NL], x[NL])
+        if cubic:
+            xc = x[NLC]
+            y = y + np.einsum('dijk,i,j,k->d', T, xc, xc, xc)
+        return y
 
     return forward, forward(np.full(D, TRUTH))
 
@@ -80,9 +106,22 @@ def _cov(kind):
     return 0.05 * np.eye(M) + L @ L.T
 
 
-def _density(pkg, forward, data, cov='diag'):
+def _poly(Conf, Poly, configs, scales=None, bound=None):
+    """A PolyModel of ``configs`` (a ``CONFIGS`` entry) over x -> m;
+    ``bound`` None keeps the default bound options."""
+    if not isinstance(configs, str):
+        configs = [Conf(o) if im is None else Conf(o, input_mask=im)
+                   for o, im in configs]
+    opts = {} if bound is None else {'bound_options': {'use_bound': bound}}
+    return Poly(configs, input_size=D, output_size=M, input_vars='x',
+                output_vars='m', input_scales=scales, **opts)
+
+
+def _density(pkg, forward, data, cov='diag', case='quadratic', scales=None,
+             bound=None):
     """The DES-like Density of one package (``pkg`` is ``bf`` or ``bt``),
-    its linear + quadratic-on-3 surrogate attached."""
+    its ``CONFIGS[case]`` surrogate (default linear + quadratic-on-3)
+    attached."""
     J = pkg is bf
     Gauss, Conf, Poly = ((JGaussian, JConfig, JPoly) if J
                          else (Gaussian, PolyConfig, PolyModel))
@@ -93,27 +132,32 @@ def _density(pkg, forward, data, cov='diag'):
     den = pkg.Density(density_name='logp', module_list=[model, like],
                       input_vars='x', input_shapes=[D], input_scales=BOUNDS,
                       hard_bounds=True, decay_options={'use_decay': True})
-    su = Poly([Conf('linear'), Conf('quadratic', input_mask=NL)],
-              input_size=D, output_size=M, input_vars='x', output_vars='m')
+    su = _poly(Conf, Poly, CONFIGS[case], scales, bound)
     den.surrogate_list = [su]
     return den, su
 
 
-def _fitted_pair(cov='diag', seed=1, spread=0.3):
+def _fitted_pair(cov='diag', seed=1, spread=0.3, case='quadratic',
+                 scaled=False, bound=None):
     """The JAX density fitted on random points, and the port's with the JAX
-    state carried across; the surrogate switched on in both."""
-    forward, data = _model()
-    den_j, su_j = _density(bf, forward, data, cov)
+    state carried across; the surrogate switched on in both. A cubic
+    ``case`` is fitted to the cubic model on 150 points, with ``SCALES``
+    as the surrogate's input scales if ``scaled``."""
+    quad = case == 'quadratic'
+    forward, data = _model(cubic=not quad)
+    scales = SCALES if scaled else None
+    den_j, su_j = _density(bf, forward, data, cov, case, scales, bound)
     rng = np.random.default_rng(seed)
-    x_fit = TRUTH + rng.normal(size=(60, D)) * spread
+    x_fit = TRUTH + rng.normal(size=(60 if quad else 150, D)) * spread
     den_j.fit(den_j.fun(x_fit, original_space=True, use_surrogate=False))
     den_j.use_surrogate = True
     den_t, _ = _density(bt, forward, data, cov)
     den_t.surrogate_list = [poly_from_numpy(
         [(c.order, c.input_mask, c.output_mask, np.asarray(c._a))
          for c in su_j.configs], su_j._mu, su_j._hess, su_j._alpha,
-        su_j._f_mu, input_size=D, output_size=M, input_vars='x',
-        output_vars='m')]
+        su_j._f_mu, None if bound is None else {'use_bound': bound},
+        input_size=D, output_size=M, input_vars='x', output_vars='m',
+        input_scales=scales)]
     density_decay_from_numpy(den_t, den_j._mu, den_j._hess,
                              den_j._alpha_2_val)
     den_t.use_surrogate = True
@@ -161,25 +205,60 @@ def test_logp_and_grad_match_jax(cov):
         np.testing.assert_allclose(a.fun['logp'], b.fun['logp'], rtol=1e-12)
 
 
-@pytest.mark.parametrize('cov', ['diag', 'full'])
-def test_kernel_spec_plain_density_matches_jax(cov):
+def _spec_cases():
+    """(cov, case, scaled, bound): the quadratic surrogate with the default
+    bound under each covariance (ids 'diag' and 'full'), then every
+    surrogate x scales off / on x bound off / on x covariance."""
+    cases = [pytest.param(cov, 'quadratic', False, None, id=cov)
+             for cov in ('diag', 'full')]
+    for case in CONFIGS:
+        for scaled in (False, True):
+            for bound in (False, True):
+                if case == 'quadratic' and not scaled and bound:
+                    continue            # the default bound, above
+                for cov in ('diag', 'full'):
+                    cases.append(pytest.param(
+                        cov, case, scaled, bound, id='-'.join((
+                            case, 'scaled' if scaled else 'unscaled',
+                            'bound' if bound else 'nobound', cov))))
+    return cases
+
+
+@pytest.mark.parametrize('cov, case, scaled, bound', _spec_cases())
+def test_kernel_spec_plain_density_matches_jax(cov, case, scaled, bound):
     """The plain twin of the compiled-in density, at original-space points
     behind the fused transform, against the JAX pipeline's logp_and_grad:
-    a diagonal likelihood, or a full one through the precision matvec."""
-    den_j, den_t, _ = _fitted_pair(cov)
+    a diagonal likelihood, or a full one through the precision matvec; the
+    spec counts the surrogate's features and carries its bound flag, and
+    the bound, where it was fitted (u = (x - lo) / diff), has test points
+    inside and beyond it."""
+    den_j, den_t, _ = _fitted_pair(cov, case=case, scaled=scaled,
+                                   bound=bound)
     assert den_t.has_kernel_spec
+    spec = den_t.kernel_spec()
+    su = den_j.surrogate_list[0]
+    assert spec['scalars'][3] == sum(c.n_features for c in su.configs)
+    assert bool(spec['scalars'][5]) == (bound is not False)
     xt = _test_points(den_j)
     lp_j, g_j = den_j.logp_and_grad(xt, original_space=False)
-    lp_p, g_p = spec_logp_and_grad(den_t.kernel_spec(), torch.as_tensor(xt))
+    lp_p, g_p = spec_logp_and_grad(spec, torch.as_tensor(xt))
     np.testing.assert_allclose(lp_p.numpy(), lp_j, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(g_p.numpy(), g_j, rtol=1e-10, atol=1e-10)
+    if bound is not False:
+        u = np.asarray(den_j.to_original(xt))
+        if scaled:
+            u = (u - SCALES[:, 0]) / (SCALES[:, 1] - SCALES[:, 0])
+        beta = np.sqrt(np.einsum('ij,jk,ik->i', u - su._mu, su._hess,
+                                 u - su._mu))
+        assert (beta <= su._alpha).any() and (beta > su._alpha).any()
 
 
-@pytest.mark.parametrize('cov', ['diag', 'full'])
-def test_kernel_spec_dense_density_matches_jax(cov):
+@pytest.mark.parametrize('cov, case, scaled, bound', _spec_cases())
+def test_kernel_spec_dense_density_matches_jax(cov, case, scaled, bound):
     """The same density in dense torch calls (``ordered=False``, what the
     samplers without a kernel evaluate) against the JAX pipeline."""
-    den_j, den_t, _ = _fitted_pair(cov)
+    den_j, den_t, _ = _fitted_pair(cov, case=case, scaled=scaled,
+                                   bound=bound)
     xt = _test_points(den_j)
     lp_j, g_j = den_j.logp_and_grad(xt, original_space=False)
     lp_d, g_d = spec_logp_and_grad(den_t.kernel_spec(), torch.as_tensor(xt),
@@ -199,9 +278,14 @@ def _chunk_inputs(den_j):
     return q0, var, eps
 
 
-@pytest.mark.parametrize('cov', ['diag', 'full'])
-def test_frozen_chunk_matches_pallas(cov, momenta):
-    den_j, den_t, _ = _fitted_pair(cov)
+@pytest.mark.parametrize('cov, case, scaled', [
+    pytest.param('diag', 'quadratic', False, id='diag'),
+    pytest.param('full', 'quadratic', False, id='full'),
+    pytest.param('diag', 'mix', True, id='mix-scaled')])
+def test_frozen_chunk_matches_pallas(cov, case, scaled, momenta):
+    """The quadratic surrogate under each covariance, and the mix of every
+    order with the surrogate's input scales."""
+    den_j, den_t, _ = _fitted_pair(cov, case=case, scaled=scaled)
     q0, var, eps = _chunk_inputs(den_j)
     params = den_j.current_params()
     run = jnpl.make_nuts_pallas_multi(
@@ -221,9 +305,18 @@ def test_frozen_chunk_matches_pallas(cov, momenta):
 
 
 def test_warmup_chunk_matches_pallas(monkeypatch):
+    _warmup_vs_pallas(monkeypatch)
+
+
+def test_warmup_chunk_matches_pallas_cubic(monkeypatch):
+    """The mix of every order with the surrogate's input scales."""
+    _warmup_vs_pallas(monkeypatch, case='mix', scaled=True)
+
+
+def _warmup_vs_pallas(monkeypatch, **pair):
     from test_torch_nuts_kernel import use_rounded_momenta
     tol = use_rounded_momenta(monkeypatch)
-    den_j, den_t, _ = _fitted_pair()
+    den_j, den_t, _ = _fitted_pair(**pair)
     q0, var, eps = _chunk_inputs(den_j)
     eps[0] /= 30.0
     rng = np.random.default_rng(5)

@@ -3,12 +3,15 @@
 
 A launch with the Recipe's surrogate density stages the first ``rows``
 features of the coefficients WT in a block's shared memory, beside the
-density's own buffers and, when they still fit, the checkpoint stacks. The
-plan is computed on the host and passed to ``csrc/nuts.cu`` in the launch's
-double arguments, so these CPU tests hold it: at the DES-like Recipe's shape
-(27 parameters, 457 outputs, 73 features) float32 stages all of WT and the
-stacks, float64 a part of WT, and no plan ever asks for more than a block
-may have (232,448 bytes on sm_90).
+density's own buffers (the integer tables hold three indices a feature and
+three a sparse-row entry) and, when they still fit, the checkpoint stacks.
+The plan is computed on the host and passed to ``csrc/nuts.cu`` in the
+launch's double arguments, so these CPU tests hold it: at the DES-like
+Recipe's shape (27 parameters, 457 outputs, 73 features) float32 stages all
+of WT and the stacks, float64 a part of WT; with the cubic surrogate (238
+features) both stage a part; and no plan ever asks for more than a block
+may have (232,448 bytes on sm_90). The spec's cache key follows the
+surrogate's own input scales.
 """
 
 import numpy as np
@@ -31,14 +34,19 @@ def _on_cpu():
     tconfig.set_device(old)
 
 
-def _des_scalars(M=DES_M, full=False):
+def _des_scalars(M=DES_M, full=False, cubic=False):
     """The launch scalars of a DES-shaped PolyGaussian spec (random
-    coefficients, seeded)."""
+    coefficients, seeded); ``cubic`` adds the cubic-2 and cubic-3 configs
+    on the nine nonlinear parameters."""
     rng = np.random.default_rng(0)
-    nq = DES_NL.size * (DES_NL.size + 1) // 2
+    n = DES_NL.size
+    widths = {'quadratic': n * (n + 1) // 2, 'cubic-2': n * n,
+              'cubic-3': n * (n - 1) * (n - 2) // 6}
+    orders = ['quadratic'] + (['cubic-2', 'cubic-3'] if cubic else [])
     configs = [('linear', np.arange(DES_D), np.arange(M),
-                rng.normal(size=(M, DES_D + 1))),
-               ('quadratic', DES_NL, np.arange(M), rng.normal(size=(M, nq)))]
+                rng.normal(size=(M, DES_D + 1)))] + [
+        (o, DES_NL, np.arange(M), rng.normal(size=(M, widths[o])))
+        for o in orders]
     prec = np.eye(M) if full else None
     spec = poly_gaussian_spec(DES_D, configs, M, np.zeros(M),
                               None if full else np.ones(M), 0.0, prec=prec)
@@ -55,12 +63,14 @@ def test_des_float32_stages_all_of_wt_and_the_stacks():
     sc = _des_scalars()
     assert tuple(int(v) for v in sc[2:5]) == (457, 73, 117)
     plan = _plan(sc, 4)
-    # 8,152 elements of the density's own buffers and 8 warps x 256 of the
-    # back pass's scratch, 457 rows of 76 (73 features in whole 16-byte
+    # 7,744 elements of the density's own buffers, 64 of the scales, the
+    # integer tables' 600 (3 x 73 + 28 + 3 x 117 ints) and 8 warps x 256 of
+    # the back pass's scratch, 457 rows of 76 (73 features in whole 16-byte
     # vectors, an odd count of them), 8 warps x 9 frames x 111
     assert plan == dict(rows=73, row_stride=76, stacks_smem=True,
-                        bytes=(8152 + 8 * 256 + 457 * 76 + 8 * 9 * 111) * 4)
-    assert plan['bytes'] == 211696 <= LIMIT
+                        bytes=(7744 + 64 + 600 + 8 * 256 + 457 * 76
+                               + 8 * 9 * 111) * 4)
+    assert plan['bytes'] == 212720 <= LIMIT
     # the launch spec's own plan is the same
     dens_id = DENSITY_IDS['poly_gaussian']
     assert nc._spec_plan(dens_id, sc, DES_D, 10, 4) == plan
@@ -68,15 +78,15 @@ def test_des_float32_stages_all_of_wt_and_the_stacks():
 
 def test_des_float64_stages_part_of_wt():
     sc = _des_scalars()
-    # the coefficients get the room: 38 of 73 features beside 79 KB of the
+    # the coefficients get the room: 38 of 73 features beside 80 KB of the
     # density's own buffers and scratch; the 64 KB of stacks, which would
     # leave room for 22, stay in global scratch
     plan = _plan(sc, 8)
     assert plan == dict(rows=38, row_stride=38, stacks_smem=False,
-                        bytes=(9868 + 457 * 38) * 8)
+                        bytes=(10028 + 457 * 38) * 8)
     assert plan['bytes'] <= LIMIT
-    assert (9868 + 457 * 38 + 7992) * 8 > LIMIT
-    assert (9868 + 457 * 22 + 7992) * 8 <= LIMIT
+    assert (10028 + 457 * 38 + 7992) * 8 > LIMIT
+    assert (10028 + 457 * 22 + 7992) * 8 <= LIMIT
 
 
 def test_float32_at_m_2000_stages_part_of_wt():
@@ -145,7 +155,7 @@ def test_fargs_carry_the_plan():
     # rows staged, bytes and stacks in shared memory, which the launch holds
     # against the kernel's own layout
     assert fargs[8:16] == [float(v) for v in sc[2:]]
-    assert fargs[16:] == [73.0, 211696.0, 1.0]
+    assert fargs[16:] == [73.0, 212720.0, 1.0]
     # a banana spec has no plan, and its extra slots stay zero
     dens_id = DENSITY_IDS['banana']
     assert nc._spec_plan(dens_id, (0.01, 3.0), 32, 10, 4) is None
@@ -162,3 +172,78 @@ def test_coef_stride_puts_rows_on_distinct_bank_groups():
             slots = {(j * rs * itemsize // 16) % 8 for j in range(8)}
             assert len(slots) == 8, (itemsize, rows, rs)
     assert nc._coef_stride(0, 4) == 0
+
+
+@pytest.mark.parametrize('itemsize', [4, 8])
+def test_des_cubic_stages_part_of_wt(itemsize):
+    """The cubic DES-like surrogate (linear on 27, quadratic, cubic-2 and
+    cubic-3 on 9: 28 + 45 + 81 + 84 features): WT is 435 KB in float32 and
+    870 KB in float64, more than a block in either, so both stage a part
+    and read the rest from device memory; the integer tables count three
+    indices a feature and three a sparse-row entry."""
+    sc = _des_scalars(cubic=True)
+    M, F, NNZ = (int(v) for v in sc[2:5])
+    # sparse-row entries: 27 linear, 2 x 45 quadratic, 3 x (81 + 84) cubic
+    assert (M, F, NNZ) == (457, 238, 27 + 90 + 495)
+    plan = _plan(sc, itemsize)
+    n = 16 // itemsize
+    ints = -(-(3 * F + DES_D + 1 + 3 * NNZ) * 4 // itemsize)
+    ints = -(-ints // 4) * 4
+    own = (2 * 32 * (32 + n) + 64 + 8 * (32 + 36 + 2 * 240 + 256 + 460)
+           + ints)
+    assert 0 < plan['rows'] < F and plan['rows'] % n == 0
+    assert not plan['stacks_smem']
+    assert plan['bytes'] == (own + M * plan['row_stride']) * itemsize
+    assert plan['bytes'] <= LIMIT
+    # the next whole vector of features would not fit
+    more = nc._poly_layout(DES_D, M, F, NNZ, False, 10, itemsize,
+                           plan['rows'] + n)
+    assert more['bytes'] > LIMIT
+    assert plan['rows'] == {4: 92, 8: 30}[itemsize]
+
+
+def test_kernel_spec_key_follows_the_surrogate_scales():
+    """A new set of the surrogate's input scales, and nothing else, gives a
+    new key and a new spec (its lo and diff in the packed vector)."""
+    import torch
+    from bayesfast_tpu_torch import Density, Module
+    from bayesfast_tpu_torch.modules import Gaussian, PolyConfig, PolyModel
+    from bayesfast_tpu_torch.samplers.nuts_cuda import _spec_for
+    D, M = 3, 4
+    rng = np.random.default_rng(2)
+    su = PolyModel([PolyConfig('linear'), PolyConfig('cubic-3')],
+                   input_size=D, output_size=M, input_vars='x',
+                   output_vars='m',
+                   input_scales=np.stack([-np.ones(D), np.ones(D)]).T)
+    for c in su.configs:
+        c._a = rng.normal(size=(M, c.n_features))
+    like = Gaussian(mean=np.zeros(M), cov=np.ones(M), input_vars='m',
+                    output_vars='logp')
+    # the surrogate takes the place of the first module, the model
+    model = Module(fun=lambda x: x[..., :1].expand(-1, M), input_vars='x',
+                   output_vars='m')
+    den = Density(density_name='logp', module_list=[model, like],
+                  surrogate_list=[su], input_vars='x', input_shapes=[D],
+                  use_surrogate=True)
+    assert den.has_kernel_spec
+    like_t = torch.zeros(2, D, dtype=torch.float64)
+    key_1, packed_1 = den.kernel_spec_key(), _spec_for(den, like_t)[2]
+    su.input_scales = np.stack([-2 * np.ones(D), np.ones(D)]).T
+    key_2, packed_2 = den.kernel_spec_key(), _spec_for(den, like_t)[2]
+    assert key_1 != key_2 and not torch.equal(packed_1, packed_2)
+    spec = den.kernel_spec()
+    np.testing.assert_array_equal(spec['arrays']['slo'].numpy(),
+                                  -2 * np.ones(D))
+    np.testing.assert_array_equal(spec['arrays']['sdiff'].numpy(),
+                                  3 * np.ones(D))
+    su.input_scales = None
+    assert den.kernel_spec_key() not in (key_1, key_2)
+    np.testing.assert_array_equal(den.kernel_spec()['arrays']['sdiff'],
+                                  np.ones(D))
+
+
+def test_no_spec_beyond_64_dimensions():
+    with pytest.raises(NotImplementedError, match='D <= 64'):
+        poly_gaussian_spec(65, [('linear', np.arange(65), np.arange(2),
+                                 np.zeros((2, 66)))], 2, np.zeros(2),
+                           np.ones(2), 0.0)
