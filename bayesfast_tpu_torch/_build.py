@@ -116,7 +116,7 @@ def _bind(name, lib):
             c_int, c_int, c_int, c_int,       # C, D, K, max_treedepth
             c_uint, c_uint, c_uint,           # seed, i0, chain_start
             c_int, c_int,                     # adapt_step, adapt_metric
-            ctypes.POINTER(ctypes.c_double),  # fargs (8 + 11)
+            ctypes.POINTER(ctypes.c_double),  # fargs (8 + 14)
             ctypes.POINTER(vp), c_int,        # pointer table, its length
             vp]                               # cudaStream_t
         lib.nuts_block_launch.restype = c_int
@@ -124,7 +124,7 @@ def _bind(name, lib):
             c_int, c_int,                     # f64, density id
             c_int, c_int, c_int,              # C, D, max_treedepth
             c_uint, c_uint,                   # seed, chain_start
-            ctypes.POINTER(ctypes.c_double),  # fargs (8 + 11)
+            ctypes.POINTER(ctypes.c_double),  # fargs (8 + 14)
             ctypes.POINTER(vp), c_int,        # pointer table, its length
             vp]                               # cudaStream_t
         lib.nuts_error_string.restype = ctypes.c_char_p

@@ -188,6 +188,44 @@ struct Vec16<double> {
   }
 };
 
+// ---- block-wide steps of the streamed PolyGaussian path ----------------
+// 16-byte copy from device memory to shared memory that does not wait for
+// its data (cp.async, through L2 only); a thread's copies are done, and
+// visible to it, after cp_async_wait_all, and to the block after a barrier
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Barriers of all the block's threads that need not be the same
+// instruction in every warp (no .aligned): a warp meets its block's
+// others at them from a leapfrog, from the transition's first evaluation
+// or from an idle pass. bar_count returns how many threads passed `pred`.
+constexpr int kBarTile = 1, kBarTick = 2;
+template <int ID>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("barrier.sync %0;\n" ::"n"(ID) : "memory");
+}
+template <int ID>
+__device__ __forceinline__ int bar_count(bool pred) {
+  int n;
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %1, 0;\n"
+      " barrier.red.popc.u32 %0, %2, p;\n}\n"
+      : "=r"(n)
+      : "r"((unsigned)pred), "n"(ID)
+      : "memory");
+  return n;
+}
+
 // Row stride of a staged P x P matrix: 16 bytes of padding put the rows
 // that one 16-byte load phase reads (8 lanes) on distinct banks.
 template <typename T, int NE>
@@ -543,38 +581,50 @@ struct Cauchy {
 // passes over WT, 2 F M sizeof(T) bytes (267 KB in f32 at the DES shape,
 // F = 73, M = 457), where the rest of a leapfrog is a few thousand
 // operations. So WT is staged in shared memory once per block: the first
-// R features (all of them when they fit: R comes from the launch's plan,
-// samplers/nuts_cuda.py::poly_smem_plan) transposed, output j's features
-// as row j (stride `coef_stride`), so that a lane reads four of its
-// output's features (two in f64) in one conflict-free 16-byte load,
-// forward and back; features past R come from device memory through the
-// read-only path. The arithmetic is that of the plain version
+// R features (R from the launch's plan, samplers/nuts_cuda.py::
+// poly_smem_plan) transposed, output j's features as row j (stride
+// `coef_stride`), so that a lane reads four of its output's features (two
+// in f64) in one conflict-free 16-byte load, forward and back. When all
+// of WT fits (R = F; the quadratic DES shape in f32) that is all: STREAM
+// false. When it does not (the cubic surrogate, F = 238:
+// 435 KB in f32, 870 KB in f64), STREAM: the features past R stream
+// through two shared-memory tiles of TW features (32 in f32, 16 in f64),
+// transposed like the staged rows, copied from L2 once per block and
+// leapfrog for the block's eight chains (`load_tile`), where each chain
+// used to read them itself; the tiles take their room from the staged
+// features, and the block's warps evaluate in lockstep ticks (see "the
+// streamed tiles" below). The arithmetic is that of the plain version
 // (ops/densities.py::_poly_gaussian_lpg): each output's forward sum over
-// the features in order (kOut outputs a pass, each its own accumulator),
-// each feature's back-pass partial over the lane's outputs in order, then
-// the halving tree of `warp_sum` (`reduce8`); so the draws are bit for
-// bit those of the butterflies over WT in device memory that the kernel
-// took before.
-// What bounds it on the card: the dependent latency of one warp's loads
-// and sums. Predicted from shared-memory bandwidth (128 bytes a clock an
-// SM: 8 warps x 267 KB a leapfrog, ~10 us while all eight run, ~3 us for
-// a slowest chain that runs on alone): 3-10 us a leapfrog on the slowest
-// chain, against 47-137 us with WT read from L2. Measured (H100 80GB
-// HBM3, 700 W; chip_smoke.py --ab): 19.2-19.3 us frozen, 16.5-16.6 us
-// warmup in f32 (about 65 us in f64, 38 of 73 features staged), about as
-// long alone as beside seven other warps, so the sums
-// wait on their loads and on each other, not on the bandwidth. Two
-// things made most of the gain: loads that wait on no branch (every loop
-// over outputs runs a warp-uniform count, an output past M reads row
-// M - 1 and is dropped), and the tree across lanes through shared memory
-// in place of 40 shuffles a group of eight features.
+// the features in order (the staged ones, then the tiles in order; kOut
+// outputs a pass, each its own accumulator, kept in the warp's gbuf
+// between tiles), each feature's back-pass partial over the lane's
+// outputs in order, then the halving tree of `warp_sum` (`reduce8`); so
+// the draws are bit for bit those of every earlier version.
+// What bounds it on the card: the dependent latency of one warp's loads and
+// sums, about 0.25 us a feature and leapfrog on the slowest chain, as long
+// alone as beside seven other warps. All staged (H100 80GB HBM3, 700 W;
+// chip_smoke.py --ab): 16.5-19.3 us a leapfrog in f32 at F = 73. Two things
+// made most of that: loads that wait on no branch (every loop over outputs
+// runs a warp-uniform count, an output past M reads row M - 1 and is dropped),
+// and the tree across lanes through shared memory in place of 40 shuffles a
+// group of eight features. At F = 238 with each chain reading the unstaged
+// features from L2 (tile 0 in chip_smoke.py [13b]): 97-103 us in f32, 176-196
+// us in f64, the latency of those reads. Streamed (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py [13b]): 56.1-56.6 us a leapfrog in f32 (K = 4 chunks
+// 14.22 / 17.74 ms, frozen / warmup), 137-139 us in f64 (34.72 / 43.82 ms); L2
+// bytes a leapfrog and block 4.27 -> 0.58 MB in f32, 12.2 -> 1.52 MB in f64.
+// The sums' latency bounds it again, near the ~60 us that 238 features take at
+// the staged rate. The swizzle is the lane's own (`swl`): computed per row,
+// its two integer divides made tiles of fewer than 8 vectors a row 2-3x
+// slower. Tiles of 8 / 16 / 32 features take 63.5 / 58.6-59.4 / 56.6 us in
+// f32, 166-169 / 137-138 us for 8 / 16 in f64: fewer tiles, fewer barriers.
 // Beside WT: the two D x D Hessians, staged for `matvec`, the input
 // scales, each warp's exchange buffers (x, xa, phi with zeros to whole
 // vectors, its gradient, the outputs' gradients; with a full precision
 // also r and m0 - f_mu) and the integer tables. P (M x M, 835 KB in f32
 // at M = 457) is read from device memory, one row of it for each k, as
 // each lane's outputs sum over k in order.
-template <typename T, int NE>
+template <typename T, int NE, bool STREAM>
 struct PolyGaussian {
   static constexpr int P = 32 * NE, S = row_stride<T, NE>();
   // outputs a forward pass (8 in f32 at D <= 32, 4 at D > 32; 1 in f64,
@@ -585,31 +635,49 @@ struct PolyGaussian {
   static constexpr int kOut = sizeof(T) == 4 ? 8 / NE : 1;
   static constexpr int kBack = 8;
   static constexpr int kBackUnroll = sizeof(T) == 4 ? 4 : 1;
+  static constexpr int kVec = Vec16<T>::n;
   const T* par;  // packed parameters, device memory (see `locate`)
   int D, M, F, NNZ;
   int R, RS;  // features staged in shared memory, their row stride
+  // STREAM: features a tile (TW, a multiple of kBack), tiles (NT) of the
+  // features R.. and 16-byte vectors a tile row (TW / kVec)
+  int TW, NT, NVT;
+  // The 16-byte vector of tile row j that holds features kVec v .. is v ^
+  // swz(j), swz(j) = j mod 8 for NVT >= 8, else (j / (8 / NVT)) mod NVT
+  // (NVT a power of two or a multiple of 8): the 8 rows of one 16-byte
+  // load phase then read distinct 16-byte bank groups. A pass reads rows
+  // lane + 32 t, whose swz is the lane's own: `swl`, set once (a row
+  // clamped to M - 1 reads another of its vectors, and is dropped).
+  int swl;
   bool bound_on, decay_on, full;
   T nrm, gamma, alpha, alpha2;
   const T *WT, *dat, *vinv, *fmu, *mup, *Hp, *mud, *Hd, *slo, *sdf, *Pm,
-      *ints;
+      *ints, *tiles;
   T mp[NE], md[NE];  // this lane's bound and decay centres
   mutable T dec;     // the decay penalty of the last evaluation
 
   __host__ __device__ static int up4(int n) { return (n + 3) & ~3; }
   __host__ __device__ int n_ints() const { return 3 * F + D + 1 + 3 * NNZ; }
+  // phi's length: the streamed tiles read features up to R + NT TW
+  __host__ __device__ int n_phi() const {
+    return up4(STREAM ? R + NT * TW : F);
+  }
   __host__ __device__ int warp_elems() const {
-    return P + up4(P + 1) + 2 * up4(F) + 32 * kBack + (full ? 3 : 1) * up4(M);
+    return P + up4(P + 1) + n_phi() + up4(F) + 32 * kBack +
+           (full ? 3 : 1) * up4(M);
   }
   __host__ __device__ int int_elems() const {
     return up4((n_ints() * 4 + (int)sizeof(T) - 1) / (int)sizeof(T));
   }
   // layout: Hp, Hd, the scales (lo, then diff; 0 and 1 past D), the
-  // warps' buffers, the integer tables, staged WT
+  // warps' buffers, the integer tables, staged WT, and when STREAM the two
+  // tile buffers (M rows of TW each)
   __host__ __device__ int coef_offset() const {
     return 2 * P * S + 2 * P + kWarps * warp_elems() + int_elems();
   }
+  __host__ __device__ int tile_elems() const { return STREAM ? M * TW : 0; }
   __host__ __device__ size_t smem_elems() const {
-    return coef_offset() + (size_t)M * RS;
+    return coef_offset() + (size_t)M * RS + 2 * (size_t)tile_elems();
   }
 
   // this warp's part of the block's shared memory (the layout above),
@@ -618,7 +686,7 @@ struct PolyGaussian {
   // buffer can alias the functor's own fields
   struct Bufs {
     const T *Hp, *Hd, *lo, *dv, *W;
-    T *x, *xa, *phi, *gphi, *red, *g, *r, *m;
+    T *x, *xa, *phi, *gphi, *red, *g, *r, *m, *tb;
     const int *i1, *i2, *i3, *rp, *cf, *c1, *c2;
   };
   __device__ __forceinline__ Bufs bufs() const {
@@ -632,7 +700,7 @@ struct PolyGaussian {
     b.x = sm + 2 * P * S + 2 * P + (threadIdx.x >> 5) * warp_elems();
     b.xa = b.x + P;
     b.phi = b.xa + up4(P + 1);
-    b.gphi = b.phi + up4(F);
+    b.gphi = b.phi + n_phi();
     b.red = b.gphi + up4(F);
     b.g = b.red + 32 * kBack;
     b.r = b.g + up4(M);
@@ -645,6 +713,7 @@ struct PolyGaussian {
     b.c1 = b.cf + NNZ;
     b.c2 = b.c1 + NNZ;
     b.W = sm + coef_offset();
+    b.tb = sm + coef_offset() + (size_t)M * RS;
     return b;
   }
 
@@ -664,6 +733,9 @@ struct PolyGaussian {
     sdf = slo + D;
     Pm = sdf + D;
     ints = Pm + (full ? (size_t)M * M : 0);
+    // the tiles (samplers/nuts_cuda.py::_stream_tiles) start at the next
+    // multiple of 32 elements after the integer tables
+    tiles = par + (((size_t)(ints - par) + n_ints() + 31) / 32 * 32);
   }
 
   __device__ void stage(T* smem) const {
@@ -688,18 +760,69 @@ struct PolyGaussian {
       const int f = i / M, j = i - f * M;
       sw[j * RS + f] = f < R ? WT[(size_t)f * M + j] : T(0);
     }
+    if constexpr (STREAM) {
+      // tiles 0 and 1 in buffers 0 and 1, where every evaluation finds them
+      T* tb = sw + (size_t)M * RS;
+      const int n = (NT > 1 ? 2 : 1) * tile_elems();
+      for (int i = threadIdx.x; i < n; i += blockDim.x) tb[i] = tiles[i];
+    }
   }
 
   __device__ void bind(T*) {
     const int lane = threadIdx.x & 31;
-    // phi past F: zeros, which meet the staged padding's zeros
+    // phi past F: zeros, which meet the staged padding's and the last
+    // tile's zeros
     T* const phi = bufs().phi;
-    for (int f = F + lane; f < up4(F); f += 32) phi[f] = T(0);
+    for (int f = F + lane; f < n_phi(); f += 32) phi[f] = T(0);
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const int d = lane + 32 * e;
       mp[e] = d < D ? mup[d] : T(0);
       md[e] = d < D ? mud[d] : T(0);
+    }
+    if (STREAM) swl = NVT >= 8 ? (lane & 7) : (lane / (8 / NVT)) & (NVT - 1);
+  }
+
+  // ---- the streamed tiles (STREAM) ----
+  // Tile t holds features R + t TW .. of every output, transposed like the
+  // staged rows (output j's TW features as row j), and lives in buffer
+  // t & 1. An evaluation is one tick of the block: a forward pass over
+  // the tiles up (0 .. NT - 1), then a back pass down (NT - 1 .. 0), so
+  // that a pass starts on the two tiles that the last one ended on; every
+  // step after a pass's first waits for its tile and starts the copy of
+  // the next one into the buffer that the step before read. Every warp of
+  // the block takes the same barriers in the same order, those with no
+  // leapfrog due in an idle tick (`drain`).
+
+  // every thread's part of tile t's copy into buffer t & 1
+  __device__ __forceinline__ void load_tile(int t) const {
+    T* const dst = bufs().tb + (t & 1) * tile_elems();
+    const T* const src = tiles + (size_t)t * tile_elems();
+    for (int i = threadIdx.x * kVec; i < tile_elems(); i += kWarps * 32 * kVec)
+      cp_async16(dst + i, src + i);
+    cp_async_commit();
+  }
+  // a step of a pass after its first: this thread's copies are done, then
+  // the block's (the step's tile has arrived, and every warp is done with
+  // the buffer that tile `next` takes); next's copy starts (none out of
+  // range)
+  __device__ __forceinline__ void tile_step(int next) const {
+    cp_async_wait_all();
+    bar_sync<kBarTile>();
+    if (next >= 0 && next < NT) load_tile(next);
+  }
+  // the start of a tick; true while a warp of the block has work
+  __device__ __forceinline__ bool tick(bool work) const {
+    return bar_count<kBarTick>(work) != 0;
+  }
+  // idle ticks, until no warp of the block has work: every warp calls it
+  // once after its last evaluation
+  __device__ void drain() const {
+    if constexpr (STREAM) {
+      while (tick(false)) {
+        for (int k = 1; k < NT; ++k) tile_step(k + 1);
+        for (int k = 1; k < NT; ++k) tile_step(NT - 2 - k);
+      }
     }
   }
 
@@ -792,15 +915,9 @@ struct PolyGaussian {
     using VT = typename V::type;
     const int Rp = (R + V::n - 1) / V::n * V::n;
     T part = T(0), sb = T(0);
-    for (int p0 = 0; p0 < M; p0 += 32 * kOut) {
-      const int j0 = p0 + lane;
-      int jc[kOut];
-      T acc[kOut];
-#pragma unroll
-      for (int u = 0; u < kOut; ++u) {
-        jc[u] = min(j0 + 32 * u, M - 1);
-        acc[u] = T(0);
-      }
+    // the staged features' sums (STREAM: kept in gbuf, then the tiles'
+    // added in order)
+    auto staged = [&](const int (&jc)[kOut], T (&acc)[kOut]) {
 #pragma unroll 2
       for (int f0 = 0; f0 < Rp; f0 += V::n) {
         const VT pv = *reinterpret_cast<const VT*>(phi + f0);
@@ -812,11 +929,71 @@ struct PolyGaussian {
             acc[u] += V::at(wv, i) * V::at(pv, i);
         }
       }
-      for (int f = R; f < F; ++f) {
-        const T ph = phi[f];
-        const T* w = WT + (size_t)f * M;
+    };
+    if constexpr (STREAM) {
+      for (int p0 = 0; p0 < M; p0 += 32 * kOut) {
+        const int j0 = p0 + lane;
+        int jc[kOut];
+        T acc[kOut];
 #pragma unroll
-        for (int u = 0; u < kOut; ++u) acc[u] += __ldg(w + jc[u]) * ph;
+        for (int u = 0; u < kOut; ++u) {
+          jc[u] = min(j0 + 32 * u, M - 1);
+          acc[u] = T(0);
+        }
+        staged(jc, acc);
+#pragma unroll
+        for (int u = 0; u < kOut; ++u)
+          if (j0 + 32 * u < M) gbuf[j0 + 32 * u] = acc[u];
+      }
+      tick(true);
+      for (int k = 0; k < NT; ++k) {
+        if (k) tile_step(k + 1);
+        const T* const tw = b.tb + (k & 1) * tile_elems();
+        const T* const ph = phi + R + k * TW;
+        for (int p0 = 0; p0 < M; p0 += 32 * kOut) {
+          const int j0 = p0 + lane;
+          int jc[kOut];
+          T acc[kOut];
+#pragma unroll
+          for (int u = 0; u < kOut; ++u) {
+            jc[u] = min(j0 + 32 * u, M - 1);
+            acc[u] = gbuf[jc[u]];
+          }
+#pragma unroll 2
+          for (int v = 0; v < NVT; ++v) {
+            const VT pv = *reinterpret_cast<const VT*>(ph + v * V::n);
+#pragma unroll
+            for (int u = 0; u < kOut; ++u) {
+              const VT wv = *reinterpret_cast<const VT*>(
+                  tw + jc[u] * TW + (v ^ swl) * V::n);
+#pragma unroll
+              for (int i = 0; i < V::n; ++i)
+                acc[u] += V::at(wv, i) * V::at(pv, i);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kOut; ++u)
+            if (j0 + 32 * u < M) gbuf[j0 + 32 * u] = acc[u];
+        }
+      }
+    }
+    for (int p0 = 0; p0 < M; p0 += 32 * kOut) {
+      const int j0 = p0 + lane;
+      int jc[kOut];
+      T acc[kOut];
+#pragma unroll
+      for (int u = 0; u < kOut; ++u) {
+        jc[u] = min(j0 + 32 * u, M - 1);
+        acc[u] = STREAM ? gbuf[jc[u]] : T(0);
+      }
+      if constexpr (!STREAM) {
+        staged(jc, acc);
+        for (int f = R; f < F; ++f) {
+          const T ph = phi[f];
+          const T* w = WT + (size_t)f * M;
+#pragma unroll
+          for (int u = 0; u < kOut; ++u) acc[u] += __ldg(w + jc[u]) * ph;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kOut; ++u) {
@@ -878,6 +1055,36 @@ struct PolyGaussian {
     // one again, and its sums are dropped.
     constexpr int NV = kBack / V::n;
     const int nj = (M + 31) / 32;
+    if constexpr (STREAM) {
+      // the tiles first, down from the last (each feature's sum is its
+      // own: their order changes no bit)
+      for (int k = 0; k < NT; ++k) {
+        const int t = NT - 1 - k;
+        if (k) tile_step(t - 1);
+        const T* const tw = b.tb + (t & 1) * tile_elems();
+        for (int g0 = 0; g0 < TW; g0 += kBack) {
+          T s[kBack];
+#pragma unroll
+          for (int i = 0; i < kBack; ++i) s[i] = T(0);
+          const int v0 = g0 / V::n;
+#pragma unroll (kBackUnroll)
+          for (int tt = 0; tt < nj; ++tt) {
+            const int j = lane + 32 * tt, jr = min(j, M - 1);
+            const T gj = j < M ? gbuf[jr] : T(0);
+            const T* w = tw + jr * TW;
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              const VT wv = *reinterpret_cast<const VT*>(
+                  w + ((v0 + v) ^ swl) * V::n);
+#pragma unroll
+              for (int i = 0; i < V::n; ++i)
+                s[v * V::n + i] += V::at(wv, i) * gj;
+            }
+          }
+          reduce8(s, red, gphi, R + t * TW + g0, F);
+        }
+      }
+    }
     for (int f0 = 0; f0 < Rp; f0 += kBack) {
       T s[kBack];
       int col[NV];
@@ -900,7 +1107,7 @@ struct PolyGaussian {
       }
       reduce8(s, red, gphi, f0, R);
     }
-    for (int f0 = R; f0 < F; f0 += kBack) {
+    for (int f0 = R; !STREAM && f0 < F; f0 += kBack) {
       T s[kBack];
 #pragma unroll
       for (int i = 0; i < kBack; ++i) s[i] = T(0);
@@ -1434,13 +1641,28 @@ __device__ __forceinline__ T* stage_block(const Args<T>& a, Dens& dens,
   return a.stack + (size_t)c * frames;
 }
 
+// A density whose evaluations meet the block's other warps at barriers
+// (PolyGaussian's streamed path) keeps a warp in idle ticks after its last
+// evaluation until every warp of the block is done (`drain`); for the
+// others this is nothing.
+template <class Dens>
+__device__ __forceinline__ auto drain(const Dens& d, int)
+    -> decltype(d.drain()) {
+  d.drain();
+}
+template <class Dens>
+__device__ __forceinline__ void drain(const Dens&, long) {}
+
 template <typename T, int NE, class Dens, bool WARM>
 __global__ void __launch_bounds__(kWarps * 32, 1)
     nuts_chunk_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   T* stk = stage_block(a, dens, c);
-  if (c >= a.C) return;  // the whole warp leaves together
+  if (c >= a.C) {  // the whole warp leaves together
+    drain(dens, 0);
+    return;
+  }
   const int D = a.D, C = a.C;
   const uint32_t chain = a.chain_start + (uint32_t)c;
 
@@ -1571,6 +1793,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     a.fgw_f[c] = fgw;
     a.bgw_f[c] = bgw;
   }
+  drain(dens, 0);
 }
 
 // One NUTS transition for this warp's chain under the bare seed (the port of
@@ -1589,7 +1812,10 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
   T* stk = stage_block(a, dens, c);
-  if (c >= a.C) return;  // the whole warp leaves together
+  if (c >= a.C) {  // the whole warp leaves together
+    drain(dens, 0);
+    return;
+  }
   const int D = a.D;
   const uint32_t chain = a.chain_start + (uint32_t)c;
 
@@ -1622,6 +1848,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     a.mde[c] = r.mde;
     a.div[c] = r.div;
   }
+  drain(dens, 0);
 }
 
 enum Kind { kFrozen = 0, kWarmup = 1, kBlock = 2 };
@@ -1734,6 +1961,46 @@ cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s,
   return cudaGetLastError();
 }
 
+// f[8..15]: M, F, NNZ, bound on, decay on, alpha, alpha^2, full
+// precision; f[16..21]: the plan's features staged, bytes, stacks in
+// shared memory, path (1: streamed tiles), features a tile and a tile's
+// bytes (0 and 0 on the other path)
+template <typename T, int NE, int KIND, bool STREAM>
+cudaError_t launch_poly(const Args<T>& a, const double* f, cudaStream_t s) {
+  PolyGaussian<T, NE, STREAM> p = {};
+  p.par = a.dpar;
+  p.D = a.D;
+  p.nrm = a.d0;
+  p.gamma = a.d1;
+  p.M = (int)f[8];
+  p.F = (int)f[9];
+  p.NNZ = (int)f[10];
+  p.bound_on = f[11] != 0.0;
+  p.decay_on = f[12] != 0.0;
+  p.alpha = T(f[13]);
+  p.alpha2 = T(f[14]);
+  p.full = f[15] != 0.0;
+  p.R = (int)f[16];
+  if (p.M < 1 || p.F < 1 || p.R < 0 || p.R > p.F)
+    return cudaErrorInvalidValue;
+  p.RS = coef_stride<T>(p.R);
+  p.TW = (int)f[20];
+  p.NVT = p.TW / Vec16<T>::n;
+  if (STREAM) {
+    // whole 16-byte vectors of staged features; whole back-pass groups a
+    // tile, in a power of two or a multiple of 8 vectors (`swl`)
+    const bool swizzled = (p.NVT & (p.NVT - 1)) == 0 || p.NVT % 8 == 0;
+    if (p.R >= p.F || p.R % Vec16<T>::n != 0 || p.TW < 8 || p.TW % 8 != 0 ||
+        !swizzled || f[21] != (double)p.M * p.TW * sizeof(T))
+      return cudaErrorInvalidValue;
+    p.NT = (p.F - p.R + p.TW - 1) / p.TW;
+  } else if (f[20] != 0.0 || f[21] != 0.0) {
+    return cudaErrorInvalidValue;
+  }
+  p.locate();
+  return launch_kernel<T, NE, KIND>(a, p, s, (long long)f[17], f[18] != 0.0);
+}
+
 template <typename T, int NE, int KIND>
 cudaError_t launch_t(const Args<T>& a, int dens, const double* f,
                      cudaStream_t s) {
@@ -1752,30 +2019,9 @@ cudaError_t launch_t(const Args<T>& a, int dens, const double* f,
     g.D = a.D;
     return launch_kernel<T, NE, KIND>(a, g, s);
   }
-  if (dens == 2) {  // f[8..15]: M, F, NNZ, bound on, decay on, alpha,
-                    // alpha^2, full precision; f[16..18]: the plan's
-                    // features staged, bytes, stacks in shared memory
-    PolyGaussian<T, NE> p = {};
-    p.par = a.dpar;
-    p.D = a.D;
-    p.nrm = a.d0;
-    p.gamma = a.d1;
-    p.M = (int)f[8];
-    p.F = (int)f[9];
-    p.NNZ = (int)f[10];
-    p.bound_on = f[11] != 0.0;
-    p.decay_on = f[12] != 0.0;
-    p.alpha = T(f[13]);
-    p.alpha2 = T(f[14]);
-    p.full = f[15] != 0.0;
-    p.R = (int)f[16];
-    if (p.M < 1 || p.F < 1 || p.R < 0 || p.R > p.F)
-      return cudaErrorInvalidValue;
-    p.RS = coef_stride<T>(p.R);
-    p.locate();
-    return launch_kernel<T, NE, KIND>(a, p, s, (long long)f[17],
-                                      f[18] != 0.0);
-  }
+  if (dens == 2)
+    return f[19] != 0.0 ? launch_poly<T, NE, KIND, true>(a, f, s)
+                        : launch_poly<T, NE, KIND, false>(a, f, s);
   if (dens == 3) {
     Funnel<T, NE> fn = {};
     fn.par = a.dpar;

@@ -459,6 +459,24 @@ def _spec_arrays(spec, x):
     return cache[key]
 
 
+def _feature_sums(WT, phi):
+    """``m0_j = sum_f WT[f, j] phi_f`` (WT (F, M), phi (C, F)), each
+    output's sum over the features in order, as the kernels' forward pass
+    takes it (the staged features, then the streamed tiles)."""
+    m0 = torch.zeros((phi.shape[0], WT.shape[1]), dtype=phi.dtype,
+                     device=phi.device)
+    for f in range(WT.shape[0]):
+        m0 = m0 + WT[f] * phi[:, f:f + 1]
+    return m0
+
+
+def _feature_grads(WT, gm0):
+    """``d logp / d phi_f = sum_j WT[f, j] gm0_j`` (gm0 (C, M)), each
+    feature's sum over the outputs in the warp's order (``warp_sum``), as
+    the kernels' back pass takes it."""
+    return warp_sum(WT[None] * gm0[:, None, :])
+
+
 def _poly_gaussian_lpg(spec, x, ordered=True):
     """(logp, grad) of ``poly_gaussian_spec`` at original-space x (C, D),
     operation for operation as ``csrc/nuts.cu::PolyGaussian`` computes it:
@@ -497,12 +515,7 @@ def _poly_gaussian_lpg(spec, x, ordered=True):
     xa = torch.cat([x0, torch.ones_like(x0[:, :1])], dim=-1)
     i1, i2, i3 = ix['trip']
     phi = (xa[:, i1] * xa[:, i2]) * xa[:, i3]
-    if ordered:
-        m0 = torch.zeros((C, M), dtype=x.dtype, device=x.device)
-        for f in range(F):
-            m0 = m0 + a['WT'][f] * phi[:, f:f + 1]
-    else:
-        m0 = phi @ a['WT']
+    m0 = _feature_sums(a['WT'], phi) if ordered else phi @ a['WT']
     m = m0
     if bound_on:
         m = torch.where(outside[:, None],
@@ -524,7 +537,7 @@ def _poly_gaussian_lpg(spec, x, ordered=True):
     gm0 = gm
     if bound_on:
         gm0 = torch.where(outside[:, None], gm * bc / alpha, gm)
-    gphi = (warp_sum(a['WT'][None] * gm0[:, None, :]) if ordered
+    gphi = (_feature_grads(a['WT'], gm0) if ordered
             else gm0 @ a['WT'].T)
     gphi = torch.cat([gphi, torch.zeros_like(gphi[:, :1])], dim=-1)
     g = torch.zeros_like(x)

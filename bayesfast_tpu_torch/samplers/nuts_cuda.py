@@ -460,10 +460,12 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # The CUDA kernels
 
 _MAX_D = 64
-_N_EXTRA = 11  # density scalars past the first two, then the staging plan
+_N_EXTRA = 14  # density scalars past the first two, then the staging plan
 # a block's shared memory on sm_90 (csrc/nuts.cu kMaxSmem), and its warps
 # (chains)
 _MAX_SMEM, _WARPS = 232448, 8
+# features a streamed tile of WT, by itemsize (measured, PERF.md)
+_TILE = {4: 32, 8: 16}
 
 
 def _up(n, k):
@@ -479,53 +481,95 @@ def _coef_stride(rows, itemsize):
     return 0 if rows <= 0 else (v + 1 - v % 2) * n
 
 
-def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows):
+def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows,
+                 tile=0):
     """A block of a launch with the PolyGaussian density that stages the
     first ``rows`` features of the coefficients WT, as ``csrc/nuts.cu`` lays
     it out: the two staged D x D Hessians, the input scales, each warp's
     exchange buffers and the integer tables (three indices a feature, the
     row pointers, three a sparse-row entry); then those features,
     transposed (output j's features as row j, ``row_stride`` elements);
-    then every warp's checkpoint stack if it still fits in a block, else
-    the stacks stay in global scratch. Returns a dict (rows, row_stride,
-    stacks_smem, bytes)."""
+    with ``tile`` > 0 (the streamed path) two buffers of a tile, ``tile``
+    of the other features for every output, and phi long enough for the
+    last tile's padding; then every warp's checkpoint stack if it still
+    fits in a block, else the stacks stay in global scratch. Returns a
+    dict (rows, row_stride, stacks_smem, bytes), and on the streamed path
+    also stream (True), tile and tile_bytes (one buffer's)."""
     n = 16 // itemsize
     P = 32 * max(1, -(-int(D) // 32))
+    n_phi = rows + -(-(F - rows) // tile) * tile if tile else F
     # xbuf, xa, phi, gphi, the back pass's scratch (32 lanes x 8 features),
     # the outputs' gradients, with a full precision r and m0 - f_mu
-    warp = (P + _up(P + 1, 4) + 2 * _up(F, 4) + 32 * 8
+    warp = (P + _up(P + 1, 4) + _up(n_phi, 4) + _up(F, 4) + 32 * 8
             + (3 if full else 1) * _up(M, 4))
     ints = _up(-(-(3 * F + D + 1 + 3 * NNZ) * 4 // itemsize), 4)
     stride = _coef_stride(rows, itemsize)
     own = (2 * P * (P + n) + 2 * P + _WARPS * warp + ints
-           + M * stride) * itemsize
+           + M * stride + 2 * M * tile) * itemsize
     stacks = _WARPS * max(int(max_treedepth) - 1, 1) * (4 * D + 3) * itemsize
     stk = own + stacks <= _MAX_SMEM
-    return dict(rows=int(rows), row_stride=stride, stacks_smem=stk,
+    plan = dict(rows=int(rows), row_stride=stride, stacks_smem=stk,
                 bytes=own + stk * stacks)
+    if tile:
+        plan.update(stream=True, tile=int(tile),
+                    tile_bytes=int(M) * int(tile) * itemsize)
+    return plan
 
 
-def poly_smem_plan(D, M, F, NNZ, full, max_treedepth, itemsize):
+def poly_smem_plan(D, M, F, NNZ, full, max_treedepth, itemsize, tile=None):
     """The shared-memory plan of a launch with the PolyGaussian density
-    (``_poly_layout``): all of WT and the stacks when they fit; else the
-    coefficients get the room (faster than the stacks, PERF.md), as many
-    features as fit beside the density's own buffers, a whole number of
-    16-byte vectors. Returns a dict (rows, row_stride, stacks_smem, bytes);
-    ``ValueError`` when the density's own buffers do not fit."""
-    def layout(rows):
+    (``_poly_layout``): all of WT and the stacks when they fit. Else the
+    streamed path when two tiles of ``tile`` features (default
+    ``_TILE[itemsize]``; 0: never) fit beside the density's own buffers:
+    the tiles read each feature that is not staged once per block and
+    leapfrog for the block's eight chains; and as many features staged as
+    fit beside them, a whole number of 16-byte vectors. Else each chain
+    reads those features from device memory itself, with as many staged.
+    The coefficients get the room before the stacks (faster, PERF.md).
+    Returns a dict (``_poly_layout``); ``ValueError`` when the density's
+    own buffers do not fit."""
+    def layout(rows, tile=0):
         return _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize,
-                            rows)
+                            rows, tile)
 
     if layout(0)['bytes'] > _MAX_SMEM:
         raise ValueError(f'the PolyGaussian density takes '
                          f'{layout(0)["bytes"]} bytes of shared memory a '
                          f'block (M = {M}, full precision {bool(full)}), '
                          f'over {_MAX_SMEM}.')
+    if layout(F)['bytes'] <= _MAX_SMEM:
+        return layout(F)
     n = 16 // itemsize
-    rows = F if layout(F)['bytes'] <= _MAX_SMEM else (F - 1) // n * n
+    top = (F - 1) // n * n
+    tile = _TILE[itemsize] if tile is None else int(tile)
+    if tile:
+        for rows in range(top, -1, -n):
+            if layout(rows, tile)['bytes'] <= _MAX_SMEM:
+                return layout(rows, tile)
+    rows = top
     while rows > 0 and layout(rows)['bytes'] > _MAX_SMEM:
         rows -= n
     return layout(rows)
+
+
+def _stream_tiles(WT, rows, tile):
+    """The streamed path's tiles of the features ``rows``.. of WT (F, M),
+    flat, in ``csrc/nuts.cu``'s layout: tile t is features rows + t tile ..
+    (zeros past F) transposed, output j's as row j; row j's 16-byte vector
+    v (its features 16 / itemsize v ..) at vector v ^ swz(j), where swz(j)
+    is j mod 8 for 8 or more vectors a row and (j // (8 / nv)) mod nv for
+    nv = 2 or 4 (``PolyGaussian::swl``)."""
+    F, M = WT.shape
+    n = 16 // WT.element_size()
+    nt, nv = -(-(F - rows) // tile), tile // n
+    w = WT.new_zeros(nt * tile, M)
+    w[:F - rows] = WT[rows:]
+    w = w.view(nt, tile, M).transpose(1, 2).reshape(nt, M, nv, n)
+    j = torch.arange(M, device=WT.device)
+    swz = j % 8 if nv >= 8 else (j // (8 // nv)) % nv
+    logical = torch.arange(nv, device=WT.device)[None, :] ^ swz[:, None]
+    idx = logical[None, :, :, None].expand(nt, M, nv, n)
+    return torch.gather(w, 2, idx).reshape(-1)
 
 
 def _spec_plan(dens_id, dscal, D, max_treedepth, itemsize):
@@ -542,16 +586,20 @@ def _spec_plan(dens_id, dscal, D, max_treedepth, itemsize):
 
 def _fargs(max_change, logw, dscal, adapt, plan):
     """The launch's double arguments (``csrc/nuts.cu::make_args`` and
-    ``launch_t``): max_change, logw, the density's first two scalars,
+    ``launch_poly``): max_change, logw, the density's first two scalars,
     target, gamma, k, t_0, the density's other scalars from index 8, and
-    after them the plan's features staged, bytes and stacks in shared
-    memory (PolyGaussian only; the launch fails if the kernel lays the
-    block out otherwise)."""
+    after them the plan's features staged, bytes, stacks in shared memory,
+    path (1: the streamed tiles), features a tile and a tile's bytes (0 and
+    0 on the other path) (PolyGaussian only; the launch fails if the kernel
+    lays the block out otherwise)."""
     target, gamma, k_exp, t_0 = adapt[:4]
     extra = [float(v) for v in dscal[2:]]
     if plan is not None:
         extra += [float(plan['rows']), float(plan['bytes']),
-                  float(plan['stacks_smem'])]
+                  float(plan['stacks_smem']),
+                  float(plan.get('stream', False)),
+                  float(plan.get('tile', 0)),
+                  float(plan.get('tile_bytes', 0))]
     if len(extra) > _N_EXTRA:
         raise ValueError(f'at most {_N_EXTRA + 2} density scalars.')
     return [float(max_change), float(logw), float(dscal[0]), float(dscal[1]),
@@ -597,7 +645,9 @@ def _spec_entry(density, like):
     entry = entries.get((like.dtype, like.device))
     if entry is None or entry[0] != key:
         spec = density.kernel_spec()
-        entry = (key, objs, spec, _launch_spec(spec, like))
+        # the last slot keeps the streamed path's parameters
+        # (``_stream_params``)
+        entry = (key, objs, spec, _launch_spec(spec, like), {})
         entries[like.dtype, like.device] = entry
     return entry
 
@@ -620,6 +670,24 @@ def _spec_for(density, like):
         raise ValueError(f'the density has dimension {spec[1].shape[1]}, '
                          f'the chains {like.shape[1]}.')
     return spec
+
+
+def _stream_params(density, like, plan):
+    """The packed parameters of a launch on the streamed path: the launch
+    spec's, then zeros to a multiple of 32 elements, then the tiles
+    (``_stream_tiles``), where ``PolyGaussian::locate`` finds them. Kept
+    with the spec for the last plan asked for."""
+    entry = _spec_entry(density, like)
+    key = (plan['rows'], plan['tile'])
+    if key not in entry[4]:
+        dpar, dscal = entry[3][2], entry[3][4]
+        M, F = int(dscal[2]), int(dscal[3])
+        tiles = _stream_tiles(dpar[:F * M].view(F, M), plan['rows'],
+                              plan['tile'])
+        entry[4].clear()
+        entry[4][key] = torch.cat([dpar, dpar.new_zeros(
+            _up(dpar.numel(), 32) - dpar.numel()), tiles])
+    return entry[4][key]
 
 
 def _launch_spec(spec, like):
@@ -695,6 +763,8 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
     adapt = adapt or (0., 0., 0., 0., False, False)
     adapt_step, adapt_metric = adapt[4:]
     plan = _spec_plan(dens_id, dscal, D, max_treedepth, q0.element_size())
+    if plan is not None and plan.get('stream'):
+        ptrs[4] = _stream_params(density, q0, plan)
     fargs = (ctypes.c_double * (8 + _N_EXTRA))(
         *_fargs(max_change, logw, dscal, adapt, plan))
     parr = (ctypes.c_void_p * len(ptrs))(

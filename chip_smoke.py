@@ -59,8 +59,12 @@ card, drives the port's paths and checks what comes out:
   Then [13b]: the frozen chunk, warmup chunk and block kernels with a
   cubic surrogate refitted to a seeded cubic term, without and with the
   surrogate's own input_scales, against their plain versions in float64
-  and float32 (bitwise), each dtype's shared-memory plan, and the chunks
-  and a block launch timed.
+  and float32 (bitwise), each dtype's shared-memory plan (features
+  staged, the streamed tiles' width, the L2 bytes a leapfrog and block),
+  and the chunks and a block launch timed; then the chunks under the
+  streamed path's other tile widths and with each chain reading the
+  unstaged features itself (tile 0), timed and held bitwise to the
+  plan's.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
@@ -88,18 +92,19 @@ per checkout, in the order PARENT, this checkout, this checkout, PARENT,
 each in a process of its own that imports that checkout's package and
 builds its kernels, and prints every reading and the ratios of the two
 checkouts' means. Each process runs [3] and [8] (warmup and post-warmup
-it/s) and [10] (the Recipe's n_call, largest IS-weighted deviation and
-chunk-kernel device seconds) and, on the final states, draws and surrogate
-that the first process saved, so that every process times the same
-inputs, [5]'s chunks, [10b]'s PolyGaussian chunks (float32 and float64)
-and [8c]'s block launch with their slowest chains, [7]'s KDE kernel,
+it/s), [10] and [13] (each Recipe's n_call, largest IS-weighted deviation
+and chunk-kernel device seconds) and, on the final states, draws and
+surrogates that the first process saved, so that every process times the
+same inputs, [5]'s chunks, [10b]'s PolyGaussian chunks and [13b]'s cubic
+ones (float32 and float64) and [8c]'s block launch with their slowest
+chains, [7]'s KDE kernel,
 [8d]'s pooled transitions and busy share, and GBS on the per-chain draws
 under generator seeds 0 to N - 1 (default 5). Its readings go to
 ``--work`` (default ``bayesfast_tpu_torch/build/ab``), one JSON file a
 process. Last, the A/B says whether the banana draws of [3] and [8], the
-Recipe's n_call and deviation, and [10b]'s outputs are bitwise equal in
-all four processes, and exits 1 if one is not, or if this checkout's
-build spills ([2b]).
+Recipes' n_call and deviation, and [10b]'s and [13b]'s outputs are
+bitwise equal in all four processes, and exits 1 if one is not, or if
+this checkout's build spills ([2b]).
 """
 
 import argparse
@@ -1494,7 +1499,8 @@ def _cubic_kernels(torch, bt, rec):
     plain versions at C = DES_CHAINS, K = 4, on [13]'s last sample step's
     state, float64 and float32, without and with the surrogate's own input
     scales; each dtype's shared-memory plan printed; the unscaled density's
-    K = 4 chunks and one block launch timed in both dtypes. Returns (max abs
+    K = 4 chunks and one block launch timed in both dtypes, and its chunks
+    under the other tile widths (``_stream_plans``). Returns (max abs
     errors by kernel, {dtype: times by kernel + '_cubic'})."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
@@ -1519,10 +1525,8 @@ def _cubic_kernels(torch, bt, rec):
             dens_id, _, _, _, dscal = nc._spec_for(den, c.q)
             plan = nc._spec_plan(dens_id, dscal, DES_D, MAX_TREEDEPTH,
                                  c.q.element_size())
-            print(f'  plan {str(dt)[6:]}: {plan["rows"]} of '
-                  f'{int(dscal[3])} features staged, stacks in shared '
-                  f'memory: {plan["stacks_smem"]}; {plan["bytes"]} bytes a '
-                  f'block')
+            print(f'  plan {str(dt)[6:]}: '
+                  f'{_plan_text(plan, dscal, c.q.element_size())}')
             e, plain_ms = _chunks_vs_plain(
                 torch, den, c, dt, 'cubic PolyGaussian', '_cubic',
                 label='scaled ' if scaled else '', block=True)
@@ -1540,7 +1544,74 @@ def _cubic_kernels(torch, bt, rec):
                 plain_ms['nuts_block_cubic'], ops, peak,
                 '  nuts_block_cubic')[0]
             times[dt] = t
+            _stream_plans(torch, den, c, ops)
     return errs, times
+
+
+def _plan_text(plan, dscal, itemsize):
+    """A PolyGaussian launch's shared-memory plan (``poly_smem_plan``) in
+    words, with the L2 bytes a block reads per leapfrog for the features
+    it does not stage (``_l2_bytes``)."""
+    F = int(dscal[3])
+    path = (f'streamed tiles of {plan["tile"]} features '
+            f'({plan["tile_bytes"]} bytes a buffer)' if plan.get('stream')
+            else 'each chain reads them' if plan['rows'] < F else 'all staged')
+    return (f'{plan["rows"]} of {F} features staged, {path}; stacks in '
+            f'shared memory: {plan["stacks_smem"]}; {plan["bytes"]} bytes a '
+            f'block; {_l2_bytes(plan, dscal, itemsize)} L2 bytes a '
+            f'leapfrog and block')
+
+
+def _l2_bytes(plan, dscal, itemsize):
+    """Bytes a block reads from L2 per leapfrog (all its chains on one) for
+    the features of WT that its plan does not stage: on the streamed path
+    the tiles' copies (a tick's forward pass copies tiles 2 .. NT - 1, its
+    back pass NT - 3 .. 0: each starts on the two tiles the last pass ended
+    on); else each of the 8 chains reads every such feature's M
+    coefficients twice, forward and back."""
+    M, F = int(dscal[2]), int(dscal[3])
+    if plan.get('stream'):
+        n_tiles = -(-(F - plan['rows']) // plan['tile'])
+        return 2 * max(n_tiles - 2, 0) * plan['tile_bytes']
+    return 2 * 8 * (F - plan['rows']) * M * itemsize
+
+
+def _stream_plans(torch, den, carry, ops):
+    """[13b] The cubic density's K = 4 chunks on ``carry`` under the
+    streamed path's other tile widths, and under the path that reads the
+    unstaged features in each chain (tile 0, the parent's), timed beside
+    the plan's and held bitwise to its outputs: the measurement that
+    chooses ``nuts_cuda._TILE``. Each also on one block alone (the first
+    8 chains): a slowest chain as slow alone as beside the chip's other
+    blocks waits on latency, not on a shared rate."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    plan_fn = nc._spec_plan
+    itemsize = carry.q.element_size()
+    tiles = (0, 8, 16, 32) if itemsize == 4 else (0, 8, 16)
+    first = None
+    try:
+        for tile in tiles:
+            def plan_of(dens_id, sc, dim, depth, isz, tile=tile):
+                return nc.poly_smem_plan(dim, *(int(v) for v in sc[2:5]),
+                                         bool(sc[9]), depth, isz, tile)
+            nc._spec_plan = plan_of
+            dscal = nc._spec_for(den, carry.q)[4]
+            plan = plan_of(None, dscal, DES_D, MAX_TREEDEPTH, itemsize)
+            tag = f'{str(carry.q.dtype)[6:]} tile {tile}'
+            print(f'  plan {tag}: {_plan_text(plan, dscal, itemsize)}')
+            _, _, outs = _time_chunks(torch, den, carry, ops=ops,
+                                      suffix=f'_cubic {tag}')
+            _time_chunks(torch, den, _first_chains(carry, 8), ops=ops,
+                         suffix=f'_cubic {tag}, one block')
+            first = first or outs
+            same = all(all(torch.equal(a, b) for a, b in zip(
+                _tensors(outs[k]), _tensors(first[k]))) for k in outs)
+            print(f'  {tag}: outputs bitwise equal to tile {tiles[0]}\'s: '
+                  f'{same}')
+            if not same:
+                raise AssertionError(f'the {tag} plan changes the draws')
+    finally:
+        nc._spec_plan = plan_fn
 
 
 def _anchor_run(torch, bt, name, jax_ncall):
@@ -1721,8 +1792,13 @@ def _ptxas_table(log):
                           f'NE={dt.group(2)}']
             if dens:
                 parts.append(dens.group(1))
+            if re.search(r'PolyGaussianI[fd]Li\dELb1E', mn):
+                parts.append('streamed')
             if name == 'nuts_chunk_kernel':
-                parts.append('warmup' if 'Lb1E' in mn else 'frozen')
+                # the kernel's own flag: the last template argument
+                warm = re.search(r'Lb([01])EEEv', mn)
+                parts.append('warmup' if warm and warm.group(1) == '1'
+                             else 'frozen')
             cur = ' '.join(parts)
             out[cur] = [None, None, None, None]
             continue
@@ -1793,6 +1869,17 @@ def _cast(obj, dtype):
     return obj
 
 
+def _first_chains(obj, n):
+    """A carry with every per-chain tensor (leading axis the chains) cut to
+    its first ``n`` chains."""
+    import torch
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*(_first_chains(v, n) for v in obj))
+    if torch.is_tensor(obj) and obj.dim() and obj.shape[0] == DES_CHAINS:
+        return obj[:n].contiguous()
+    return obj
+
+
 def _tensors(obj):
     """Every tensor in ``obj`` (tuples, NamedTuples, dicts), in order."""
     import torch
@@ -1822,25 +1909,34 @@ def _poly_plans(torch, den, carry):
     launch fails if the kernel library lays a block out otherwise), and
     one K = 4 chunk of each kernel under it on the last sample step's
     state: float32 under its plan (all of WT and the stacks), with half of
-    WT (36 of 73 features) and with no feature staged; float64 under its
-    plan (the coefficients first) and with no feature. Every variant's
-    outputs must equal its dtype's plan's bit for bit. Returns {label:
-    slowest chain}."""
+    WT (36 of 73 features), each chain reading the rest or streamed in
+    tiles of 16, and with no feature staged; float64 under its plan
+    (streamed tiles), with the same rows each chain reading the rest
+    (the parent's path) and with no feature. Every variant's outputs must
+    equal its dtype's plan's bit for bit. Returns {label: slowest
+    chain}."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     spec = nc._spec_entry(den, carry.q)[2]
     F = int(spec['scalars'][3])
     ops = _poly_leapfrog_ops(DES_D, spec)
     plan_fn = nc._spec_plan
 
-    def rows(r):  # the layout with the first r features staged
+    def rows(r, tile=0):  # the layout with the first r features staged
         return lambda dens_id, sc, dim, depth, itemsize: nc._poly_layout(
             dim, *(int(v) for v in sc[2:5]), bool(sc[9]), depth, itemsize,
-            r)
+            r, tile)
+
+    def untiled(dens_id, sc, dim, depth, itemsize):
+        return nc.poly_smem_plan(dim, *(int(v) for v in sc[2:5]),
+                                 bool(sc[9]), depth, itemsize, 0)
 
     variants = ((torch.float32, 'plan', plan_fn),
                 (torch.float32, 'half of WT', rows(F // 8 * 4)),
+                (torch.float32, 'half of WT, tiles of 16',
+                 rows(F // 8 * 4, 16)),
                 (torch.float32, 'no features', rows(0)),
                 (torch.float64, 'plan', plan_fn),
+                (torch.float64, 'no tiles', untiled),
                 (torch.float64, 'no features', rows(0)))
     firsts, chains = {}, {}
     try:
@@ -1851,9 +1947,8 @@ def _poly_plans(torch, den, carry):
             plan = plan_of(dens_id, dscal, c.q.shape[1], MAX_TREEDEPTH,
                            c.q.element_size())
             tag = f'{str(dt)[6:]} {label}'
-            print(f'  plan {tag}: {plan["rows"]} of {F} features staged, '
-                  f'stacks in shared memory: {plan["stacks_smem"]}; '
-                  f'{plan["bytes"]} bytes a block')
+            print(f'  plan {tag}: '
+                  f'{_plan_text(plan, dscal, c.q.element_size())}')
             _, ch, outs = _time_chunks(torch, den, c, ops=ops,
                                        suffix=f'_poly {tag}')
             chains.update(ch)
@@ -1894,31 +1989,36 @@ def _ab_one(tree, state, out_path, n_seeds):
         torch, bt, den, A, '[8]', {'nuts_block': N_WARMUP,
                                    'nuts_multi': 3 * 2}, pooled_metric=True)
     rec, _, res['recipe'] = _des_recipe(torch, bt)
+    rec_c, _, res['recipe_cubic'] = _des_recipe(torch, bt, cubic=True)
     res['digests'] = {'draws [3]': _digest(tt.trace.samples),
-                      'draws [8]': _digest(tp.trace.samples),
-                      'n_call, max IS deviation [10]': '%d, %r' % (
-                          res['recipe']['n_call'],
-                          res['recipe']['max_dev_sigma'])}
+                      'draws [8]': _digest(tp.trace.samples)}
+    for tag, r in (('[10]', res['recipe']), ('[13]', res['recipe_cubic'])):
+        res['digests'][f'n_call, max IS deviation {tag}'] = '%d, %r' % (
+            r['n_call'], r['max_dev_sigma'])
     if not os.path.exists(state):
-        last = rec.recipe_trace.results.sample[-1].sample_trace.trace
-        torch.save({'carry': tt.trace._carry, 'pooled': tp.trace._carry,
-                    'draws': tt.get(flatten=False),
-                    'poly_src': rec.density._kernel_sources(),
-                    'poly_tf': rec.density.kernel_spec()['transform'],
-                    'poly_carry': last._carry}, state)
+        saved = {'carry': tt.trace._carry, 'pooled': tp.trace._carry,
+                 'draws': tt.get(flatten=False)}
+        for k, r in (('poly', rec), ('cubic', rec_c)):
+            saved[k + '_src'] = r.density._kernel_sources()
+            saved[k + '_tf'] = r.density.kernel_spec()['transform']
+            saved[k + '_carry'] = \
+                r.recipe_trace.results.sample[-1].sample_trace.trace._carry
+        torch.save(saved, state)
     st = torch.load(state, weights_only=False)
     res.update(_time_chunks(torch, den, st['carry'])[1])
-    # [10b]'s PolyGaussian chunks on the saved surrogate and state, float32
-    # (the Recipe's) and float64
-    den_p = _SpecDensity(st['poly_src'], st['poly_tf'])
-    for dt, suffix in ((torch.float32, '_poly'), (torch.float64, '_poly64')):
-        _, chains, outs = _time_chunks(
-            torch, den_p, _cast(st['poly_carry'], dt),
-            ops=_poly_leapfrog_ops(DES_D, den_p.kernel_spec()),
-            suffix=suffix)
-        res.update(chains)
-        res['digests'].update({f'{k}{suffix} outputs [10b]': _digest(v)
-                               for k, v in outs.items()})
+    # [10b]'s PolyGaussian chunks and [13b]'s cubic ones on the saved
+    # surrogates and states, float32 (the Recipes') and float64
+    for k, tag in (('poly', '[10b]'), ('cubic', '[13b]')):
+        den_p = _SpecDensity(st[k + '_src'], st[k + '_tf'])
+        for dt, suffix in ((torch.float32, f'_{k}'),
+                           (torch.float64, f'_{k}64')):
+            _, chains, outs = _time_chunks(
+                torch, den_p, _cast(st[k + '_carry'], dt),
+                ops=_poly_leapfrog_ops(DES_D, den_p.kernel_spec()),
+                suffix=suffix)
+            res.update(chains)
+            res['digests'].update({f'{n}{suffix} outputs {tag}': _digest(v)
+                                   for n, v in outs.items()})
     res['nuts_block'] = _time_block(
         torch, den, *_block_inputs(torch, st['pooled'], torch.float32))[1]
     x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
@@ -1945,12 +2045,15 @@ def _ab_readings(res):
            'ms per pooled transition [8d]': res['pooled_ms'],
            'busy share [8d]': res['busy_share']}
     for k in ('nuts_block', 'nuts_multi', 'nuts_warmup', 'nuts_multi_poly',
-              'nuts_warmup_poly', 'nuts_multi_poly64', 'nuts_warmup_poly64'):
+              'nuts_warmup_poly', 'nuts_multi_poly64', 'nuts_warmup_poly64',
+              'nuts_multi_cubic', 'nuts_warmup_cubic', 'nuts_multi_cubic64',
+              'nuts_warmup_cubic64'):
         for f in ('ms', 'max_leapfrogs', 'mean_leapfrogs', 'ns_per_leapfrog'):
             out[f'{k} {f}'] = res[k][f]
-    out['recipe n_call [10]'] = res['recipe']['n_call']
-    out['recipe max IS dev, sigma [10]'] = res['recipe']['max_dev_sigma']
-    out['recipe chunk kernels s [10]'] = res['recipe']['kernels_s']
+    for k, tag in (('recipe', '[10]'), ('recipe_cubic', '[13]')):
+        out[f'recipe n_call {tag}'] = res[k]['n_call']
+        out[f'recipe max IS dev, sigma {tag}'] = res[k]['max_dev_sigma']
+        out[f'recipe chunk kernels s {tag}'] = res[k]['kernels_s']
     logz = np.array([z for z, _ in res['gbs']])
     if len(logz) > 1:
         out['gbs logz, mean over seeds'] = float(logz.mean())

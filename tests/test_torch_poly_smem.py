@@ -8,9 +8,10 @@ three a sparse-row entry) and, when they still fit, the checkpoint stacks.
 The plan is computed on the host and passed to ``csrc/nuts.cu`` in the
 launch's double arguments, so these CPU tests hold it: at the DES-like
 Recipe's shape (27 parameters, 457 outputs, 73 features) float32 stages all
-of WT and the stacks, float64 a part of WT; with the cubic surrogate (238
-features) both stage a part; and no plan ever asks for more than a block
-may have (232,448 bytes on sm_90). The spec's cache key follows the
+of WT and the stacks, float64 a part of WT and streams the rest in tiles;
+with the cubic surrogate (238 features) both stage a part and stream the
+rest; and no plan ever asks for more than a block may have (232,448 bytes
+on sm_90). The spec's cache key follows the
 surrogate's own input scales.
 """
 
@@ -78,13 +79,21 @@ def test_des_float32_stages_all_of_wt_and_the_stacks():
 
 def test_des_float64_stages_part_of_wt():
     sc = _des_scalars()
-    # the coefficients get the room: 38 of 73 features beside 80 KB of the
-    # density's own buffers and scratch; the 64 KB of stacks, which would
-    # leave room for 22, stay in global scratch
+    # WT does not fit: the streamed path, two tiles of 16 features (58,496
+    # bytes each) and 6 features staged beside 80 KB of the density's own
+    # buffers and scratch, phi padded to 6 + 5 x 16 = 86 features (88 a
+    # warp, 12 more than 76); the 64 KB of stacks stay in global scratch
     plan = _plan(sc, 8)
-    assert plan == dict(rows=38, row_stride=38, stacks_smem=False,
-                        bytes=(10028 + 457 * 38) * 8)
+    assert plan == dict(rows=6, row_stride=6, stacks_smem=False,
+                        bytes=(10028 + 8 * 12 + 457 * 6 + 2 * 457 * 16) * 8,
+                        stream=True, tile=16, tile_bytes=457 * 16 * 8)
     assert plan['bytes'] <= LIMIT
+    # without tiles each chain reads the unstaged features: the coefficients
+    # get the room, 38 of 73 features; the stacks, which would leave room
+    # for 22, stay in global scratch
+    untiled = _plan(sc, 8, tile=0)
+    assert untiled == dict(rows=38, row_stride=38, stacks_smem=False,
+                           bytes=(10028 + 457 * 38) * 8)
     assert (10028 + 457 * 38 + 7992) * 8 > LIMIT
     assert (10028 + 457 * 22 + 7992) * 8 <= LIMIT
 
@@ -110,7 +119,9 @@ def test_a_plan_of_no_rows_is_legal():
     assert plan['bytes'] <= LIMIT
     fargs = nc._fargs(1000., 0.5, (1., 2., 5000, 73, 117, 1, 1, 3., 9., 0),
                       (0., 0., 0., 0.), plan)
-    assert fargs[16:] == [0.0, float(plan['bytes']), 1.0]
+    # rows, bytes, stacks; then not the streamed path (two tiles of 5000
+    # outputs do not fit either), no tile
+    assert fargs[16:] == [0.0, float(plan['bytes']), 1.0, 0.0, 0.0, 0.0]
     # buffers that alone exceed a block raise before any launch
     with pytest.raises(ValueError, match='shared memory'):
         nc.poly_smem_plan(DES_D, 20000, 73, 117, True, 10, 4)
@@ -148,14 +159,15 @@ def test_fargs_carry_the_plan():
     sc = _des_scalars()
     plan = _plan(sc, 4)
     fargs = nc._fargs(1000., -1.5, sc, (0.8, 0.05, 0.75, 10.), plan)
-    assert len(fargs) == 8 + nc._N_EXTRA == 19
+    assert len(fargs) == 8 + nc._N_EXTRA == 22
     assert fargs[:8] == [1000., -1.5, float(sc[0]), float(sc[1]), 0.8, 0.05,
                          0.75, 10.]
     # M, F, NNZ, bound on, decay on, alpha, alpha^2, full; then the plan's
-    # rows staged, bytes and stacks in shared memory, which the launch holds
-    # against the kernel's own layout
+    # rows staged, bytes and stacks in shared memory, path (all of WT
+    # staged: not the streamed tiles), features a tile and a tile's bytes,
+    # which the launch holds against the kernel's own layout
     assert fargs[8:16] == [float(v) for v in sc[2:]]
-    assert fargs[16:] == [73.0, 212720.0, 1.0]
+    assert fargs[16:] == [73.0, 212720.0, 1.0, 0.0, 0.0, 0.0]
     # a banana spec has no plan, and its extra slots stay zero
     dens_id = DENSITY_IDS['banana']
     assert nc._spec_plan(dens_id, (0.01, 3.0), 32, 10, 4) is None
@@ -179,27 +191,37 @@ def test_des_cubic_stages_part_of_wt(itemsize):
     """The cubic DES-like surrogate (linear on 27, quadratic, cubic-2 and
     cubic-3 on 9: 28 + 45 + 81 + 84 features): WT is 435 KB in float32 and
     870 KB in float64, more than a block in either, so both stage a part
-    and read the rest from device memory; the integer tables count three
-    indices a feature and three a sparse-row entry."""
+    and stream the rest through two tiles (32 features in float32, 16 in
+    float64), whose room comes from the staged features; without tiles
+    (tile 0) each chain reads the rest from device memory. The integer
+    tables count three indices a feature and three a sparse-row entry."""
     sc = _des_scalars(cubic=True)
     M, F, NNZ = (int(v) for v in sc[2:5])
     # sparse-row entries: 27 linear, 2 x 45 quadratic, 3 x (81 + 84) cubic
     assert (M, F, NNZ) == (457, 238, 27 + 90 + 495)
-    plan = _plan(sc, itemsize)
     n = 16 // itemsize
     ints = -(-(3 * F + DES_D + 1 + 3 * NNZ) * 4 // itemsize)
     ints = -(-ints // 4) * 4
-    own = (2 * 32 * (32 + n) + 64 + 8 * (32 + 36 + 2 * 240 + 256 + 460)
-           + ints)
-    assert 0 < plan['rows'] < F and plan['rows'] % n == 0
-    assert not plan['stacks_smem']
-    assert plan['bytes'] == (own + M * plan['row_stride']) * itemsize
-    assert plan['bytes'] <= LIMIT
-    # the next whole vector of features would not fit
-    more = nc._poly_layout(DES_D, M, F, NNZ, False, 10, itemsize,
-                           plan['rows'] + n)
-    assert more['bytes'] > LIMIT
-    assert plan['rows'] == {4: 92, 8: 30}[itemsize]
+
+    def own(n_phi):  # phi is padded to the last tile's end
+        return (2 * 32 * (32 + n) + 64
+                + 8 * (32 + 36 + n_phi + 240 + 256 + 460) + ints)
+
+    for tile, rows, n_phi in {4: ((32, 28, 252), (0, 92, 240)),
+                              8: ((16, 0, 240), (0, 30, 240))}[itemsize]:
+        plan = _plan(sc, itemsize, tile=tile)
+        assert plan['rows'] == rows and rows < F and rows % n == 0
+        assert plan.get('tile', 0) == tile
+        assert not plan['stacks_smem']
+        assert plan['bytes'] == (own(n_phi) + M * plan['row_stride']
+                                 + 2 * M * tile) * itemsize
+        assert plan['bytes'] <= LIMIT
+        # the next whole vector of features would not fit
+        more = nc._poly_layout(DES_D, M, F, NNZ, False, 10, itemsize,
+                               rows + n, tile)
+        assert more['bytes'] > LIMIT
+    assert _plan(sc, itemsize) == _plan(sc, itemsize,
+                                        tile=nc._TILE[itemsize])
 
 
 def test_kernel_spec_key_follows_the_surrogate_scales():
