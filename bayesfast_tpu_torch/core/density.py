@@ -7,8 +7,12 @@ the sampling (transformed) space come from autograd over the whole batch of
 backward (``ops.constraint.to_original_with_logdet``).
 
 Densities from ``ops.densities`` also carry a ``kernel_spec()``, which the
-CUDA NUTS kernels need: they cannot trace a torch function, so they
-evaluate a compiled-in density and its analytic gradient.
+CUDA NUTS kernels need: they evaluate a compiled-in density and its
+analytic gradient. Any other torch logp that traces into the kernels' op
+set (``ops/trace.py``) has a kernel spec too: its program, whose functor
+``ops/codegen.py`` generates and ``_build.load_traced`` compiles at first
+use; a logp that does not trace has none (``kernel_trace_error`` says
+why), and samples on the tree loop.
 """
 
 import numpy as np
@@ -119,13 +123,17 @@ class DensityLite(_PipelineBase, _DensityBase):
     logp : callable
         ``logp(x) -> (...)`` for a batch of points ``x`` of shape
         ``(..., D)``, written in torch (an ``nn.Module`` from
-        ``ops.densities`` also gives the CUDA kernels its ``kernel_spec``).
+        ``ops.densities`` gives the CUDA kernels its ``kernel_spec``; any
+        other logp is traced into one when its ops are in the kernels' op
+        set, ``ops/trace.py``).
     input_size : int or None
         Dimensionality; used to draw default starting points.
     input_scales, hard_bounds : see ``_PipelineBase``.
     original_space : bool
         Default interpretation of inputs.
     """
+
+    _trace = None  # (trace key, D, Program or TraceError), see _program
 
     def __init__(self, logp=None, input_size=None, input_scales=None,
                  hard_bounds=False, original_space=True):
@@ -175,23 +183,89 @@ class DensityLite(_PipelineBase, _DensityBase):
                 return self._logp_b(x, original_space)
         return fn
 
+    def __getstate__(self):
+        # a checkpoint keeps the logp, not its trace: traced again at first
+        # use
+        state = dict(self.__dict__)
+        state.pop('_trace', None)
+        return state
+
+    def _program(self):
+        """The logp traced at ``input_size`` (``ops.trace.trace_density``,
+        in the configured dtype on the configured device), kept until
+        ``ops.trace.trace_key`` of the logp changes; a ``TraceError`` when
+        it does not trace, or when ``input_size`` is not set."""
+        from ..ops.trace import TraceError, trace_density, trace_key
+        D = self._input_size
+        if D is None:
+            return TraceError('input_size is not set: the logp is traced '
+                              'at one point of that size')
+        key = trace_key(self._logp)
+        if self._trace is None or self._trace[:2] != (key, D):
+            try:
+                prog = trace_density(self._logp, D, get_dtype(),
+                                     get_device())
+            except TraceError as exc:
+                prog = exc
+            self._trace = (key, D, prog)
+        return self._trace[2]
+
+    @property
+    def has_traced_spec(self):
+        """Whether the kernel spec is the traced logp's (not a compiled-in
+        density's)."""
+        return (not hasattr(self._logp, 'kernel_spec')
+                and not isinstance(self._program(), Exception))
+
     @property
     def has_kernel_spec(self):
-        """Whether the logp is a compiled-in density (``ops.densities``)."""
-        return hasattr(self._logp, 'kernel_spec')
+        """Whether the CUDA NUTS kernels can evaluate this density: a
+        compiled-in density (``ops.densities``) or a logp that traces into
+        the kernels' op set (``ops/trace.py``). The kernels' own limit on D
+        is the routing's (``nuts_cuda.kernel_refusal``)."""
+        return hasattr(self._logp, 'kernel_spec') or self.has_traced_spec
+
+    def kernel_trace_error(self):
+        """Why the logp does not trace (a string), or None."""
+        if hasattr(self._logp, 'kernel_spec'):
+            return None
+        prog = self._program()
+        return str(prog) if isinstance(prog, Exception) else None
+
+    def kernel_spec_key(self):
+        """For a traced logp, a value equal between two calls exactly when
+        ``kernel_spec()`` would be: the trace's key (the logp's identity
+        and the bytes of the tensors and the numbers it reads), D and the
+        transform's scales and bounds; None for a compiled-in density,
+        whose spec the kernels key by its buffers."""
+        if hasattr(self._logp, 'kernel_spec'):
+            return None
+        from ..ops.trace import trace_key
+        scales = self._input_scales
+        return (trace_key(self._logp), self._input_size,
+                None if scales is None else scales.tobytes(),
+                np.asarray(self._hard_bounds).tobytes())
 
     def kernel_spec(self):
-        """The compiled-in description of this density for the CUDA NUTS
-        kernels: the density's own spec plus the fused bound transform
-        (``lo``, ``width``, the three 0/1 masks and ``logw``; the identity
-        transform when no scales are set). Raises ``NotImplementedError``
-        for a logp without one."""
+        """The description of this density for the CUDA NUTS kernels: the
+        compiled-in density's own spec, or the traced logp's (density
+        ``'traced'``: its ``program`` and the program's packed constants),
+        plus the fused bound transform (``lo``, ``width``, the three 0/1
+        masks and ``logw``; the identity transform when no scales are set).
+        Raises ``NotImplementedError`` for a logp that has neither."""
         inner = getattr(self._logp, 'kernel_spec', None)
         if inner is None:
-            raise NotImplementedError(
-                'this density has no kernel_spec(): the CUDA NUTS kernels '
-                'evaluate compiled-in densities only (ops/densities.py).')
-        spec = dict(inner())
+            prog = self._program()
+            if isinstance(prog, Exception):
+                raise NotImplementedError(
+                    f'this density has no kernel_spec(): the CUDA NUTS '
+                    f'kernels evaluate compiled-in densities '
+                    f'(ops/densities.py) and logps that trace into their op '
+                    f'set (ops/trace.py); this one does not: {prog}')
+            spec = dict(density='traced', dim=prog.D, program=prog,
+                        params=[prog.pack()], scalars=(0.0, 0.0))
+        else:
+            spec = dict(inner())
         D = spec['dim']
         scales = self._input_scales
         if scales is None:

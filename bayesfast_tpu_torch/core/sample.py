@@ -13,13 +13,22 @@ as the JAX package dispatches (``core/sample.py:465-602``):
   (``ChainDriver.run``), one block-kernel launch per transition with the
   shared Welford update between launches;
 * either diag case after warmup: frozen chunks, one launch each;
-* NUTS with a full metric, or a density without ``kernel_spec()``, and
-  every HMC, THMC, TNUTS and ChEES transition: the per-transition path in
-  plain torch on the device (TNUTS on the tree loop), as the JAX package
-  runs them in XLA;
+* NUTS with a full metric, a density without ``kernel_spec()`` or D >
+  64, and every HMC, THMC, TNUTS and ChEES transition: the per-transition
+  path in plain torch on the device (NUTS and TNUTS on the tree loop), as
+  the JAX package runs them in XLA. ``ChainDriver.uses_kernels`` routes:
+  under ``nuts_kernel='auto'`` a ``DensityLite`` whose logp does not trace
+  into the kernels' op set warns once (the op named) and takes the tree
+  loop, as the JAX package warns and falls back when its kernel does not
+  lower; under ``'cuda'`` such a density, or D > 64, raises
+  ``NotImplementedError`` before any device work;
 * the ensemble: ``_run_ensemble``, gradient-free stretch moves.
 
-A ``Density`` (a module pipeline) has a kernel spec when its active plan is
+A ``DensityLite`` over a compiled-in density (``ops.densities``) or over
+any torch logp that traces (``ops/trace.py``) has a kernel spec; the
+traced one runs the kernels compiled with its generated functor
+(``ops/codegen.py``). A ``Density`` (a module pipeline) has a kernel spec
+when its active plan is
 the Recipe's surrogate, a ``PolyModel`` and a ``Gaussian``
 (``Density.kernel_spec``); the kernels then read its coefficients as they
 stand at each launch, so a refit between calls is seen.

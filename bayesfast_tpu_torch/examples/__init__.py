@@ -10,6 +10,10 @@ the Recipe. The densities are compiled into the CUDA NUTS kernels
 the SIT fit of GBS runs its KDE sums on the KDE-cdf kernel. Run one with
 
     python -m bayesfast_tpu_torch.examples.funnel_gbs
+
+``user_densities`` writes ``bench.py``'s banana and the four examples'
+densities as a user writes them, in torch; they reach the kernels by
+tracing (``ops/trace.py``).
 """
 
 import os

@@ -2,11 +2,13 @@
 
 The JAX package's kernels trace any jnp density into Mosaic
 (``bayesfast_tpu/samplers/nuts_pallas.py:576-608``, ``_trace_density``).
-CUDA cannot trace a torch function, so the port's kernels carry their
-densities compiled in (``csrc/nuts.cu``, one functor each). Every density
-here is an ``nn.Module`` whose ``forward`` is the plain torch logp over a
-batch ``(..., D)``, and whose ``kernel_spec()`` returns the kernel's density
-id and its parameter tensors. ``spec_logp_and_grad`` evaluates a spec (with
+The port's kernels carry the densities here compiled in (``csrc/nuts.cu``,
+one functor each), and a user's own torch logp traced into a program
+(``ops/trace.py``) and generated as a functor of its own
+(``ops/codegen.py``; density id ``'traced'``). Every density here is an
+``nn.Module`` whose ``forward`` is the plain torch logp over a batch
+``(..., D)``, and whose ``kernel_spec()`` returns the kernel's density id
+and its parameter tensors. ``spec_logp_and_grad`` evaluates a spec (with
 the fused bound transform) analytically in torch, in the kernel's order of
 operations: it is the density of the kernels' plain versions.
 """
@@ -21,7 +23,7 @@ __all__ = ['RotatedBanana', 'DiagGaussian', 'NealFunnel', 'RingDensity',
 
 # density ids shared with csrc/nuts.cu
 DENSITY_IDS = {'banana': 0, 'gaussian': 1, 'poly_gaussian': 2, 'funnel': 3,
-               'ring': 4, 'cauchy': 5}
+               'ring': 4, 'cauchy': 5, 'traced': 6}
 
 
 class RotatedBanana(nn.Module):
@@ -168,7 +170,8 @@ def warp_sum(x):
     exactly as the kernels do."""
     D = x.shape[-1]
     ne = max(1, -(-D // 32))
-    x = torch.nn.functional.pad(x, (0, 32 * ne - D))
+    if 32 * ne != D:
+        x = torch.nn.functional.pad(x, (0, 32 * ne - D))
     x = x.reshape(x.shape[:-1] + (ne, 32))
     s = x[..., 0, :]
     for e in range(1, ne):
@@ -209,6 +212,14 @@ def _density_lpg(spec, x, ordered=True):
     sum (a few launches, for the samplers that have no kernel to match).
     Divisors are tensors: torch on the card turns division by a Python
     scalar into multiplication by its reciprocal."""
+    if spec['density'] == 'traced':
+        # the program's interpreter (ops/trace.py) on the packed constants,
+        # cast once per dtype and device
+        cache = spec.setdefault('_cast', {})
+        key = (x.dtype, x.device)
+        if key not in cache:
+            cache[key] = spec['params'][0].to(x)
+        return spec['program'].logp_and_grad(x, cache[key], ordered)
     mv, sm = _ops(ordered)
     D = spec['dim']
     par = spec['params'][0].to(x)
@@ -569,8 +580,14 @@ def spec_logp_and_grad(spec, x_t, ordered=True):
     ``_density_lpg``)."""
     sm = _ops(ordered)[1]
     from .constraint import _fused_core
-    tf = {k: (v.to(x_t) if torch.is_tensor(v) else v)
-          for k, v in spec['transform'].items()}
+    # the transform's rows cast once per dtype and device (a copy to the
+    # card at every evaluation otherwise)
+    cache = spec.setdefault('_tf_cast', {})
+    key = (x_t.dtype, x_t.device)
+    if key not in cache:
+        cache[key] = {k: (v.to(x_t) if torch.is_tensor(v) else v)
+                      for k, v in spec['transform'].items()}
+    tf = cache[key]
     ep, s, s1s, x_o, m_none = _fused_core(
         x_t, tf['lo'], tf['width'], tf['m_lohi'], tf['m_lo'], tf['m_hi'])
     arg = tf['m_lohi'] * s1s + (1.0 - tf['m_lohi'])

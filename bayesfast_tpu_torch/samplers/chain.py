@@ -11,15 +11,15 @@ together. Two kinds of path:
 * the per-transition path (``run``, ``chain.py:71-216`` and ``:520-530``):
   a Python loop over transitions, then the dual-averaging update and the
   pooled or per-chain Welford update as batched torch ops. A NUTS
-  transition is one launch of the block kernel (or, for a full metric or a
-  density without ``kernel_spec()``, one pass of the torch tree loop,
-  ``nuts.py``). HMC, THMC, TNUTS and ChEES transitions are plain torch on
-  the chains' device (``hmc.py``, ``tempered.py``, ``chees.py``), as they
-  are XLA in the JAX package; the tempered ones carry ``[u, q]`` and adapt
-  the metric on ``q``; ChEES adapts one shared step size and trajectory
-  length. The window decisions are host ints, so the loop reads nothing
-  back from the device but ChEES's shared leapfrog count and the tree
-  loop's end.
+  transition is one launch of the block kernel (or, for a full metric, a
+  density without ``kernel_spec()`` or D > 64, one pass of the torch tree
+  loop, ``nuts.py``; ``uses_kernels`` routes). HMC, THMC, TNUTS and
+  ChEES transitions are plain torch on the chains' device (``hmc.py``,
+  ``tempered.py``, ``chees.py``), as they are XLA in the JAX package; the
+  tempered ones carry ``[u, q]`` and adapt the metric on ``q``; ChEES
+  adapts one shared step size and trajectory length. The window
+  decisions are host ints, so the loop reads nothing back from the device
+  but ChEES's shared leapfrog count and the tree loop's end.
 
 The carry holds one int32 seed in place of the JAX per-chain keys: the
 kernels' randomness is keyed by (seed, global iteration, global chain), and
@@ -27,6 +27,7 @@ every torch transition's generator by (seed, global iteration), so the
 seed never advances and chunk boundaries never change the stream.
 """
 
+import warnings
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -107,16 +108,43 @@ class ChainDriver:
         # NUTS matches its kernels' order of operations; the others have no
         # kernel to match, and take the fewest launches
         self._lpg = nuts_cuda.plain_lpg(density, algorithm == 'nuts')
+        # uses_kernels' answer by D, and whether it has warned
+        self._refusals, self._warned = {}, False
 
     def uses_kernels(self, metric):
         """Whether transitions under ``metric`` run on the NUTS kernels (or
-        their plain versions) rather than torch code: NUTS with a diag
-        metric, and a density with ``kernel_spec()`` or
-        ``nuts_kernel='cuda'`` (which raises for a density without one)."""
-        return (self._algorithm == 'nuts'
-                and isinstance(metric, DiagMetricState)
-                and (self._density.has_kernel_spec
-                     or self._nuts_kernel == 'cuda'))
+        their plain versions) rather than the torch tree loop: NUTS with a
+        diag metric, and a density the kernels take at the metric's D
+        (``nuts_cuda.kernel_refusal``: a kernel spec, compiled in or
+        traced, and D <= 64). Otherwise ``nuts_kernel='cuda'`` raises
+        ``NotImplementedError`` here, before any device work, and 'auto'
+        and 'torch' take the tree loop; under 'auto' a logp that does not
+        trace warns once, naming the op (as the JAX package warns when its
+        kernel fails to lower)."""
+        if (self._algorithm != 'nuts'
+                or not isinstance(metric, DiagMetricState)):
+            return False
+        dim = int(metric.var.shape[-1])
+        if dim not in self._refusals:
+            self._refusals[dim] = nuts_cuda.kernel_refusal(self._density,
+                                                           dim)
+        why = self._refusals[dim]
+        if why is None:
+            return True
+        if self._nuts_kernel == 'cuda':
+            raise NotImplementedError(
+                f"nuts_kernel='cuda': {why}; sample it on the tree loop "
+                "(nuts_kernel='auto' or 'torch').")
+        trace_error = getattr(self._density, 'kernel_trace_error',
+                              lambda: None)()
+        if (self._nuts_kernel == 'auto' and trace_error
+                and not self._warned):
+            self._warned = True
+            warnings.warn(
+                'the logp does not trace into the CUDA NUTS kernels; its '
+                'transitions run on the torch tree loop (set_nuts_kernel '
+                f'controls this). Cause: {trace_error}', RuntimeWarning)
+        return False
 
     @staticmethod
     def _generator(carry, it):

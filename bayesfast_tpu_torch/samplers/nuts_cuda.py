@@ -21,7 +21,13 @@ attribute; given CPU tensors it runs the plain torch version beside it
 unless asked for ``kernel='cuda'``, which then raises. ``kernel='torch'``
 asks for the plain version on any device. There is no fallback:
 a density without ``kernel_spec()`` on a CUDA tensor raises
-``NotImplementedError``, and a failed build or launch raises.
+``NotImplementedError``, and a failed build or launch raises. A density
+traced from a user's torch logp (``ops/trace.py``, spec ``'traced'``)
+launches the same kernels compiled with its generated functor
+(``ops/codegen.py``, built per program and dtype by
+``_build.load_traced``); its plain versions run the program's
+interpreter. ``kernel_refusal`` says why a density cannot take the
+kernels at a dimension; ``ChainDriver.uses_kernels`` routes by it.
 
 Randomness is the JAX package's counter RNG, reproduced bit for bit:
 ``_fmix32``/``_uniforms`` (murmur3 finalizer over golden-ratio-spread
@@ -46,13 +52,13 @@ import weakref
 import numpy as np
 import torch
 
-from ..ops.densities import spec_logp_and_grad, warp_sum
+from ..ops.densities import DENSITY_IDS, spec_logp_and_grad, warp_sum
 from .metrics import DiagMetricState
 from .nuts import NutsStats, _kahan_add
 
 __all__ = ['nuts_transition_batched', 'nuts_chunk_batched',
            'nuts_warmup_chunk_batched', 'nuts_block_plain', 'nuts_chunk_plain',
-           'nuts_warmup_chunk_plain', 'plain_lpg']
+           'nuts_warmup_chunk_plain', 'plain_lpg', 'kernel_refusal']
 
 _M32 = 0xFFFFFFFF
 # float32(2 pi), the Box-Muller angle constant as the float32 kernels use it
@@ -87,11 +93,29 @@ def _uniforms(seed, it, salt, rows, lane):
     values); ``it`` may be negative (it wraps, as the JAX int32->uint32 cast
     does); row ``r`` of the JAX (rows, C) draw is column ``r`` here.
     """
-    row = torch.arange(rows, dtype=torch.int64, device=lane.device)
-    base = ((int(seed) & _M32) ^ _mul32(int(it) & _M32, 0x85EBCA77)
+    return _uniforms_mixed(seed, it, salt, _row_mix(rows, lane.device),
+                           _mul32(lane, 0x9E3779B9))
+
+
+@functools.lru_cache(maxsize=None)
+def _row_mix(rows, device):
+    """The rows' term of the counter, ``row * 0x7FEB352D`` mod 2^32."""
+    return _mul32(torch.arange(rows, dtype=torch.int64, device=device),
+                  0x7FEB352D)
+
+
+def _uniforms_mixed(seed, it, salt, row_mix, lane_mix):
+    """``_uniforms`` from the rows' and the lanes' terms of the counter
+    (``_row_mix``, ``lane * 0x9E3779B9``), which a transition computes
+    once for all its draws; ``it`` an int, or an int64 tensor (n,) of
+    iterations for all their draws at once, (n, C, rows)."""
+    if torch.is_tensor(it):
+        it_mix = _mul32(it & _M32, 0x85EBCA77)[:, None, None]
+    else:
+        it_mix = _mul32(int(it) & _M32, 0x85EBCA77)
+    base = ((int(seed) & _M32) ^ it_mix
             ^ _mul32(int(salt) & _M32, 0xC2B2AE3D))
-    x = (_mul32(lane, 0x9E3779B9)[:, None]
-         ^ _mul32(row, 0x7FEB352D)[None, :]) ^ base
+    x = (lane_mix[:, None] ^ row_mix[None, :]) ^ base
     x = _fmix32((_fmix32(x) + 0x165667B1) & _M32)
     bits = ((x >> 9) | 0x3F800000).to(torch.int32)
     return bits.view(torch.float32) - 1.0
@@ -176,6 +200,13 @@ def _dot(a, b):
     return warp_sum(a * b)
 
 
+def _turns(pairs):
+    """Whether any of the dot products of ``pairs`` ((a, b) tensors of one
+    shape) is <= 0: each product as ``_dot`` takes it, their warp sums in
+    one call over the stacked products (the same bits, fewer launches)."""
+    return (warp_sum(torch.stack([a * b for a, b in pairs])) <= 0).any(0)
+
+
 def _merge(u, t1, t2, merged_depth, var, D):
     """Join older/left frame ``t1`` with newer/right frame ``t2`` (both
     (C, 4D+3): [left_p | right_p | p_sum | log_size | q | energy | logp]);
@@ -183,15 +214,15 @@ def _merge(u, t1, t2, merged_depth, var, D):
     inner-subtree checks above merged depth 1."""
     ps1, ps2 = t1[:, 2 * D:3 * D], t2[:, 2 * D:3 * D]
     p_sum = ps1 + ps2
-    p_sum1 = ps1 + t2[:, :D]
-    p_sum2 = t1[:, D:2 * D] + ps2
-    v1l, v1r = var * t1[:, :D], var * t1[:, D:2 * D]
-    v2l, v2r = var * t2[:, :D], var * t2[:, D:2 * D]
-    turning = (_dot(p_sum, v1l) <= 0) | (_dot(p_sum, v2r) <= 0)
+    v1l, v2r = var * t1[:, :D], var * t2[:, D:2 * D]
+    pairs = [(p_sum, v1l), (p_sum, v2r)]
     if merged_depth > 1:
-        turning = (turning | (_dot(p_sum1, v1l) <= 0)
-                   | (_dot(p_sum1, v2l) <= 0) | (_dot(p_sum2, v1r) <= 0)
-                   | (_dot(p_sum2, v2r) <= 0))
+        p_sum1 = ps1 + t2[:, :D]
+        p_sum2 = t1[:, D:2 * D] + ps2
+        v1r, v2l = var * t1[:, D:2 * D], var * t2[:, :D]
+        pairs += [(p_sum1, v1l), (p_sum1, v2l), (p_sum2, v1r),
+                  (p_sum2, v2r)]
+    turning = _turns(pairs)
     ls1, ls2 = t1[:, 3 * D], t2[:, 3 * D]
     log_size = _logaddexp(ls1, ls2)
     take2 = torch.log(u).to(t1.dtype) < ls2 - log_size
@@ -210,6 +241,10 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
     C, D = q0.shape
     dtype, dev = q0.dtype, q0.device
     n_lvl = max(int(max_treedepth) - 1, 1)
+    lane_mix = _mul32(lane, 0x9E3779B9)
+
+    def uniforms(it, salt, rows):
+        return _uniforms_mixed(seed, it, salt, _row_mix(rows, dev), lane_mix)
 
     def energy_of(p, lp):
         return 0.5 * _dot(p, var * p) - lp
@@ -223,7 +258,7 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
     p_sum = p0
     log_size = torch.zeros(C, dtype=dtype, device=dev)
     depth = torch.zeros(C, dtype=torch.int32, device=dev)
-    go_right = _uniforms(seed, -1, 7, 1, lane)[:, 0] < 0.5
+    go_right = uniforms(-1, 7, 1)[:, 0] < 0.5
     eps = torch.where(go_right, step, -step)
     accept_sum = torch.zeros(C, dtype=dtype, device=dev)
     n_prop = torch.zeros(C, dtype=torch.int32, device=dev)
@@ -234,7 +269,13 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
 
     it = 0
     while not bool(done.all()):
-        u = _uniforms(seed, it, 0, 3, lane)
+        if it & (it + 1) == 0:
+            # a doubling starts (leaf 2^d - 1): the uniforms of its 2^d
+            # leaves in one call
+            u_start = it
+            u_block = uniforms(torch.arange(it, 2 * it + 1, device=dev),
+                               0, 3)
+        u = u_block[it - u_start]
         u0, u1, u2 = u[:, 0], u[:, 1], u[:, 2]
         active = ~done
 
@@ -271,8 +312,7 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
             inc = torch.where(ok_merge[:, None], merged, t1)
             turned = ok_merge & mturn
             for m in range(1, pending):
-                um = _uniforms(seed, it * (int(max_treedepth) + 1) + m, 3, 1,
-                               lane)[:, 0]
+                um = uniforms(it * (int(max_treedepth) + 1) + m, 3, 1)[:, 0]
                 merged, mturn = _merge(um, stack[m], inc, m + 1, var, D)
                 ok = ok_merge & ~turned
                 inc = torch.where(ok[:, None], merged, inc)
@@ -317,13 +357,11 @@ def _transition_core_plain(seed, q0, p0, step, var, lpg, lane,
             rm_end_v = torch.where(g, cur_v, right_v)
             p_sum1 = lm_psum + rm_begin_p
             p_sum2 = lm_end_p + rm_psum
-            turning_full = (
-                (_dot(p_sum_new, var * new_left[1]) <= 0)
-                | (_dot(p_sum_new, var * new_right[1]) <= 0)
-                | (_dot(p_sum1, lm_begin_v) <= 0)
-                | (_dot(p_sum1, rm_begin_v) <= 0)
-                | (_dot(p_sum2, lm_end_v) <= 0)
-                | (_dot(p_sum2, rm_end_v) <= 0))
+            turning_full = _turns([
+                (p_sum_new, var * new_left[1]),
+                (p_sum_new, var * new_right[1]), (p_sum1, lm_begin_v),
+                (p_sum1, rm_begin_v), (p_sum2, lm_end_v),
+                (p_sum2, rm_end_v)])
 
             left = _sel(ok, new_left, left)
             right = _sel(ok, new_right, right)
@@ -460,6 +498,8 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # The CUDA kernels
 
 _MAX_D = 64
+# the kinds of nuts_traced_launch (ops/codegen.py)
+_KINDS = {'frozen': 0, 'warmup': 1, 'block': 2}
 _N_EXTRA = 14  # density scalars past the first two, then the staging plan
 # a block's shared memory on sm_90 (csrc/nuts.cu kMaxSmem), and its warps
 # (chains)
@@ -576,7 +616,6 @@ def _spec_plan(dens_id, dscal, D, max_treedepth, itemsize):
     """``poly_smem_plan`` of a PolyGaussian launch spec (scalars norm,
     gamma, M, F, NNZ, bound on, decay on, alpha, alpha^2, full), else
     None."""
-    from ..ops.densities import DENSITY_IDS
     if dens_id != DENSITY_IDS['poly_gaussian']:
         return None
     M, F, NNZ = (int(v) for v in dscal[2:5])
@@ -615,12 +654,14 @@ _SPECS = weakref.WeakKeyDictionary()
 def _spec_inputs(density):
     """What ``density.kernel_spec()`` is built from. A density with
     ``kernel_spec_key()`` (a ``Density``, whose surrogate is refit in
-    place) names it by content; otherwise: the transform's scales and
+    place; a ``DensityLite`` over a traced logp) names it by content;
+    otherwise: the transform's scales and
     bounds, the compiled-in density's buffers with their in-place versions,
     and its scalar attributes."""
     key_fn = getattr(density, 'kernel_spec_key', None)
-    if key_fn is not None:
-        return [], [key_fn()]
+    key = key_fn() if key_fn is not None else None
+    if key is not None:
+        return [], [key]
     inner = density._logp
     bufs = list(inner.buffers()) if isinstance(inner, torch.nn.Module) else []
     scalars = [(k, v) for k, v in sorted(vars(inner).items())
@@ -672,6 +713,25 @@ def _spec_for(density, like):
     return spec
 
 
+def kernel_refusal(density, dim):
+    """Why the CUDA NUTS kernels cannot sample ``density`` at dimension
+    ``dim`` (a string), or None when they can: a kernel spec (a
+    compiled-in density, a surrogate plan, or a logp that traces into
+    the kernels' op set) and ``dim`` <= ``_MAX_D``, as a lane holds at
+    most two dimensions. The plain versions could run either way; the
+    routing (``ChainDriver.uses_kernels``) asks this first."""
+    if not getattr(density, 'has_kernel_spec', False):
+        why = getattr(density, 'kernel_trace_error', lambda: None)()
+        return ('the density has no kernel_spec()' +
+                (f': {why}' if why else
+                 ' (ops/densities.py, a logp that traces into the op set '
+                 'of ops/trace.py, or a Density whose plan is a PolyModel '
+                 'and a Gaussian)'))
+    if int(dim) > _MAX_D:
+        return f'the CUDA NUTS kernels take D <= {_MAX_D}, got {int(dim)}'
+    return None
+
+
 def _stream_params(density, like, plan):
     """The packed parameters of a launch on the streamed path: the launch
     spec's, then zeros to a multiple of 32 elements, then the tiles
@@ -691,7 +751,9 @@ def _stream_params(density, like, plan):
 
 
 def _launch_spec(spec, like):
-    from ..ops.densities import DENSITY_IDS
+    """(density id, transform rows, packed parameters on ``like``'s dtype
+    and device, logw, scalars); a traced spec's parameters are its
+    program's packed constants."""
     tf = spec['transform']
     tf_mat = torch.stack([tf[k].to(like) for k in
                           ('lo', 'width', 'm_lohi', 'm_lo', 'm_hi')])
@@ -716,7 +778,7 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
     is the ordered list of input tensors after ``q0`` (the pointer table of
     ``csrc/nuts.cu``); ``adapt`` is (target, gamma, k, t_0, adapt_step,
     adapt_metric) for a warmup chunk."""
-    from .._build import load_library
+    from .._build import load_library, load_traced
     C, D = q0.shape
     K = int(n_steps)
     dev, dt = q0.device, q0.dtype
@@ -759,7 +821,9 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
             'count', 'var', 'fg_mean', 'fg_raw', 'fg_w', 'bg_mean',
             'bg_raw', 'bg_w'))]
         rows.update(fin)
-    lib = load_library('nuts')
+    traced = dens_id == DENSITY_IDS['traced']
+    lib = (load_traced(_spec_entry(density, q0)[2]['program'].source(dt))
+           if traced else load_library('nuts'))
     adapt = adapt or (0., 0., 0., 0., False, False)
     adapt_step, adapt_metric = adapt[4:]
     plan = _spec_plan(dens_id, dscal, D, max_treedepth, q0.element_size())
@@ -771,6 +835,17 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
         *[0 if p is None else p.data_ptr() for p in ptrs])
     stream = torch.cuda.current_stream(dev).cuda_stream
     f64 = 1 if dt == torch.float64 else 0
+    if traced:
+        fn = 'nuts_traced_launch'
+        err = lib.nuts_traced_launch(
+            _KINDS[kind], f64, C, D, K, int(max_treedepth), int(seed) & _M32,
+            int(i0) & _M32, int(chain_start) & _M32, int(bool(adapt_step)),
+            int(bool(adapt_metric)), fargs, parr, len(ptrs), stream)
+        if err != 0:
+            raise RuntimeError(
+                f'{fn} failed: CUDA error {err} '
+                f'({lib.nuts_traced_error_string(err).decode()}).')
+        return rows
     if kind == 'block':
         fn = 'nuts_block_launch'
         err = lib.nuts_block_launch(
@@ -803,10 +878,14 @@ def _mat(a, C, D, like):
 def plain_lpg(density, ordered=True):
     """The plain versions' ``(C, D) -> (logp, grad)`` in transformed space:
     for a density with a kernel spec, its analytic form in the kernels'
-    order of operations (``ops.densities.spec_logp_and_grad``; not
-    ``ordered``: in dense torch calls, for the samplers that have no kernel
-    to match); otherwise autograd through the density's torch logp."""
-    if getattr(density, 'has_kernel_spec', False):
+    order of operations (``ops.densities.spec_logp_and_grad``, for a traced
+    logp its program's interpreter; not ``ordered``: in dense torch calls,
+    for the samplers that have no kernel to match); otherwise, and for a
+    traced logp not ``ordered``, autograd through the density's torch
+    logp, the function the user wrote."""
+    traced = getattr(density, 'has_traced_spec', False)
+    if getattr(density, 'has_kernel_spec', False) and (ordered or
+                                                       not traced):
         # the spec of the density as it stands at each call (cached like
         # the launches' own), so a refit between calls is seen
         return lambda x: spec_logp_and_grad(_spec_entry(density, x)[2], x,

@@ -65,10 +65,24 @@ card, drives the port's paths and checks what comes out:
   streamed path's other tile widths and with each chain reading the
   unstaged features itself (tile 0), timed and held bitwise to the
   plan's.
+* a user's own torch density ([14]): ``bench.py``'s banana-32 written in
+  torch (``bayesfast_tpu_torch/examples/user_densities.py``), traced into
+  a program whose functor is generated and built in [2] beside the other
+  kernels, through ``sample`` at [3]'s configuration under
+  ``nuts_kernel='auto'``: every transition on the traced chunk kernels (0
+  tree-loop transitions), [3]'s gates, its rates beside [3]'s. Then the
+  traced frozen and warmup chunks and a block launch bitwise against the
+  program's interpreter at 256 chains, float32 and float64, timed there
+  and at 1024 chains beside the compiled-in banana's chunks on the same
+  state; the funnel, ring and cauchy user forms' traced frozen chunk
+  bitwise in float64 on [12]'s final states; each traced instantiation's
+  registers and spills, nvcc seconds and kernel times.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
-Cauchy instantiation that spills fails the run, except float64 at D > 32.
+Cauchy instantiation that spills fails the run, except float64 at D > 32,
+and so does a float32 traced one. Each phase prints its wall, and a line
+before the last ones all of them.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Every phase that fails makes the script exit non-zero; without
@@ -102,7 +116,8 @@ chains, [7]'s KDE kernel,
 under generator seeds 0 to N - 1 (default 5). Its readings go to
 ``--work`` (default ``bayesfast_tpu_torch/build/ab``), one JSON file a
 process. Last, the A/B says whether the banana draws of [3] and [8], the
-Recipes' n_call and deviation, and [10b]'s and [13b]'s outputs are
+Recipes' n_call and deviation, [10b]'s and [13b]'s outputs and a frozen
+and a warmup chunk of each of [12]'s anchors (float64, a seeded state) are
 bitwise equal in all four processes, and exits 1 if one is not, or if
 this checkout's build spills ([2b]).
 """
@@ -157,6 +172,14 @@ N_PROFILE = 20                     # HMC warmup transitions profiled
 ANCHORS = (('funnel', 16, '3.06 M'), ('ring', 64, '10.2 M'),
            ('cauchy', 48, '32.4-33.8 M'))
 ANCHOR_RHAT, ANCHOR_SIGMAS = 1.02, 4.0
+# [14]: a user's own torch densities (bayesfast_tpu_torch/examples/
+# user_densities.py) traced into the kernels: the generated units built in
+# [2] (the bench banana in both dtypes, the anchors' user forms in
+# float64), and the chains of the traced banana's bitwise checks
+TRACED_UNITS = (('bench_banana', 'float32'), ('bench_banana', 'float64'),
+                ('funnel', 'float64'), ('ring', 'float64'),
+                ('cauchy', 'float64'))
+TRACED_CHAINS = 256
 # one NVIDIA H100 SXM: fp32 and fp64 outside the tensor cores (NVIDIA's
 # data sheet), device memory
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -1410,11 +1433,12 @@ def _poly_leapfrog_ops(dim, spec):
 
 
 def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
-                     block=False):
-    """Both chunk kernels (and with ``block`` one block launch) with the
-    density ``den`` (``name`` in the printed lines) against their plain
-    versions at K = 4 on a path's final state cast to ``dtype``: [10b]'s
-    PolyGaussian, [12]'s anchors. Returns the max abs errors and the plain
+                     block=False, warmup=True):
+    """Both chunk kernels (the frozen one alone without ``warmup``; with
+    ``block`` one block launch too) with the density ``den`` (``name`` in
+    the printed lines) against their plain versions at K = 4 on a path's
+    final state cast to ``dtype``: [10b]'s PolyGaussian, [12]'s anchors,
+    [14]'s traced densities. Returns the max abs errors and the plain
     versions' ms (each the one call compared), keyed by kernel + suffix."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
@@ -1440,18 +1464,19 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
     errs['nuts_multi' + suffix] = _compare(f'nuts_multi {name} {tag}', ker,
                                            ref, C)
     plain_ms['nuts_multi' + suffix] = ms
-    wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
-    step = init_step_size(eps)
-    args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
-            True, wsched)
-    ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
-                                       density=den, i0=i0)
-    steps, mets = nc._warmup_leaves(q, step, metric)
-    ms, ref = _plain_once(torch, lambda: nc.nuts_warmup_chunk_plain(
-        seed, q, steps, mets, *args, plain_lpg, i0))
-    errs['nuts_warmup' + suffix] = _compare(f'nuts_warmup {name} {tag}', ker,
-                                            ref, C)
-    plain_ms['nuts_warmup' + suffix] = ms
+    if warmup:
+        wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
+        step = init_step_size(eps)
+        args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
+                True, wsched)
+        ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
+                                           density=den, i0=i0)
+        steps, mets = nc._warmup_leaves(q, step, metric)
+        ms, ref = _plain_once(torch, lambda: nc.nuts_warmup_chunk_plain(
+            seed, q, steps, mets, *args, plain_lpg, i0))
+        errs['nuts_warmup' + suffix] = _compare(
+            f'nuts_warmup {name} {tag}', ker, ref, C)
+        plain_ms['nuts_warmup' + suffix] = ms
     if block:
         def rows(q_new, stats):
             d = dict(stats._asdict(), q=q_new)
@@ -1770,6 +1795,134 @@ def _anchor_kernels(torch, name, den, carry):
     return out
 
 
+def _traced_sources(torch):
+    """[2] The user densities of [14], each a ``DensityLite`` over a torch
+    logp traced on the card, and the generated translation unit of each of
+    TRACED_UNITS. Returns ({name: (density, info)}, {'name dtype':
+    source})."""
+    from bayesfast_tpu_torch.examples.user_densities import DENSITIES
+    dens = {name: DENSITIES[name]() for name in dict(TRACED_UNITS)}
+    srcs = {f'{name} {dt}': dens[name][0].kernel_spec()['program'].source(
+        getattr(torch, dt)) for name, dt in TRACED_UNITS}
+    return dens, srcs
+
+
+def _traced_leapfrog_ops(program):
+    """Operations of one leapfrog with a traced density behind the fused
+    bound transform: the program's own (``Program.n_ops``, its forward and
+    adjoint nodes, 2 m n a matrix product) and about 70 a dimension for
+    the transition's (the transform and its log-Jacobian, the integrator,
+    the energy and U-turn sums; ``_anchor_leapfrog_ops``)."""
+    return program.n_ops + 70 * program.D
+
+
+def _traced(torch, bt, dens, rates3, anchor_carries, ptxas, builds,
+            smi):
+    """[14] A user's own torch density on the kernels: bench.py's banana-32
+    written in torch (``examples/user_densities.py``) through ``sample``
+    at [3]'s configuration under ``nuts_kernel='auto'``: every transition on
+    the traced chunk kernels (0 tree-loop transitions), [3]'s gates, its
+    rates beside [3]'s. Then the traced frozen and warmup chunks (K = 4)
+    and a block launch held bitwise against the program's interpreter at
+    TRACED_CHAINS chains of the path's final state, float32 and float64,
+    and timed there and at the path's 1024 chains; the funnel, ring and
+    cauchy user forms' frozen chunk (K = 4, float64) on [12]'s final
+    states. Prints each instantiation's kernel ms, ns a leapfrog on the
+    slowest chain, registers and spills (``ptxas``) and its nvcc seconds
+    (``builds``, by label). Returns {kernel row: (launches, max abs error,
+    (ms, plain ms, bound ms, bound by))}."""
+    from bayesfast_tpu_torch import config
+    from bayesfast_tpu_torch.samplers import nuts as tree
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    config.set_dtype(torch.float32)
+    config.set_nuts_kernel('auto')
+    den, info = dens['bench_banana']
+    prog = den.kernel_spec()['program']
+    print(f'[14] traced bench banana: {len(prog.nodes)} nodes '
+          f'({prog.describe()}), {prog.n_ops} operations an evaluation, '
+          f'{_traced_leapfrog_ops(prog)} a leapfrog')
+    # a logp that did not trace would warn and take the tree loop: the
+    # launch counts and the tree-loop transitions fail the phase then
+    tree.nuts_transition_batched.transitions = 0
+    tt, launches, rates = _sample_path(
+        torch, bt, den, info['A'], "[14] main path, bench.py's banana "
+        "written in torch, nuts_kernel='auto'",
+        {'nuts_warmup': 1 + 4 * 2, 'nuts_multi': 3 * 2})
+    n_tree = tree.nuts_transition_batched.transitions
+    print(f'    tree-loop transitions {n_tree}; [3] compiled-in: warmup '
+          f'{rates3["warmup_its"]:.1f} it/s, post {rates3["post_its"]:.1f} '
+          f'it/s, ESS/s {rates3["ess_s"]:.1f}; traced / compiled-in: '
+          f'warmup {rates["warmup_its"] / rates3["warmup_its"]:.3f}, post '
+          f'{rates["post_its"] / rates3["post_its"]:.3f}')
+    if n_tree != 0:
+        raise AssertionError('[14] transitions ran on the tree loop')
+    ops = _traced_leapfrog_ops(prog)
+    rows, errs = {}, {}
+    carry = _first_chains(tt.trace._carry, TRACED_CHAINS)
+    for dt, peak in ((torch.float32, PEAK_FP32), (torch.float64, PEAK_FP64)):
+        tag = str(dt)[6:]
+        c = _cast(carry, dt)
+        C, dim = c.q.shape
+        e, plain_ms = _chunks_vs_plain(torch, den, c, dt, 'traced banana',
+                                       '_traced', block=True)
+        times = _time_chunks(torch, den, c, plain_ms, ops, '_traced', peak)[0]
+        metric = init_diag_metric(c.q, nc._mat(c.metric.var, C, dim, c.q))
+        times['nuts_block_traced'] = _time_block(
+            torch, den, c.q, metric, torch.exp(c.step.log_bar),
+            plain_ms['nuts_block_traced'], ops, peak,
+            f'  nuts_block_traced {tag}')[0]
+        if dt == torch.float32:
+            f32_times = times
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        label = f'bench_banana {tag}'
+        print(f'  traced banana {tag}: kernels {_ptxas_text(ptxas, label)}; '
+              f'built in {builds[label]}; {smi}')
+    print(f'  the same at the path\'s {N_CHAIN} chains, then the compiled-in '
+          f'banana of [3] (the same rotation, Q and bounds) on this state:')
+    _time_chunks(torch, den, tt.trace._carry, None, ops, '_traced C=1024')
+    _time_chunks(torch, _bench_density(torch.float32)[1], tt.trace._carry,
+                 suffix='_compiled-in C=1024')
+    for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
+        k = f'{kind}_traced'
+        rows[k] = (launches.get(kind, 0), errs[k], f32_times[k])
+    for name, carry_a in anchor_carries.items():
+        den_a = dens[name][0]
+        prog_a = den_a.kernel_spec()['program']
+        ops_a = _traced_leapfrog_ops(prog_a)
+        c = _cast(carry_a, torch.float64)
+        print(f'[14] traced {name} (the user form): {len(prog_a.nodes)} '
+              f'nodes, {ops_a} operations a leapfrog; frozen K={K_CMP} at '
+              f'C={c.q.shape[0]}, float64')
+        e, plain_ms = _chunks_vs_plain(torch, den_a, c, torch.float64,
+                                       f'traced {name}', f'_traced_{name}',
+                                       warmup=False)
+        times = _time_chunks(torch, den_a, c, plain_ms, ops_a,
+                             f'_traced_{name}', PEAK_FP64)[0]
+        print(f'  traced {name} float64: kernels '
+              f'{_ptxas_text(ptxas, name + " float64")}; built in '
+              f'{builds[name + " float64"]}; {smi}')
+        k = f'nuts_multi_traced_{name}'
+        rows[k] = (0, e[k], times[k])
+    return rows
+
+
+def _ptxas_text(ptxas, label):
+    return '; '.join(f'{k.split()[0]} {k.split()[-1]}: {v[0]} registers, '
+                     f'{v[2]} / {v[3]} B spilled'
+                     for k, v in sorted(ptxas.get(label, {}).items()))
+
+
+def _wall(walls, tag, t0):
+    """Record in ``walls`` and print the wall of phase ``tag``, started at
+    ``t0``; returns the time now (the next phase's start)."""
+    now = time.time()
+    walls[tag] = now - t0
+    print(f'    {tag} wall {walls[tag]:.1f} s', flush=True)
+    return now
+
+
 def _ptxas_table(log):
     """Registers, stack frame and spill bytes of each kernel in an ``nvcc
     -Xptxas -v`` log, by a short name read off the mangled one: {name:
@@ -1784,7 +1937,8 @@ def _ptxas_table(log):
             kern = re.search(r'nuts_chunk_kernel|nuts_block_kernel', mn)
             name = kern.group(0) if kern else mn
             dens = re.search(
-                r'(PolyGaussian|Banana|Gaussian|Funnel|Ring|Cauchy)', mn)
+                r'(PolyGaussian|Banana|Gaussian|Funnel|Ring|Cauchy|Traced)',
+                mn)
             dt = re.search(r'kernelI([fd])Li(\d)E', mn)
             parts = [name]
             if dt:
@@ -1812,13 +1966,15 @@ def _ptxas_table(log):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def _check_registers():
+def _check_registers(traced=None):
     """[2b] Registers and spills of every NUTS kernel, from the ``-Xptxas
     -v`` output kept beside the library in use; fails if there is none, or
     if a PolyGaussian, Funnel, Ring or Cauchy instantiation spills, other
     than float64 at D > 32 (NE=2), where the transition's own state fills
     the 255 registers (as it did for PolyGaussian before the coefficients
-    were staged)."""
+    were staged). ``traced`` ({label: generated source}, [14]'s units):
+    each one's three kernels too, from its own build's output; a float32
+    traced instantiation must not spill. Returns {label: its table}."""
     from bayesfast_tpu_torch import _build
     log = _build.build_log('nuts')
     if log is None:
@@ -1835,6 +1991,24 @@ def _check_registers():
     bad = [k for k in spills if 'f64 NE=2' not in k]
     if bad or not all(any(g in k for k in table) for g in gated):
         raise AssertionError(f'instantiations spill: {bad}')
+    tables = {}
+    for label, src in (traced or {}).items():
+        log = _build.build_log(source=src)
+        if log is None:
+            raise AssertionError(f'no compiler output beside the traced '
+                                 f'library of {label}')
+        tables[label] = _ptxas_table(log)
+        print(f'[2b] traced {label}:')
+        for k in sorted(tables[label]):
+            print(f'    {k:52s} {tables[label][k]}')
+        if len(tables[label]) != 3:
+            raise AssertionError(f'traced {label}: {len(tables[label])} '
+                                 'kernels, not 3')
+        bad = [k for k, v in tables[label].items()
+               if 'f32' in k and (v[2] or v[3])]
+        if bad:
+            raise AssertionError(f'traced {label}: float32 spills {bad}')
+    return tables
 
 
 class _SpecDensity:
@@ -2019,6 +2193,11 @@ def _ab_one(tree, state, out_path, n_seeds):
             res.update(chains)
             res['digests'].update({f'{n}{suffix} outputs {tag}': _digest(v)
                                    for n, v in outs.items()})
+    # [12]'s instantiations: each anchor's frozen and warmup chunk on a
+    # seeded state, float64
+    for name, dim, _ in ANCHORS:
+        res['digests'][f'{name} chunk outputs [12]'] = _digest(
+            _anchor_chunks(torch, name))
     res['nuts_block'] = _time_block(
         torch, den, *_block_inputs(torch, st['pooled'], torch.float32))[1]
     x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
@@ -2034,6 +2213,34 @@ def _ab_one(tree, state, out_path, n_seeds):
         res['gbs'].append((float(logz), float(err)))
     with open(out_path, 'w') as f:
         json.dump(res, f, indent=1)
+
+
+def _anchor_chunks(torch, name):
+    """A frozen and a warmup K = 4 chunk (float64, 64 chains) with the
+    compiled-in anchor density ``name`` on a state drawn from a seeded
+    generator: the A/B's check that [12]'s instantiations keep their
+    draws. Returns the two chunks' outputs."""
+    from bayesfast_tpu_torch import interop
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    from bayesfast_tpu_torch.samplers.step_size import init_step_size
+    den = getattr(interop, f'{name}_density')()[0]
+    dim = den.input_size
+    rng = np.random.default_rng(dim)
+    q = torch.as_tensor(rng.normal(size=(64, dim)) * 0.3, device='cuda')
+    var = torch.as_tensor(np.exp(rng.normal(size=(64, dim)) * 0.2),
+                          device='cuda')
+    eps = torch.as_tensor(np.exp(rng.normal(size=64) * 0.2) * 0.1,
+                          device='cuda')
+    metric = init_diag_metric(q, var)
+    frozen = nc.nuts_chunk_batched(11, q, metric, eps, K_CMP, MAX_TREEDEPTH,
+                                   MAX_CHANGE, density=den, i0=5)
+    wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
+    warm = nc.nuts_warmup_chunk_batched(
+        11, q, init_step_size(eps), metric, K_CMP, MAX_TREEDEPTH,
+        MAX_CHANGE, 0.8, 0.05, 0.75, 10., True, True, wsched, density=den,
+        i0=5)
+    return frozen, warm
 
 
 def _ab_readings(res):
@@ -2131,13 +2338,29 @@ def main():
     print(f'[1] device: {name}; nvidia-smi: {smi}')
     print(f'    torch {torch.__version__}, CUDA {torch.version.cuda}')
 
-    # ---- [2] build: one nvcc per source, in parallel ----
-    paths = _build.build_library(verbose=True)
+    t_run = t_phase = time.time()
+    walls = {}  # each phase's wall, in the order run
+
+    # ---- [2] build: one nvcc per source, in parallel, the units that
+    # [14]'s traced densities generate too ----
+    traced_dens, traced_srcs = _traced_sources(torch)
+    paths = _build.build_library(verbose=True,
+                                 sources=list(traced_srcs.values()))
     print(f'[2] built {[os.path.relpath(p, _REPO) for p in paths.values()]}'
-          f' in {_build.last_build_seconds:.1f} s')
-    for lib in paths:
+          f' in {_build.last_build_seconds:.1f} s; each nvcc (s): '
+          f'{ {k: round(v, 1) for k, v in _build.last_build_walls.items()} }')
+    builds = {}  # each traced unit's nvcc wall, by its label
+    for label, src in traced_srcs.items():
+        stem = os.path.basename(_build.traced_path(src))[6:-3]
+        w = _build.last_build_walls.get(stem)
+        builds[label] = 'reused, not built' if w is None else f'{w:.1f} s'
+        print(f'    traced {label}: {stem}, nvcc {builds[label]}')
+    for lib in _build.LIBRARIES:
         _build.load_library(lib)
-    _check_registers()
+    for src in traced_srcs.values():
+        _build.load_traced(src)
+    ptxas = _check_registers(traced_srcs)
+    t_phase = _wall(walls, '[2]', t_phase)
 
     # ---- [3] the sampling path at bench.py's configuration (the port's
     # default device is the card) ----
@@ -2145,10 +2368,11 @@ def main():
     config.set_nuts_kernel('cuda')
     A, den = _bench_density(torch.float32)
     nuts_path = os.path.join(_smoke_dir(), 'nuts_warmup.pkl')
-    tt, launches, _ = _sample_path(torch, bt, den, A, '[3] main path',
-                                   {'nuts_warmup': 1 + 4 * 2,
-                                    'nuts_multi': 3 * 2},
-                                   checkpoint=nuts_path)
+    tt, launches, rates3 = _sample_path(torch, bt, den, A, '[3] main path',
+                                        {'nuts_warmup': 1 + 4 * 2,
+                                         'nuts_multi': 3 * 2},
+                                        checkpoint=nuts_path)
+    t_phase = _wall(walls, '[3]', t_phase)
 
     # ---- [3b] known moments: a bounded diag Gaussian through the kernels
     mean, var_g, den_g = _diag_gaussian(torch, bt)
@@ -2156,6 +2380,7 @@ def main():
                                     n_warmup=150, random_generator=3),
                    verbose=False)
     _gaussian_gate(tg.get(), mean, var_g, '[3b]')
+    t_phase = _wall(walls, '[3b]', t_phase)
 
     # ---- [4] each kernel against its plain version, on the main path's
     # final state ----
@@ -2163,21 +2388,25 @@ def main():
     carry = tt.trace._carry
     errs64 = _kernel_vs_plain(torch, den, carry, torch.float64)[0]
     errs32, plain32 = _kernel_vs_plain(torch, den, carry, torch.float32)
+    t_phase = _wall(walls, '[4]', t_phase)
 
     # ---- [5] one chunk: kernel time beside the plain version's ----
     print('[5] chunk timing (CUDA events)')
     times = _time_chunks(torch, den, tt.trace._carry, plain32)[0]
     print(f'    max abs err float64 {errs64}, float32 {errs32}')
+    t_phase = _wall(walls, '[5]', t_phase)
 
     # ---- [6] the evidence path: GBS on the sampling path's trace ----
     launches['kde_cdf'] = _gbs_on_trace(bt, tt, den)
     _device_share(torch, '[6b] profiled GBS',
                   lambda: bt.evidence.GBS(f_call=F_CALL, n_q_max=N_Q_MAX)(
                       tt, den.logp))
+    t_phase = _wall(walls, '[6]', t_phase)
 
     # ---- [7] the KDE kernel against its plain version ----
     print('[7] KDE kernel vs plain, SIT fit shape')
     errs32['kde_cdf'], times['kde_cdf'] = _kde_vs_plain(torch, tt)
+    t_phase = _wall(walls, '[7]', t_phase)
 
     # ---- [8] pooled-metric sampling: warmup on the block kernel, one
     # launch per transition, post-warmup on the frozen chunks ----
@@ -2189,6 +2418,7 @@ def main():
     print(f'    shared metric variance shape {var_shape}')
     if var_shape != (D,):
         raise AssertionError(f'pooled variance of shape {var_shape}')
+    t_phase = _wall(walls, '[8]', t_phase)
 
     # ---- [8b] the block kernel against its plain version ----
     print('[8b] block kernel vs plain, C=1024, D=32, pooled final state')
@@ -2204,15 +2434,18 @@ def main():
     times['nuts_block'] = _time_block(
         torch, den, *_block_inputs(torch, carry, torch.float32), plain32)[0]
     _pooled_step_share(torch, den, carry, 50)
+    t_phase = _wall(walls, '[8b]-[8d]', t_phase)
 
     # ---- [9] the full metric on the torch tree loop ----
     _tree_loop(torch, bt)
+    t_phase = _wall(walls, '[9]', t_phase)
 
     # ---- [10] the DES-like Recipe at full width, every sample step on the
     # chunk kernels with the compiled-in PolyGaussian density ----
     rec, des_launches, _ = _des_recipe(torch, bt)
     launches['nuts_multi_poly'] = des_launches['nuts_multi']
     launches['nuts_warmup_poly'] = des_launches['nuts_warmup']
+    t_phase = _wall(walls, '[10]', t_phase)
 
     # ---- [10b] the PolyGaussian chunk kernels against their plain
     # versions, then timed, on the last sample step's state ----
@@ -2238,11 +2471,13 @@ def main():
     for dt in (torch.float64, torch.float32):
         _chunks_vs_plain(torch, den_f, carry_p, dt, 'PolyGaussian', '_poly',
                          label='full cov ')
+    t_phase = _wall(walls, '[10b]', t_phase)
 
     # ---- [11] the other samplers (plain torch on the card) and the
     # checkpoint resume of NUTS and ChEES ----
     config.set_dtype(torch.float32)
     _other_samplers(torch, bt, den, A, tt, nuts_path)
+    t_phase = _wall(walls, '[11]', t_phase)
 
     # ---- [12] the GBS anchors through their twins' main(), every
     # transition on the chunk kernels with the density compiled in; then
@@ -2261,6 +2496,7 @@ def main():
             anchor_rows[k] = (
                 launches_a[kind], max(e[k] for e, _ in by_dt.values()),
                 by_dt[torch.float64][1][k])
+    t_phase = _wall(walls, '[12]', t_phase)
 
     # ---- [13] the DES-like Recipe with the cubic surrogate in both sample
     # steps, every transition on the chunk kernels; [13b] the three kernels
@@ -2275,6 +2511,16 @@ def main():
         launches[k] = cubic_launches[kind]
         errs32[k] = errs_c[k]
         times[k] = times_c[torch.float32][k]
+    t_phase = _wall(walls, '[13]', t_phase)
+
+    # ---- [14] a user's own torch density traced into the kernels:
+    # bench.py's banana written in torch through sample() under 'auto', the
+    # traced kernels bitwise against the program's interpreter, the
+    # anchors' user forms ----
+    traced_rows = _traced(torch, bt, traced_dens, rates3,
+                          {a: c for a, _, c, _ in anchor_runs}, ptxas, builds,
+                          smi)
+    t_phase = _wall(walls, '[14]', t_phase)
 
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
@@ -2323,6 +2569,22 @@ def main():
                      'launches': n, 'max_abs_err': err, 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': None})
+    # [14]'s traced instantiations: launches on its main path (the block
+    # kernel has none: the path adapts per chain), float32 times for the
+    # banana, float64 for the anchors' user forms
+    for k, (n, err, (ms, plain_ms, bound_ms, bound_by)) in \
+            traced_rows.items():
+        line = pallas[k.split('_traced')[0]]
+        rows.append({'name': k, 'route': 'cuda',
+                     'source': 'bayesfast_tpu_torch/csrc/nuts_kernels.cuh',
+                     'replaces': f'bayesfast_tpu/samplers/nuts_pallas.py:'
+                                 f'{line}',
+                     'launches': n, 'max_abs_err': err, 'ms': ms,
+                     'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                     'bound_by': bound_by, 'library_ms': None})
+    print('phase walls (s): ' + ', '.join(f'{k} {v:.1f}'
+                                          for k, v in walls.items())
+          + f'; total {time.time() - t_run:.1f}')
     print(smi)
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
