@@ -41,6 +41,8 @@ _traced = {}  # generated source -> its loaded library
 last_build_seconds = None
 #: each library's nvcc wall in the last build, by name (started together)
 last_build_walls = {}
+#: every generated unit this process compiled: its stem -> nvcc seconds
+traced_builds = {}
 
 
 def _nvcc():
@@ -135,6 +137,8 @@ def build_library(names=None, verbose=False, sources=()):
     last_build_seconds = time.time() - t0 if jobs else 0.0
     last_build_walls.clear()
     last_build_walls.update(walls)
+    traced_builds.update((n, w) for n, w in walls.items()
+                         if n.startswith('traced_'))
     if failed:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
     return paths

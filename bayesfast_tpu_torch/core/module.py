@@ -47,6 +47,39 @@ def _external_row_job(fun, fun_args, fun_kwargs, np_args):
                            for o in out])
 
 
+def _trace_state(v, skip):
+    """A value equal between two calls exactly when a module holding ``v``
+    would trace into the same program with the same captured constants:
+    arrays and tensors by their bytes, numbers, callables by
+    ``ops.trace.trace_key``, containers and plain objects item by item,
+    without the attributes named in ``skip`` (dynamic parameters, which are
+    the program's runtime inputs)."""
+    from ..ops.trace import trace_key
+    if isinstance(v, np.ndarray):
+        return ('a', str(v.dtype), v.shape, v.tobytes())
+    if torch.is_tensor(v):
+        t = v.detach().cpu().contiguous()
+        return ('t', str(t.dtype), tuple(t.shape), t.numpy().tobytes())
+    if isinstance(v, (float, np.floating)):
+        return ('n', float(v).hex())
+    if isinstance(v, (bool, int, str, type(None), np.integer)):
+        return ('n', v)
+    if isinstance(v, PropertyList):
+        v = list(v)
+    if isinstance(v, dict):
+        return ('d',) + tuple((k, _trace_state(x, skip))
+                              for k, x in sorted(v.items()))
+    if isinstance(v, (list, tuple)):
+        return ('l',) + tuple(_trace_state(x, skip) for x in v)
+    if callable(v):
+        return ('f',) + trace_key(v)
+    if hasattr(v, '__dict__'):
+        return (type(v).__name__,) + tuple(
+            (k, _trace_state(x, skip)) for k, x in sorted(vars(v).items())
+            if k not in skip)
+    return ('o', id(v))
+
+
 def _as_rows(a, n):
     """A module output as an (n, k) tensor (a (n,) output is one column)."""
     a = torch.as_tensor(a)
@@ -82,10 +115,25 @@ class ModuleBase:
 
     # ------------- dynamic parameters -------------
 
+    #: attributes (of the module and the objects it holds) that
+    #: ``dynamic_params`` reads: a trace takes them as runtime inputs
+    _dynamic_attrs = ()
+
     def dynamic_params(self):
         """Snapshot of the fit-time-mutable arrays (empty for plain
         modules)."""
         return ()
+
+    def _trace_key(self):
+        """A value equal between two calls exactly when a trace of this
+        module's evaluation would give the same program and captured
+        constants: its class and every attribute but its dynamic
+        parameters and call counters (the callables it holds by
+        ``ops.trace.trace_key``)."""
+        skip = self._dynamic_attrs
+        return (type(self).__name__,) + tuple(
+            (k, _trace_state(v, skip)) for k, v in sorted(vars(self).items())
+            if k not in skip and not k.startswith('_ncall'))
 
     # ------------- batched evaluation -------------
 

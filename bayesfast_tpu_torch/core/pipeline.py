@@ -9,16 +9,23 @@ becomes one loop. Surrogate substitution (``use_surrogate``) picks the
 plan; gradients come from autograd through the constraint transform, the
 plan and the decay penalty.
 
-A ``Density`` whose active plan is a ``PolyModel`` surrogate followed by a
-``Gaussian`` likelihood also describes itself to the CUDA NUTS
-kernels (``kernel_spec``): the kernels cannot trace a torch function, so
-they evaluate that surrogate density compiled in (``ops/densities.py``).
+A ``Density`` describes its active plan to the CUDA NUTS kernels
+(``kernel_spec``) two ways. A ``PolyModel`` surrogate followed by a
+``Gaussian`` likelihood is compiled in (``ops/densities.py``,
+``PolyGaussian``). Any other plan of traceable modules is traced once, as
+the JAX package's kernels trace ``Density.device_logp_and_grad``
+(``nuts_pallas.py:576-607``): ``_logp_traced`` on one point, in the
+original space, under ``make_fx`` (``ops/trace.py``), with the flattened
+``current_params()`` as the program's runtime parameters, so a refit
+packs new parameters into the same program and the same generated kernels
+(``ops/codegen.py``). A plan that does not trace samples on the tree loop.
 """
 
 from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ..config import get_device, get_dtype
 from ..ops import constraint as _con
@@ -333,6 +340,8 @@ class Pipeline(_PipelineBase):
 class Density(Pipeline, _DensityBase):
     """Pipeline specialized for log-densities (``pipeline.py:368-571``)."""
 
+    _trace = None  # (structure key, Program or TraceError), see _program
+
     def __init__(self, density_name='__var__', decay_options=None,
                  return_dict=False, **kwargs):
         self.density_name = density_name
@@ -544,7 +553,14 @@ class Density(Pipeline, _DensityBase):
     def _get_logp(self, var_dicts):
         return self._get_var(var_dicts, [self.density_name])[..., 0]
 
-    # ------------- the compiled-in surrogate density -------------
+    def __getstate__(self):
+        # a checkpoint or a copy keeps the plan, not its trace: traced
+        # again at first use
+        state = dict(self.__dict__)
+        state.pop('_trace', None)
+        return state
+
+    # ------------- the CUDA NUTS kernels: a compiled-in or traced plan ---
 
     def _kernel_parts(self):
         """``(PolyModel, Gaussian)`` when the active plan is exactly the
@@ -573,13 +589,90 @@ class Density(Pipeline, _DensityBase):
               and ga.mean.shape[0] == su.output_size)
         return (su, ga) if ok else None
 
+    def _param_leaves(self):
+        """``current_params()`` flattened: (its leaves, numpy arrays and
+        floats; the tree's structure)."""
+        return pytree.tree_flatten(self.current_params())
+
+    def _trace_structure(self):
+        """A value equal between two calls exactly when ``_program`` would
+        trace the same program: each module of the active plan by its
+        ``_trace_key`` (everything but its dynamic parameters), the
+        density's own settings and the run's dtype and device."""
+        plan = self._plan(self.use_surrogate)
+        mods = tuple((kind, int(idx), self._module_by_ref(kind, idx)
+                      ._trace_key()) for kind, idx in plan)
+        shapes = (None if self._input_shapes is None
+                  else self._input_shapes.tobytes())
+        return (mods, self.input_size, tuple(self.input_vars), shapes,
+                self._density_name, self._use_decay,
+                float(self._gamma).hex(), self.use_surrogate,
+                str(get_dtype()), str(get_device()))
+
+    def _program(self):
+        """The active plan traced (``ops.trace.trace_density``):
+        ``_logp_traced`` of one point in the original space, with the
+        leaves of ``current_params()`` as the program's runtime parameters,
+        in the configured dtype on the configured device; kept until the
+        plan's structure (``_trace_structure``) or the parameters' tree
+        changes. A ``TraceError`` when it does not trace, when the plan has
+        an external module, or at D > 64."""
+        from ..ops.trace import TraceError, trace_density
+        D = self.input_size
+        us = self.use_surrogate
+        if D is None:
+            return TraceError('input_size is not set: the plan is traced at '
+                              'one point of that size')
+        if D > 64:
+            return TraceError(f'the CUDA NUTS kernels take D <= 64, got {D}')
+        if self._has_external(us):
+            names = [self._module_by_ref(k, i).label or f'{k} #{i}'
+                     for k, i in self._plan(us)
+                     if not self._module_by_ref(k, i).traceable]
+            return TraceError(f'the plan has an external (non-traceable) '
+                              f'module, {names[0]}: it runs on the host')
+        leaves, tree = self._param_leaves()
+        key = (self._trace_structure(), str(tree),
+               tuple(np.shape(v) for v in leaves))
+        if self._trace is None or self._trace[0] != key:
+            def logp(x, *params):
+                p = pytree.tree_unflatten(list(params), tree)
+                return self._logp_traced(x[None], p, True, us)[0]
+            try:
+                prog = trace_density(logp, D, get_dtype(), get_device(),
+                                     self._leaf_tensors(leaves), batch=True)
+            except TraceError as exc:
+                prog = exc
+            self._trace = (key, prog)
+        return self._trace[1]
+
+    @staticmethod
+    def _leaf_tensors(leaves):
+        return [torch.as_tensor(np.asarray(v, np.float64), dtype=get_dtype(),
+                                device=get_device()) for v in leaves]
+
+    @property
+    def has_traced_spec(self):
+        """Whether the kernel spec is the traced plan's (not the
+        compiled-in ``PolyGaussian``)."""
+        return (self._kernel_parts() is None
+                and not isinstance(self._program(), Exception))
+
     @property
     def has_kernel_spec(self):
         """Whether the CUDA NUTS kernels can sample this density as it
-        stands: a PolyModel surrogate of any orders, with or without its
-        own input scales, then a Gaussian, at D <= 64 (see
-        ``_kernel_parts``)."""
-        return self._kernel_parts() is not None
+        stands: a PolyModel surrogate then a Gaussian, compiled in (see
+        ``_kernel_parts``), or any other plan that traces into the
+        kernels' op set at D <= 64 (``_program``)."""
+        return self._kernel_parts() is not None or self.has_traced_spec
+
+    def kernel_trace_error(self):
+        """Why the plan does not trace (a string), or None; None for the
+        compiled-in plan."""
+        if self._kernel_parts() is not None:
+            return None
+        prog = self._program()
+        return str(prog) if isinstance(prog, Exception) else None
 
     def _kernel_sources(self):
         """Everything ``kernel_spec`` is built from, as numpy arrays and
@@ -615,7 +708,16 @@ class Density(Pipeline, _DensityBase):
         would be: the bytes of every array and float it is built from, so
         a refit in place (new coefficients in the same arrays), a new
         bound or decay, or new scales (the density's or the surrogate's)
-        all change it."""
+        all change it; for a traced plan, the plan's structure and the
+        bytes of its parameters."""
+        bounds = (None if self._input_scales is None
+                  else self._input_scales.tobytes(),
+                  np.asarray(self._hard_bounds).tobytes())
+        if self._kernel_parts() is None:
+            leaves, tree = self._param_leaves()
+            return ('traced', self._trace_structure(), str(tree),
+                    tuple(np.asarray(v, np.float64).tobytes()
+                          for v in leaves)) + bounds
         src = self._kernel_sources()
         out = [src['dim'], src['n_out'], src['norm']]
         for order, im, om, a in src['configs']:
@@ -633,12 +735,27 @@ class Density(Pipeline, _DensityBase):
         return tuple(out)
 
     def kernel_spec(self):
-        """The compiled-in description of the surrogate density for the
-        CUDA NUTS kernels (``ops.densities.poly_gaussian_spec``) plus the
+        """The description of the density for the CUDA NUTS kernels: the
+        compiled-in surrogate (``ops.densities.poly_gaussian_spec``), or
+        the traced plan (density ``'traced'``: its ``program`` and the
+        program's constants packed from the current parameters), plus the
         fused bound transform; raises ``NotImplementedError`` when
         ``has_kernel_spec`` is False."""
         from ..ops.densities import poly_gaussian_spec
-        spec = poly_gaussian_spec(**self._kernel_sources())
+        if self._kernel_parts() is not None:
+            spec = poly_gaussian_spec(**self._kernel_sources())
+        else:
+            prog = self._program()
+            if isinstance(prog, Exception):
+                raise NotImplementedError(
+                    f'this density has no kernel_spec(): the CUDA NUTS '
+                    f'kernels take a PolyModel surrogate then a Gaussian '
+                    f'compiled in, and any other plan that traces into their '
+                    f'op set (ops/trace.py); this one does not: {prog}')
+            leaves = self._leaf_tensors(self._param_leaves()[0])
+            spec = dict(density='traced', dim=prog.D, program=prog,
+                        params=[prog.pack(leaves=leaves)],
+                        scalars=(0.0, 0.0))
         D = spec['dim']
         scales = self._input_scales
         if scales is None:

@@ -7,8 +7,9 @@ model evaluation of a phase is one batched ``density.fun(x)`` (torch on the
 device for traceable modules, the host pool of ``utils.parallel`` for
 external ones), and every surrogate sample step runs all its chains
 together through ``sample``: on the CUDA NUTS chunk kernels when the
-surrogate density is compiled in (``Density.kernel_spec``), else on the
-torch tree loop.
+surrogate density is compiled in or its plan traces
+(``Density.kernel_spec``: one generated kernel unit for each plan
+structure, reused across refits), else on the torch tree loop.
 """
 
 from collections import namedtuple
@@ -606,6 +607,18 @@ class Recipe:
         if verbose:
             print('\n ***** OptimizeStep finished. ***** \n')
 
+    def _sample(self, trace):
+        """``sample`` the density; prints the nvcc seconds of each kernel
+        unit the run built (a traced plan's, ``_build.load_traced``)."""
+        from .. import _build
+        before = set(_build.traced_builds)
+        tt = sample(self.density, sample_trace=trace)
+        for stem, s in _build.traced_builds.items():
+            if stem not in before:
+                print(f' *** built the kernels of the traced plan ({stem}) '
+                      f'in {s:.1f} s of nvcc. *** ')
+        return tt
+
     def _opt_sample(self):
         """Sample the surrogate selected by the optimize phase (reference
         ``recipe.py:962-984``)."""
@@ -625,7 +638,7 @@ class Recipe:
 
         self._density.surrogate_list = list(results[-1].surrogate_list)
         self._density.use_surrogate = True
-        tt = sample(self.density, sample_trace=trace)
+        tt = self._sample(trace)
         results[-1] = results[-1]._replace(samples=tt.get(flatten=True),
                                            sample_trace=tt)
         print('\n *** OptimizeStep: sampled the selected surrogate '
@@ -748,7 +761,7 @@ class Recipe:
                     self.density.fit(var_dicts_fit)
 
                 self.density.use_surrogate = True
-                tt = sample(self.density, sample_trace=trace)
+                tt = self._sample(trace)
                 rt._r_sample.append(SampleResult(
                     samples=tt.get(flatten=True),
                     surrogate_list=deepcopy(list(
@@ -757,7 +770,7 @@ class Recipe:
             else:
                 if isinstance(self._density, Density):
                     self.density.use_surrogate = False
-                tt = sample(self.density, sample_trace=trace)
+                tt = self._sample(trace)
                 rt._r_sample.append(SampleResult(
                     samples=tt.get(flatten=True), surrogate_list=(),
                     var_dicts=None, sample_trace=tt))

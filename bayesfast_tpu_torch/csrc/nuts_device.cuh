@@ -143,8 +143,12 @@ __host__ __device__ constexpr int row_stride() {
 // 4, 2, 1. That is five dependent adds after the slots, where a sum in
 // order over k is 32 NI, and the plain version is one product and a
 // butterfly over a (C, m, n) tensor, where one in order is 2 n launches.
-// Padded products are 0 * 0 = +0, as warp_sum pads with +0.
-template <typename T, int NI, int NO, int S>
+// Padded products are 0 * 0 = +0, as warp_sum pads with +0. N, the length
+// of x known when the functor is generated, lets the padded products past
+// it be that constant +0 without a load: a matrix 2 or 3 wide then keeps
+// a few partial sums live, not 32 (the adds of the levels stay, since s +
+// 0 is not s when s is -0).
+template <typename T, int NI, int NO, int S, int N = 32 * NI>
 __device__ __forceinline__ void tree_matvec(const T* __restrict__ M,
                                             T* __restrict__ xbuf,
                                             const T (&x)[NI], int n,
@@ -164,6 +168,12 @@ __device__ __forceinline__ void tree_matvec(const T* __restrict__ M,
     for (int e = 0; e < NI; ++e) {
 #pragma unroll
       for (int k0 = 0; k0 < 32; k0 += V::n) {
+        if (32 * e + k0 >= N) {
+#pragma unroll
+          for (int i = 0; i < V::n; ++i)
+            s[k0 + i] = e == 0 ? T(0) : s[k0 + i] + T(0);
+          continue;
+        }
         const typename V::type xv =
             *reinterpret_cast<const typename V::type*>(xbuf + 32 * e + k0);
         const typename V::type mv =

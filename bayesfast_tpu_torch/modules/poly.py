@@ -284,6 +284,10 @@ class PolyModel(Surrogate):
 
     # ------------- dynamic parameters -------------
 
+    # the coefficients (each config's ``_a``), the bound and a cache derived
+    # from the masks
+    _dynamic_attrs = ('_mu', '_hess', '_alpha', '_f_mu', '_a', '_idx')
+
     @property
     def bound_active(self):
         """Whether evaluation extrapolates beyond the bound: ``use_bound``

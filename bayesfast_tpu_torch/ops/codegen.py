@@ -37,18 +37,32 @@ rules of the hand-written ``Banana`` hold:
 
 Every node is one C++ statement (a loop over its slots), in the
 program's order of operations; literals are hexadecimal, rounded to the
-run dtype as torch rounds a Python number; ``pow`` is already products.
+run dtype as torch rounds a Python number; ``pow`` is already products. A
+comparison is ``(a < b) ? 1 : 0`` a slot and a select ``c != 0 ? a : b``
+(selects, not branches: a comparison of scalars holds the same bits in
+every lane); a scatter-add is its sums in program order, gathers of the
+sources added in turn. ``check_limits`` refuses, at the trace, a program
+whose staged matrices and warp buffers pass a block's shared memory or
+whose gather tables pass the constant memory, so a launch never meets one.
 """
 
 import torch
 
-from .trace import BINARY, UNARY
+from .trace import BINARY, CMP, UNARY, TraceError
 
-__all__ = ['cuda_source']
+__all__ = ['cuda_source', 'check_limits']
 
 _UN = {'neg': '-{0}', 'recip': 'Real(1) / {0}', 'exp': 'm_exp({0})',
        'log': 'm_log({0})', 'log1p': 'm_log1p({0})', 'sqrt': 'm_sqrt({0})'}
 _BIN = {'add': '+', 'sub': '-', 'mul': '*', 'div': '/'}
+_CMP = {'lt': '({0} < {1})', 'le': '({0} <= {1})', 'gt': '({0} > {1})',
+        'ge': '({0} >= {1})', 'eq': '({0} == {1})', 'ne': '({0} != {1})',
+        'and': '({0} != Real(0) && {1} != Real(0))',
+        'or': '({0} != Real(0) || {1} != Real(0))'}
+# what one block may hold (csrc/nuts_device.cuh kMaxSmem) and what one
+# module's __constant__ data may take
+MAX_SMEM = 232448
+MAX_CONST = 65536
 
 
 def _slots(n):
@@ -100,6 +114,21 @@ class _Layout:
 
     def mat(self, attr):
         return next(k for k, m in enumerate(self.mats) if m[:2] == attr)
+
+
+def check_limits(program, itemsize):
+    """Raise ``TraceError`` when the functor of ``program`` at
+    ``itemsize`` bytes a value does not fit the kernels: its staged
+    matrices and warp buffers past a block's shared memory, or its gather
+    tables past the constant memory."""
+    lay = _Layout(program, itemsize)
+    smem, table = lay.smem * itemsize, 4 * len(lay.table)
+    if smem > MAX_SMEM:
+        raise TraceError(f'the program stages {smem} bytes of matrices in '
+                         f'shared memory, past the {MAX_SMEM} a block has')
+    if table > MAX_CONST:
+        raise TraceError(f'the program\'s gather tables take {table} bytes '
+                         f'of constant memory, past its {MAX_CONST}')
 
 
 def _ancestors(p, roots):
@@ -178,9 +207,13 @@ def cuda_source(program, dtype):
         return out
 
     members, stage, bind = [], [], []
+    if lay.mats:
+        # one base pointer: each matrix at a constant offset from it
+        members.append('const Real* sm;  // the staged matrices')
+        bind.append('sm = smem;')
     for k, (idx, tr, m, n, rows, stride, off) in enumerate(lay.mats):
-        members.append(f'const Real* sm{k};  // constant {idx}'
-                       f'{" transposed" if tr else ""}: {m} x {n}, '
+        members.append(f'// sm + {off}: constant {idx}'
+                       f'{" transposed" if tr else ""}, {m} x {n}, '
                        f'{rows} rows of {stride}')
         poff = p.offsets[idx]
         src = (f'par[{poff} + c * {m} + r]' if tr
@@ -190,7 +223,6 @@ def cuda_source(program, dtype):
                   f'  const int r = i / {stride}, c = i % {stride};',
                   f'  smem[{off} + i] = r < {m} && c < {n} ? {src} : '
                   f'Real(0);', '}']
-        bind.append(f'sm{k} = smem + {off};')
     if lay.xbuf:
         members.append(f'Real* xbuf;  // this warp\'s {lay.xbuf} values')
         bind.append(f'xbuf = smem + {lay.xbuf_off} + (threadIdx.x >> 5) * '
@@ -239,7 +271,15 @@ def cuda_source(program, dtype):
             expr = _UN[op].format(ref(a[0]))
         elif op in BINARY:
             expr = f'{ref(a[0])} {_BIN[op]} {ref(a[1])}'
-        if op in UNARY or op in BINARY:
+        elif op in CMP:
+            expr = (_CMP[op].format(ref(a[0]), ref(a[1])) +
+                    ' ? Real(1) : Real(0)')
+        elif op == 'not':
+            expr = f'{ref(a[0])} == Real(0) ? Real(1) : Real(0)'
+        elif op == 'where':
+            expr = f'{ref(a[0])} != Real(0) ? {ref(a[1])} : {ref(a[2])}'
+        if op in UNARY or op in BINARY or op in CMP or op in ('not',
+                                                              'where'):
             return vec(expr) if ns else [f'const Real v{i} = {expr};']
         if op == 'sum':
             return ([f'Real v{i};', '{'] +
@@ -247,10 +287,12 @@ def cuda_source(program, dtype):
                     [f'  v{i} = warp_sum(p);', '}'])
         if op == 'mv':
             k = lay.mat(nd.attr)
-            _, _, _, n_in, _, stride, _ = lay.mats[k]
+            _, _, _, n_in, _, stride, off = lay.mats[k]
+            full = n_in == 32 * _slots(n_in)
             return [f'Real v{i}[{ns}];',
-                    f'tree_matvec<Real, {_slots(n_in)}, {ns}, {stride}>('
-                    f'sm{k}, xbuf, v{a[0]}, {n_in}, v{i});']
+                    f'tree_matvec<Real, {_slots(n_in)}, {ns}, {stride}'
+                    f'{"" if full else f", {n_in}"}>('
+                    f'sm + {off}, xbuf, v{a[0]}, {n_in}, v{i});']
         if op == 'pick':
             return [f'const Real v{i} = __shfl_sync(kFull, '
                     f'v{a[0]}[{nd.attr >> 5}], {nd.attr & 31});']

@@ -1,29 +1,66 @@
-"""Trace a user's torch logp into a straight-line program, with its
-gradient, and interpret that program in the CUDA NUTS kernels' order.
+"""Trace a torch logp, or a ``Density`` plan, into a straight-line program,
+with its gradient, and interpret that program in the CUDA NUTS kernels'
+order.
 
 Counterpart of ``_trace_density`` (``bayesfast_tpu/samplers/
 nuts_pallas.py:576-607``), which traces the per-point jnp density once
-into a closed jaxpr whose constants become kernel inputs. Here
-``trace_density`` runs the user's ``logp`` once on one point ``x`` of
+into a closed jaxpr whose parameter leaves become kernel inputs. Here
+``trace_density`` runs ``logp(x, *leaves)`` once on one point ``x`` of
 shape (D,) under ``torch.fx.experimental.proxy_tensor.make_fx`` and lowers
 the aten graph into a ``Program``: a straight-line list of nodes over
 scalars and vectors of static length. The tensors the function closes
-over (a rotation, a mask) become the program's constants, read from one
-packed parameter vector (``Program.pack``): a new matrix changes the
-parameters, not the program. Python numbers in the function become
-literals of the program.
+over (a rotation, a mask) and the ``leaves`` (a ``Density``'s
+``current_params()``: a surrogate's coefficients and bound, the decay)
+become the program's constants, read from one packed parameter vector
+(``Program.pack``, which takes new leaves): a new matrix or a refit
+changes the parameters, not the program. Python numbers in the function
+become literals of the program.
 
-The op set is what ``bench.py``'s density and the JAX examples' densities
-need: elementwise ``add``, ``sub``, ``mul``, ``div``, ``neg``, ``pow`` by
-a constant integer (written as products), ``reciprocal``, ``exp``,
-``log``, ``log1p`` and ``sqrt`` over scalars and vectors with
-broadcasting; ``sum`` over the last axis (and ``dot``); ``mv`` / ``mm`` of
-a vector by a constant matrix (``x @ A.T`` included); static ``slice``
-with a step, ``select``, ``cat`` and ``roll``; and the layout ops around
-them (views, ``unsqueeze``, ``squeeze``, transposes of a constant,
-``_to_copy`` of a constant). Any other aten op raises ``TraceError``
-naming it; so does control flow on the data (``make_fx`` refuses to read
-a value).
+Every value is lowered with its tensor shape, its elements in row-major
+order: a plan runs on (N, .) tensors (``core/pipeline.py::_eval_vars``)
+and is traced at N = 1, so its (1, n) rows are vectors of n and the unit
+batch axis costs nothing (broadcasts, reductions and views see the shapes;
+``torch.func.vmap`` would widen the op set by its decompositions). The op
+set: elementwise ``add``, ``sub``, ``mul``, ``div``, ``neg``, ``pow`` by a
+constant integer (products), ``reciprocal``, ``exp``, ``log``, ``log1p``
+and ``sqrt`` with broadcasting; ``sum`` over any axes (and ``dot``);
+``mm`` / ``mv`` of a value by a constant matrix either side (and of two
+values, as sums of products); the comparisons ``lt``, ``le``, ``gt``,
+``ge``, ``eq``, ``ne``, ``logical_and`` / ``or`` / ``not`` (1 where they
+hold, else 0; no gradient) and the select ``where``, with ``clamp``,
+``clamp_min``, ``clamp_max``, ``maximum`` and ``minimum`` written as
+selects of comparisons; every data movement (views, ``slice``,
+``select``, ``cat``, ``stack``, ``roll``, ``flip``, ``expand``,
+``permute``, ``index`` and ``index_select`` / ``gather`` by a constant
+integer index) as a gather; a scatter-add (``index_add``,
+``index_put(accumulate=True)``) by a constant index, each output
+position the sum of its sources in the program's order (after the base,
+unless the base is zeros), and ``index_put`` without accumulation. An op
+whose inputs are all constants is evaluated at the trace and kept as a
+constant, computed again from the leaves at each ``pack`` (never a
+literal: ``where(isfinite(alpha), alpha, 1)`` follows every refit of
+alpha); ``zeros``, ``ones_like``, ``full`` and the like, made from
+numbers alone, are literals. In-place ops on a value the function made
+are lowered as their out-of-place forms. Any other aten op raises
+``TraceError`` naming it; so does control flow on the data (``make_fx``
+refuses to read a value), a random factory, an in-place op on a view or
+on a constant the function reads, an index that depends on the
+parameters, and a program that does not fit the kernels' shared or
+constant memory (``ops.codegen.check_limits``).
+
+Gradients at ties follow torch's autograd: ``clamp``'s goes to x where lo
+<= x <= hi (a bound included), ``maximum``'s and ``minimum``'s split in
+half; ``where``'s takes the selected branch, the other a zero (as JAX's
+``where``), so an unselected branch that is finite keeps the gradient
+finite. A scatter-add into zeros starts from its first source: where that
+is -0, torch's ``0 + s`` is +0 and the program's -0, the only
+difference.
+
+In the kernels (``ops/codegen.py``) a comparison of per-chain scalars is
+warp-uniform (every lane holds the scalar's bits, as after a ``sum``): the
+bound's ``beta <= alpha``, the decay's ``clamp``; a comparison of vectors
+is a per-lane select. Neither branches on a lane: a select is ``c ? a :
+b`` on values both computed.
 
 The gradient is the program's own reverse-mode adjoint, written in the
 same node set (``_adjoint``), not a trace of autograd: every sum of the
@@ -70,6 +107,9 @@ class Node:
 
 UNARY = ('neg', 'recip', 'exp', 'log', 'log1p', 'sqrt')
 BINARY = ('add', 'sub', 'mul', 'div')
+# comparisons and logical ops: 1 where they hold, else 0; no gradient
+CMP = ('lt', 'le', 'gt', 'ge', 'eq', 'ne', 'and', 'or')
+LOGIC = CMP + ('not',)
 
 
 def _lit_key(v):
@@ -77,38 +117,15 @@ def _lit_key(v):
     return float(v).hex()
 
 
-class _V:
-    """A program value during lowering (a node id): keeps node ids apart
-    from the Python numbers of the aten graph."""
-    __slots__ = ('i',)
-
-    def __init__(self, i):
-        self.i = i
-
-
 class _Mat:
-    """A constant matrix expression: constant ``idx`` (m0, n0), read
-    transposed or not; ``shape`` as read."""
+    """A constant matrix as a matrix product reads it: constant ``idx``
+    (m0, n0), read transposed or not; ``shape`` as read."""
 
     def __init__(self, idx, tr, shape):
         self.idx, self.tr, self.shape = idx, tr, tuple(shape)
 
     def t(self):
         return _Mat(self.idx, not self.tr, self.shape[::-1])
-
-
-class _Row:
-    """A vector node as a (1, n) matrix (``unsqueeze(v, 0)``)."""
-
-    def __init__(self, i):
-        self.i = i
-
-
-class _Col:
-    """A vector node as an (n, 1) matrix (``unsqueeze(v, 1)``)."""
-
-    def __init__(self, i):
-        self.i = i
 
 
 class _Graph:
@@ -118,7 +135,8 @@ class _Graph:
 
     def __init__(self):
         self.nodes = []
-        self.consts = []          # (tensor, kind): 'scal', 'vec', 'mat'
+        self.consts = []          # (tensor at the trace, kind): 'scal',
+        self.const_fns = []       # 'vec', 'mat'; its value from the leaves
         self._const_ids = {}
         self._cse = {}
 
@@ -139,37 +157,19 @@ class _Graph:
         nd = self.nodes[i]
         return float.fromhex(nd.attr) if nd.op == 'lit' else None
 
-    def const(self, t):
-        """A constant tensor: a scalar or vector node, or a ``_Mat``."""
-        if id(t) not in self._const_ids:
-            if t.dim() > 2 or t.is_complex():
-                raise TraceError(f'a constant tensor of shape '
-                                 f'{tuple(t.shape)} and type {t.dtype}: '
-                                 'real scalars, vectors and matrices only')
-            self.consts.append((t, ('scal', 'vec', 'mat')[t.dim()]))
-            self._const_ids[id(t)] = len(self.consts) - 1
-        idx = self._const_ids[id(t)]
-        if t.dim() == 2:
-            return _Mat(idx, False, t.shape)
-        if t.dim() == 1:
-            return _V(self.add_node('cvec', n=int(t.shape[0]), attr=idx))
-        return _V(self.add_node('cscal', attr=idx))
-
-    def val(self, v, what):
-        """The node id of an operand; numbers become literals."""
-        if isinstance(v, _V):
-            return v.i
-        if isinstance(v, (bool, int, float, np.number)):
-            return self.lit(float(v))
-        raise TraceError(f'{what} of a matrix: a matrix only enters a '
-                         'matrix-vector product')
-
-    def vector(self, v, what):
-        """The node id of a vector operand."""
-        i = self.val(v, what)
-        if self.n(i) is None:
-            raise TraceError(f'{what} of a scalar')
-        return i
+    def const(self, key, t, fn, kind):
+        """The index of constant ``t`` (``kind`` 'scal', 'vec' or 'mat'),
+        registered once under ``key``; ``fn(leaves)`` gives its value for
+        other leaves."""
+        key = (kind, key)
+        if key not in self._const_ids:
+            if t.is_complex():
+                raise TraceError(f'a constant tensor of type {t.dtype}: '
+                                 'real tensors only')
+            self.consts.append((t, kind))
+            self.const_fns.append(fn)
+            self._const_ids[key] = len(self.consts) - 1
+        return self._const_ids[key]
 
     def unary(self, op, a):
         v = self.lit_value(a)
@@ -179,7 +179,7 @@ class _Graph:
             return self.nodes[a].args[0]
         return self.add_node(op, (a,), self.n(a))
 
-    def binary(self, op, a, b):
+    def _same_n(self, op, a, b):
         na, nb = self.n(a), self.n(b)
         if na is not None and nb is not None and na != nb:
             if na == 1:
@@ -188,6 +188,10 @@ class _Graph:
                 b, nb = self.gather([(b, 0)] * na), na
             else:
                 raise TraceError(f'{op} of vectors of lengths {na} and {nb}')
+        return a, b, na if na is not None else nb
+
+    def binary(self, op, a, b):
+        a, b, n = self._same_n(op, a, b)
         va, vb = self.lit_value(a), self.lit_value(b)
         if op == 'mul':
             if va == 1.0 or vb == 1.0:
@@ -196,7 +200,20 @@ class _Graph:
                 return self.unary('neg', b if va == -1.0 else a)
         if op == 'div' and vb == 1.0:
             return a
-        return self.add_node(op, (a, b), na if na is not None else nb)
+        return self.add_node(op, (a, b), n)
+
+    def compare(self, op, a, b):
+        """A comparison or logical op (``CMP``): 1 where it holds, else
+        0."""
+        a, b, n = self._same_n(op, a, b)
+        return self.add_node(op, (a, b), n)
+
+    def where(self, c, a, b):
+        """``c != 0 ? a : b``, elementwise."""
+        ns = [self.n(i) for i in (c, a, b) if self.n(i) is not None]
+        if len(set(ns)) > 1:
+            raise TraceError(f'where of vectors of lengths {ns}')
+        return self.add_node('where', (c, a, b), ns[0] if ns else None)
 
     def sum(self, a):
         return self.add_node('sum', (a,))
@@ -257,236 +274,551 @@ class _Graph:
 
 
 # ---------------------------------------------------------------------------
-# Lowering of the aten graph: each function takes the program's graph and
-# the aten op's arguments (``_V``, ``_Mat``, ``_Row``, ``_Col`` or Python
-# values) and returns one of those
+# Lowering of the aten graph. Every value the function computes from x is a
+# ``_T``: a program node and the tensor's shape, its elements in row-major
+# order (a scalar node for shape (), else a vector of the tensor's size), so
+# a plan's (1, n) rows, traced at N = 1, are vectors of n. Every value that
+# does not depend on x is a ``_C`` until an op with x needs it; an op whose
+# inputs are all constants is evaluated then (``_Lower.fold``).
 
-def _check_dim(dim, what):
-    if dim not in (0, -1):
-        raise TraceError(f'{what} over dim {dim} of a vector')
+class _T:
+    """A value of the program: node ``i``, tensor shape ``shape``."""
+    __slots__ = ('i', 'shape')
 
-
-def _pow(b, a, e):
-    a = b.val(a, 'aten.pow')
-    if not isinstance(e, (int, float)) or float(e) != int(e) or e == 0:
-        raise TraceError(f'aten.pow.Tensor_Scalar with the exponent {e}: '
-                         'non-zero integer exponents only')
-    e = int(e)
-    out = a
-    for _ in range(abs(e) - 1):
-        out = b.binary('mul', out, a)
-    return _V(out if e > 0 else b.unary('recip', out))
+    def __init__(self, i, shape):
+        self.i, self.shape = i, tuple(shape)
 
 
-def _sum(b, a, dims=None, keepdim=False, dtype=None):
-    if dims is not None and list(dims) not in ([], [0], [-1]):
-        raise TraceError(f'aten.sum over dims {dims} of a vector')
-    s = b.sum(b.vector(a, 'aten.sum'))
-    return _V(b.gather([(s, None)]) if keepdim else s)
+class _C:
+    """A constant tensor: its value at the trace (``val``), ``fn(leaves)``
+    for its value at other leaves (the runtime parameters), the leaves it
+    reads (``deps``), whether it reads a tensor the function closes over
+    (``captured``), and ``key``, ``tr``: the constant a matrix product
+    reads, transposed or not."""
+    __slots__ = ('val', 'fn', 'deps', 'captured', 'key', 'tr', 'base')
+
+    def __init__(self, val, fn, deps=frozenset(), captured=False, key=None,
+                 tr=False, base=None):
+        self.val, self.fn = val, fn
+        self.deps, self.captured = frozenset(deps), captured
+        self.key = ('c', id(self)) if key is None else key
+        self.tr, self.base = tr, base
+
+    @property
+    def literal(self):
+        """Made by the function from numbers alone (``zeros``, ``ones_like``,
+        ``full``): its value is the program's, like a Python number's."""
+        return not self.deps and not self.captured
+
+    def transposed(self):
+        base = self if self.base is None else self.base
+        fn = self.fn
+        return _C(self.val.t(), lambda L: fn(L).t(), self.deps,
+                  self.captured, ('t',) + self.key, not self.tr, base)
 
 
-def _slice(b, v, dim=0, start=None, end=None, step=1):
-    _check_dim(dim, 'aten.slice')
-    v = b.vector(v, 'aten.slice')
-    return _V(b.gather([(v, i)
-                        for i in range(b.n(v))[slice(start, end, step)]]))
+def _numel(shape):
+    return int(np.prod(shape, dtype=np.int64)) if shape else 1
 
 
-def _select(b, v, dim, index):
-    _check_dim(dim, 'aten.select')
-    v = b.vector(v, 'aten.select')
-    return _V(b.pick(v, range(b.n(v))[index]))
+def _codes(shape, k=0):
+    """Positions of a tensor of ``shape``, tagged with source ``k``."""
+    return torch.arange(_numel(shape), dtype=torch.int64).reshape(shape) \
+        + (int(k) << 32)
 
 
-def _cat(b, parts, dim=0):
-    _check_dim(dim, 'aten.cat')
-    ents = []
-    for p in parts:
-        p = b.vector(p, 'aten.cat')
-        ents += [(p, i) for i in range(b.n(p))]
-    return _V(b.gather(ents))
+_NUMBER = (bool, int, float, np.number)
+
+# data movement: the op applied to position codes says where each element
+# of its output comes from
+_MOVE = {
+    'aten.view.default', 'aten.reshape.default', 'aten._unsafe_view.default',
+    'aten.unsqueeze.default', 'aten.squeeze.dim', 'aten.squeeze.dims',
+    'aten.squeeze.default', 'aten.expand.default', 'aten.permute.default',
+    'aten.transpose.int', 'aten.t.default', 'aten.slice.Tensor',
+    'aten.select.int', 'aten.index.Tensor', 'aten.cat.default',
+    'aten.stack.default', 'aten.roll.default', 'aten.flip.default',
+    'aten.alias.default', 'aten.clone.default', 'aten.detach.default',
+    'aten.lift_fresh_copy.default', 'aten.repeat.default',
+    'aten.narrow.default', 'aten.index_select.default',
+    'aten.gather.default', 'aten.split.Tensor',
+    'aten.split_with_sizes.default', 'aten.unbind.int',
+}
+# a constant's layout ops that keep it the same constant
+_SAME = {'aten.alias.default', 'aten.clone.default', 'aten.detach.default',
+         'aten.lift_fresh_copy.default', 'aten._to_copy.default',
+         'aten.view.default', 'aten.reshape.default',
+         'aten._unsafe_view.default', 'aten.expand.default'}
+_TRANSPOSE = {'aten.t.default', 'aten.transpose.int', 'aten.permute.default'}
+# ops whose value depends only on their argument's shape
+_SHAPE_ONLY = {'aten.zeros_like.default', 'aten.ones_like.default',
+               'aten.full_like.default', 'aten.new_zeros.default',
+               'aten.new_ones.default', 'aten.new_full.default'}
+_UNARY_OPS = {'aten.neg.default': 'neg', 'aten.reciprocal.default': 'recip',
+              'aten.exp.default': 'exp', 'aten.log.default': 'log',
+              'aten.log1p.default': 'log1p', 'aten.sqrt.default': 'sqrt'}
+_BINARY_OPS = {'aten.add.Tensor': 'add', 'aten.add.Scalar': 'add',
+               'aten.sub.Tensor': 'sub', 'aten.sub.Scalar': 'sub',
+               'aten.mul.Tensor': 'mul', 'aten.mul.Scalar': 'mul',
+               'aten.div.Tensor': 'div', 'aten.div.Scalar': 'div'}
+_CMP_OPS = {f'aten.{o}.{v}': o for o in ('lt', 'le', 'gt', 'ge', 'eq', 'ne')
+            for v in ('Tensor', 'Scalar')}
+_CMP_OPS.update({'aten.logical_and.default': 'and',
+                 'aten.logical_or.default': 'or',
+                 'aten.bitwise_and.Tensor': 'and',
+                 'aten.bitwise_or.Tensor': 'or'})
 
 
-def _roll(b, v, shifts, dims=()):
-    shifts = list(shifts) if isinstance(shifts, (list, tuple)) else [shifts]
-    dims = list(dims) if isinstance(dims, (list, tuple)) else [dims]
-    if len(shifts) != 1 or dims not in ([], [0], [-1]):
-        raise TraceError(f'aten.roll by {shifts} over dims {dims}')
-    v = b.vector(v, 'aten.roll')
-    n, s = b.n(v), int(shifts[0])
-    return _V(b.gather([(v, (i - s) % n) for i in range(n)]))
+class _Lower:
+    """The lowering of one aten graph into a ``_Graph``. With ``batch`` the
+    function runs on a batch of one point: every value of one element
+    ((1,), (1, 1): a per-point scalar of the plan) is a scalar node, as
+    warp-uniform as a sum; a (1, n) row is a vector of n either way."""
 
+    def __init__(self, dtype, batch=False):
+        self.b = _Graph()
+        self.dtype = dtype
+        self.batch = batch
 
-def _mm(b, A, B):
-    if isinstance(A, _Row) and isinstance(B, _Mat):
-        # (1, n) @ (n, m) is (B^T v)^T
-        return _Row(b.mv(B.t(), A.i))
-    if isinstance(A, _Mat) and isinstance(B, _Col):
-        return _Col(b.mv(A, B.i))
-    raise TraceError('aten.mm other than of a vector by a constant matrix')
+    def scalar(self, shape):
+        """Whether a value of ``shape`` is a scalar node."""
+        return shape == () or (self.batch and _numel(shape) == 1)
 
+    # -- constants into the program ----------------------------------------
+    def _uniform(self, c):
+        """The one value of every element of a literal constant, or
+        None."""
+        if not c.literal or c.val.numel() == 0:
+            return None
+        flat = c.val.reshape(-1).to(torch.float64)
+        v = flat[0]
+        same = (torch.isnan(flat).all() if torch.isnan(v)
+                else torch.equal(flat, v.expand_as(flat)))
+        return float(v) if same else None
 
-def _mv(b, M, v):
-    if not isinstance(M, _Mat):
-        raise TraceError('aten.mv by a matrix that is not a constant')
-    return _V(b.mv(M, b.vector(v, 'aten.mv')))
+    def node_of(self, v, what='an op'):
+        """(node id, shape) of an elementwise operand. A literal constant of
+        one value is that literal, a scalar node whatever its shape."""
+        if isinstance(v, _T):
+            return v.i, v.shape
+        if isinstance(v, _NUMBER):
+            return self.b.lit(float(v)), ()
+        if isinstance(v, _C):
+            shape = tuple(v.val.shape)
+            u = self._uniform(v)
+            if u is not None:
+                return self.b.lit(u), shape
+            if not shape:
+                idx = self.b.const(v.key, v.val, v.fn, 'scal')
+                return self.b.add_node('cscal', attr=idx), shape
+            flat = v.val.reshape(-1)
+            fn = v.fn
+            idx = self.b.const(v.key, flat, lambda L: fn(L).reshape(-1),
+                               'vec')
+            return self.b.add_node('cvec', n=flat.numel(), attr=idx), shape
+        raise TraceError(f'{what} of a {type(v).__name__}')
 
+    def mat_of(self, c):
+        """A 2-d constant as a matrix product reads it."""
+        if c.val.dim() != 2:
+            raise TraceError(f'a matrix product with a constant of shape '
+                             f'{tuple(c.val.shape)}')
+        base = c if c.base is None else c.base
+        idx = self.b.const(base.key, base.val, base.fn, 'mat')
+        return _Mat(idx, c.tr, c.val.shape)
 
-def _transpose(b, M, *dims):
-    if isinstance(M, _Mat):
-        return M.t()
-    if isinstance(M, _V) and b.n(M.i) is not None:
-        return M
-    raise TraceError('a transpose of other than a constant matrix')
+    def index(self, c, name):
+        """The values of a constant integer index."""
+        if not isinstance(c, _C) or c.deps or c.val.is_floating_point():
+            raise TraceError(f'{name} by an index that is not a constant '
+                             'integer tensor')
+        return c.val
 
+    # -- shapes ------------------------------------------------------------
+    def bcast(self, i, shape, out):
+        """Node i of ``shape`` broadcast to ``out`` (scalars stay
+        scalars)."""
+        b = self.b
+        if b.n(i) is None or tuple(shape) == tuple(out):
+            return i
+        m = _codes(shape).expand(out).reshape(-1).tolist()
+        return b.gather([(i, p) for p in m])
 
-def _permute(b, M, dims):
-    if isinstance(M, _Mat) and list(dims) == [1, 0]:
-        return M.t()
-    if isinstance(M, (_Mat, _V)) and list(dims) in ([0, 1], [0]):
-        return M
-    raise TraceError(f'aten.permute by {dims}')
+    def fit(self, i, shape):
+        """Node i as a value of ``shape``."""
+        b = self.b
+        n = b.n(i)
+        if self.scalar(shape) and n is not None:
+            return _T(b.pick(i, 0), shape)
+        if not self.scalar(shape) and n is None:
+            k = _numel(shape)
+            return _T(b.gather([(i, None)]) if k == 1 else b.bcast(i, k),
+                      shape)
+        return _T(i, shape)
 
+    def ew(self, vals, out, what):
+        return [self.bcast(*self.node_of(v, what), out) for v in vals]
 
-def _unsqueeze(b, v, dim):
-    if isinstance(v, _V) and b.n(v.i) is None and dim in (0, -1):
-        return _V(b.gather([(v.i, None)]))
-    if isinstance(v, _V) and dim in (0, -2):
-        return _Row(v.i)
-    if isinstance(v, _V) and dim in (1, -1):
-        return _Col(v.i)
-    raise TraceError(f'aten.unsqueeze at dim {dim}')
-
-
-def _squeeze(b, v, *dims):
-    if isinstance(v, (_Row, _Col)):
-        return _V(v.i)
-    if isinstance(v, _V):
-        return _V(b.pick(v.i, 0)) if b.n(v.i) == 1 else v
-    raise TraceError('aten.squeeze of a matrix')
-
-
-def _to_shape(b, v, shape):
-    shape = [int(s) for s in shape]
-    if isinstance(v, (_Row, _Col)):
-        n = b.n(v.i)
-        if shape in ([n], [-1]):
-            return _V(v.i)
-        if shape in (([1, n], [1, -1]) if isinstance(v, _Row)
-                     else ([n, 1], [-1, 1])):
-            return v
-    elif isinstance(v, _Mat):
-        if shape == list(v.shape):
-            return v
-    elif isinstance(v, _V):
-        n = b.n(v.i)
-        if n is None and shape == []:
-            return v
-        if n is None and shape in ([1], [-1]):
-            return _V(b.gather([(v.i, None)]))
-        if n is not None and shape in ([n], [-1]):
-            return v
-        if n == 1 and shape == []:
-            return _V(b.pick(v.i, 0))
-        if n is not None and shape in ([1, n], [1, -1]):
-            return _Row(v.i)
-        if n is not None and shape in ([n, 1], [-1, 1]):
-            return _Col(v.i)
-    raise TraceError(f'a reshape to {shape}')
-
-
-def _expand(b, v, sizes, implicit=False):
-    sizes = [int(s) for s in sizes]
-    if isinstance(v, _V):
-        n = b.n(v.i)
-        if sizes == [] and n is None:
-            return v
-        if len(sizes) == 1 and n is None:
-            return _V(b.bcast(v.i, sizes[0]))
-        if len(sizes) == 1 and sizes[0] in (n, -1):
-            return v
-        if len(sizes) == 1 and n == 1:
-            return _V(b.gather([(v.i, 0)] * sizes[0]))
-    raise TraceError(f'aten.expand to {sizes}')
-
-
-def _identity(b, v, *args, **kwargs):
-    return v
-
-
-def _to_copy(dtype):
-    def lower(b, v, *args, **kwargs):
-        want = kwargs.get('dtype')
-        constant = isinstance(v, _Mat) or (
-            isinstance(v, _V) and b.nodes[v.i].op in ('cvec', 'cscal', 'lit'))
-        # a constant is cast to the run dtype when it is packed
-        if not constant and want is not None and want != dtype:
-            raise TraceError(f'aten._to_copy of a variable to {want}')
-        return v
-    return lower
-
-
-def _binary(op, swap=False):
-    def lower(b, x, y, alpha=1):
+    # -- ops -----------------------------------------------------------------
+    def binary(self, op, x, y, out, swap=False, alpha=1):
         if alpha != 1:
             raise TraceError(f'aten.{op} with alpha {alpha}')
-        x, y = b.val(x, f'aten.{op}'), b.val(y, f'aten.{op}')
-        return _V(b.binary(op, y, x) if swap else b.binary(op, x, y))
-    return lower
+        a, c = self.ew([x, y], out, f'aten.{op}')
+        if swap:
+            a, c = c, a
+        return self.fit(self.b.binary(op, a, c), out)
+
+    def unary(self, op, x, out):
+        (a,) = self.ew([x], out, f'aten.{op}')
+        return self.fit(self.b.unary(op, a), out)
+
+    def compare(self, op, x, y, out):
+        a, c = self.ew([x, y], out, f'aten.{op}')
+        return self.fit(self.b.compare(op, a, c), out)
+
+    def where(self, c, x, y, out):
+        ic, ix, iy = self.ew([c, x, y], out, 'aten.where')
+        return self.fit(self.b.where(ic, ix, iy), out)
+
+    def pow(self, x, e, out):
+        if not isinstance(e, (int, float)) or float(e) != int(e) or e == 0:
+            raise TraceError(f'aten.pow.Tensor_Scalar with the exponent {e}: '
+                             'non-zero integer exponents only')
+        (a,) = self.ew([x], out, 'aten.pow')
+        e, r = int(e), a
+        for _ in range(abs(e) - 1):
+            r = self.b.binary('mul', r, a)
+        return self.fit(r if e > 0 else self.b.unary('recip', r), out)
+
+    def clamp(self, x, lo, hi, out):
+        """``clamp`` as selects: ``x < lo ? lo : x``, then ``> hi``; its
+        gradient goes to x where lo <= x <= hi, ties included (torch's
+        rule), and NaN stays NaN."""
+        v = x
+        if lo is not None:
+            v = self.where(self.compare('lt', v, lo, out), lo, v, out)
+        if hi is not None:
+            v = self.where(self.compare('gt', v, hi, out), hi, v, out)
+        return v if isinstance(v, _T) else self.fit(self.node_of(v)[0], out)
+
+    def extremum(self, x, y, out, op):
+        """``maximum`` (op 'gt') or ``minimum`` ('lt') as selects; a tie
+        takes half of each operand, so its gradient splits in half, as
+        torch's does."""
+        other = 'lt' if op == 'gt' else 'gt'
+        half = self.binary('add', self.binary('mul', x, 0.5, out),
+                           self.binary('mul', y, 0.5, out), out)
+        tie = self.where(self.compare(other, x, y, out), y, half, out)
+        return self.where(self.compare(op, x, y, out), x, tie, out)
+
+    def sum(self, x, dims=None, keepdim=False, dtype=None, out=()):
+        b = self.b
+        i, shape = self.node_of(x, 'aten.sum')
+        nd = len(shape)
+        red = (list(range(nd)) if dims is None or list(dims) == []
+               else sorted({d % max(nd, 1) for d in dims}))
+        keep = [d for d in range(nd) if d not in red]
+        n_red = _numel([shape[d] for d in red])
+        if b.n(i) is None:
+            return self.fit(i, out)
+        rows = _codes(shape).permute(keep + red).reshape(-1, n_red).tolist()
+        outs = []
+        for row in rows:
+            if n_red == 1:
+                outs.append((i, row[0]))
+            else:
+                outs.append((b.sum(b.gather([(i, p) for p in row])), None))
+        if len(outs) == 1:
+            return self.fit(b.pick(*outs[0]) if outs[0][1] is not None
+                            else outs[0][0], out)
+        return _T(b.gather(outs), out)
+
+    def mm(self, x, y, out):
+        """(r, k) @ (k, c): rows of a value by a constant matrix, a
+        constant matrix by columns of a value, or a value by a value (each
+        output a sum of products)."""
+        b = self.b
+        if isinstance(y, _C) and not isinstance(x, _C):
+            i, (r, k) = self.node_of(x, 'aten.mm')
+            M = self.mat_of(y).t()
+            rows = [b.mv(M, b.gather([(i, p) for p in range(j * k,
+                                                            j * k + k)]))
+                    for j in range(r)]
+            return self.fit(b.gather([(rw, j) for rw in rows
+                                      for j in range(M.shape[0])]), out)
+        if isinstance(x, _C):
+            i, (k, c) = self.node_of(y, 'aten.mm')
+            M = self.mat_of(x)
+            cols = [b.mv(M, b.gather([(i, p * c + j) for p in range(k)]))
+                    for j in range(c)]
+            return self.fit(b.gather([(cols[j], p)
+                                      for p in range(M.shape[0])
+                                      for j in range(c)]), out)
+        i, (r, k) = self.node_of(x, 'aten.mm')
+        j, (_, c) = self.node_of(y, 'aten.mm')
+        ents = []
+        for p in range(r):
+            row = b.gather([(i, p * k + q) for q in range(k)])
+            for s in range(c):
+                col = b.gather([(j, q * c + s) for q in range(k)])
+                ents.append((b.sum(b.binary('mul', row, col)), None))
+        return self.fit(b.gather(ents), out)
+
+    def mv(self, M, v, out):
+        shape = self.shape_of(v)
+        col = self.reshape(v, (shape[0], 1))
+        r = self.mm(M, col, (self.shape_of(M)[0], 1))
+        return self.fit(r.i, out)
+
+    def shape_of(self, v):
+        if isinstance(v, _NUMBER):
+            return ()
+        return tuple(v.val.shape) if isinstance(v, _C) else v.shape
+
+    def reshape(self, v, shape):
+        if isinstance(v, _C):
+            fn = v.fn
+            return _C(v.val.reshape(shape), lambda L: fn(L).reshape(shape),
+                      v.deps, v.captured)
+        return _T(v.i, shape)
+
+    def move(self, target, name, args, kwargs):
+        """A data-movement op: applied to position codes of its data
+        operands, its output's codes say which element each output
+        element is; a gather (a pick for one element) of them."""
+        srcs = []
+
+        def code(v):
+            i, shape = self.node_of(v, name)
+            srcs.append(i)
+            return _codes(shape, len(srcs) - 1)
+
+        if name in ('aten.cat.default', 'aten.stack.default'):
+            cargs = [[code(v) for v in args[0]], *args[1:]]
+        elif name == 'aten.index.Tensor':
+            cargs = [code(args[0]), [None if a is None else
+                                     self.index(a, name) for a in args[1]]]
+        elif name in ('aten.index_select.default', 'aten.gather.default'):
+            cargs = [code(args[0]), args[1], self.index(args[2], name),
+                     *args[3:]]
+        else:
+            cargs = [code(args[0]), *args[1:]]
+        res = target(*cargs, **kwargs)
+        if isinstance(res, (list, tuple)):
+            return [self.from_codes(r, srcs) for r in res]
+        return self.from_codes(res, srcs)
+
+    def from_codes(self, r, srcs):
+        """The value whose elements the codes ``r`` name, of sources
+        ``srcs``."""
+        b = self.b
+        shape = tuple(r.shape)
+        if _numel(shape) == 0:
+            raise TraceError('an empty tensor')
+        ents = []
+        for c in r.reshape(-1).tolist():
+            s = srcs[c >> 32]
+            ents.append((s, None if b.n(s) is None else c & 0xffffffff))
+        if self.scalar(shape):
+            s, p = ents[0]
+            return _T(s if p is None else b.pick(s, p), shape)
+        return _T(b.gather(ents), shape)
+
+    def scatter(self, base, out_shape, pairs, accumulate):
+        """``base`` with the (output position, source node, source
+        position) ``pairs`` written (``accumulate``: added, each position
+        the sum of its sources in order, after the base unless the base is
+        zeros) or put (the last one)."""
+        b = self.b
+        n = _numel(out_shape)
+        hits = [[] for _ in range(n)]
+        for o, s, p in pairs:
+            if accumulate:
+                hits[o].append((s, p))
+            else:
+                hits[o] = [(s, p)]
+        zero = isinstance(base, _C) and self._uniform(base) == 0.0
+        if zero:
+            c = None
+        else:
+            bi, bshape = self.node_of(base, 'a scatter')
+            bi = self.bcast(bi, bshape, out_shape)
+            c = bi if b.n(bi) is not None else b.bcast(bi, n)
+        if not accumulate:
+            ents = [h[0] if h else (None if c is None else (c, o))
+                    for o, h in enumerate(hits)]
+            return self.fit(b.gather(ents), out_shape)
+        for layer in range(max(len(h) for h in hits)):
+            lay = b.gather([h[layer] if len(h) > layer else None
+                            for h in hits])
+            c = lay if c is None else b.binary('add', c, lay)
+        if c is None:
+            c = b.gather([None] * n)
+        return self.fit(c, out_shape)
+
+    def index_add(self, base, dim, index, source, alpha=1, out=()):
+        if alpha != 1:
+            raise TraceError(f'aten.index_add with alpha {alpha}')
+        idx = self.index(index, 'aten.index_add').reshape(-1).tolist()
+        s, sshape = self.node_of(source, 'aten.index_add')
+        oc, sc = _codes(out), _codes(sshape)
+        pairs = []
+        for k, j in enumerate(idx):
+            for o, p in zip(oc.select(dim, j).reshape(-1).tolist(),
+                            sc.select(dim, k).reshape(-1).tolist()):
+                pairs.append((o, s, None if self.b.n(s) is None else p))
+        return self.scatter(base, out, pairs, True)
+
+    def index_put(self, base, indices, values, accumulate=False, out=()):
+        idx = [None if a is None else self.index(a, 'aten.index_put')
+               for a in indices]
+        s, sshape = self.node_of(values, 'aten.index_put')
+        tgt = torch.ops.aten.index.Tensor(_codes(out), idx)
+        src = _codes(sshape).expand(tgt.shape)
+        pairs = [(o, s, None if self.b.n(s) is None else p)
+                 for o, p in zip(tgt.reshape(-1).tolist(),
+                                 src.reshape(-1).tolist())]
+        return self.scatter(base, out, pairs, accumulate)
+
+    # -- constants -----------------------------------------------------------
+    def fold(self, target, name, args, kwargs):
+        """An op of constants alone, evaluated now and kept as a constant
+        (a function of the leaves, evaluated again at each ``pack``)."""
+        if (target._schema.is_mutable or 'empty' in name or any(
+                'nondeterministic' in str(t) for t in target.tags)):
+            raise TraceError(f'{name} is not in the op set of the CUDA NUTS '
+                             'kernels (ops/trace.py): it is not a function '
+                             'of its inputs')
+        consts = []
+
+        def walk(a, leaves):
+            if isinstance(a, _C):
+                consts.append(a)
+                return a.val if leaves is None else a.fn(leaves)
+            if isinstance(a, (list, tuple)):
+                return type(a)(walk(x, leaves) for x in a)
+            return a
+
+        val = target(*walk(args, None), **walk(kwargs, None))
+        if not torch.is_tensor(val):
+            raise TraceError(f'{name} of constants gives a '
+                             f'{type(val).__name__}')
+        deps = frozenset().union(*[c.deps for c in consts])
+        captured = any(c.captured for c in consts)
+        return _C(val, lambda L: target(*walk(args, L), **walk(kwargs, L)),
+                  deps, captured)
+
+    def const_op(self, target, name, args, kwargs, meta):
+        """An op with constant operands that keeps the constant (a view of
+        the same shape, a cast: a constant is packed in the run dtype) or
+        transposes it, else ``fold``."""
+        c = args[0] if args else None
+        if isinstance(c, _C):
+            if name in _SAME and tuple(meta.shape) == tuple(c.val.shape):
+                return c
+            if (name in _TRANSPOSE and c.val.dim() == 2
+                    and tuple(meta.shape) == tuple(c.val.shape)[::-1]):
+                return c.transposed()
+        return self.fold(target, name, args, kwargs)
 
 
-def _unary(op):
-    def lower(b, x):
-        return _V(b.unary(op, b.val(x, f'aten.{op}')))
-    return lower
+def _has_value(a):
+    if isinstance(a, _T):
+        return True
+    if isinstance(a, (list, tuple)):
+        return any(_has_value(x) for x in a)
+    return False
 
 
-def _dot(b, x, y):
-    return _V(b.sum(b.binary('mul', b.vector(x, 'aten.dot'),
-                             b.vector(y, 'aten.dot'))))
+def _like(a):
+    """Zeros of the shape and dtype of fx node ``a``'s value, on the CPU:
+    what an op that reads only its argument's shape is evaluated on."""
+    m = a.meta['val']
+    return torch.zeros(tuple(m.shape), dtype=m.dtype)
 
 
-def _lowerings(dtype):
-    ident = _identity
-    return {
-        'aten.add.Tensor': _binary('add'), 'aten.add.Scalar': _binary('add'),
-        'aten.sub.Tensor': _binary('sub'), 'aten.sub.Scalar': _binary('sub'),
-        'aten.rsub.Scalar': _binary('sub', swap=True),
-        'aten.rsub.Tensor': _binary('sub', swap=True),
-        'aten.mul.Tensor': _binary('mul'), 'aten.mul.Scalar': _binary('mul'),
-        'aten.div.Tensor': _binary('div'), 'aten.div.Scalar': _binary('div'),
-        'aten.neg.default': _unary('neg'),
-        'aten.reciprocal.default': _unary('recip'),
-        'aten.exp.default': _unary('exp'), 'aten.log.default': _unary('log'),
-        'aten.log1p.default': _unary('log1p'),
-        'aten.sqrt.default': _unary('sqrt'),
-        'aten.pow.Tensor_Scalar': _pow,
-        'aten.square.default': lambda b, a: _pow(b, a, 2),
-        'aten.sum.dim_IntList': _sum, 'aten.sum.default': _sum,
-        'aten.dot.default': _dot,
-        'aten.mv.default': _mv, 'aten.mm.default': _mm,
-        'aten.t.default': _transpose, 'aten.transpose.int': _transpose,
-        'aten.permute.default': _permute,
-        'aten.unsqueeze.default': _unsqueeze,
-        'aten.squeeze.dim': _squeeze, 'aten.squeeze_.dim': _squeeze,
-        'aten.squeeze.dims': _squeeze, 'aten.squeeze.default': _squeeze,
-        'aten.view.default': _to_shape, 'aten.reshape.default': _to_shape,
-        'aten._unsafe_view.default': _to_shape,
-        'aten.expand.default': _expand,
-        'aten.clone.default': ident, 'aten.alias.default': ident,
-        'aten.detach.default': ident, 'aten.lift_fresh_copy.default': ident,
-        'aten._to_copy.default': _to_copy(dtype),
-        'aten.slice.Tensor': _slice, 'aten.select.int': _select,
-        'aten.cat.default': _cat, 'aten.roll.default': _roll,
-    }
+def _lower_op(lw, target, name, args, kwargs, meta):
+    """One aten op of a graph that reads x."""
+    out = tuple(meta.shape) if torch.is_tensor(meta) else None
+    if name in _BINARY_OPS:
+        if torch.is_tensor(meta) and meta.dtype == torch.bool \
+                and _BINARY_OPS[name] != 'mul':
+            raise TraceError(f'{name} of booleans')
+        return lw.binary(_BINARY_OPS[name], *args[:2], out,
+                         alpha=kwargs.get('alpha', 1))
+    if name in ('aten.rsub.Scalar', 'aten.rsub.Tensor'):
+        return lw.binary('sub', *args[:2], out, swap=True,
+                         alpha=kwargs.get('alpha', 1))
+    if name in _UNARY_OPS:
+        return lw.unary(_UNARY_OPS[name], args[0], out)
+    if name in _CMP_OPS:
+        if _CMP_OPS[name] in ('and', 'or') and meta.dtype != torch.bool:
+            raise TraceError(f'{name} of integers')
+        return lw.compare(_CMP_OPS[name], *args[:2], out)
+    if name in ('aten.logical_not.default', 'aten.bitwise_not.default'):
+        if name == 'aten.bitwise_not.default' and meta.dtype != torch.bool:
+            raise TraceError(f'{name} of integers')
+        (a,) = lw.ew([args[0]], out, name)
+        return lw.fit(lw.b.add_node('not', (a,), lw.b.n(a)), out)
+    if name in ('aten.where.self', 'aten.where.ScalarSelf',
+                'aten.where.ScalarOther', 'aten.where.Scalar'):
+        return lw.where(*args[:3], out)
+    if name == 'aten.clamp.default' or name == 'aten.clamp.Tensor':
+        lo = args[1] if len(args) > 1 else kwargs.get('min')
+        hi = args[2] if len(args) > 2 else kwargs.get('max')
+        return lw.clamp(args[0], lo, hi, out)
+    if name in ('aten.clamp_min.default', 'aten.clamp_min.Tensor'):
+        return lw.clamp(args[0], args[1], None, out)
+    if name in ('aten.clamp_max.default', 'aten.clamp_max.Tensor'):
+        return lw.clamp(args[0], None, args[1], out)
+    if name == 'aten.maximum.default':
+        return lw.extremum(args[0], args[1], out, 'gt')
+    if name == 'aten.minimum.default':
+        return lw.extremum(args[0], args[1], out, 'lt')
+    if name == 'aten.pow.Tensor_Scalar':
+        return lw.pow(args[0], args[1], out)
+    if name == 'aten.square.default':
+        return lw.pow(args[0], 2, out)
+    if name in ('aten.sum.dim_IntList', 'aten.sum.default'):
+        dims = args[1] if len(args) > 1 else kwargs.get('dim')
+        keep = args[2] if len(args) > 2 else kwargs.get('keepdim', False)
+        return lw.sum(args[0], dims, keep, out=out)
+    if name == 'aten.dot.default':
+        n = (max(_numel(lw.shape_of(v)) for v in args[:2]),)
+        a, c = lw.ew(args[:2], n, name)
+        return lw.fit(lw.b.sum(lw.b.binary('mul', a, c)), out)
+    if name == 'aten.mm.default':
+        return lw.mm(args[0], args[1], out)
+    if name == 'aten.mv.default':
+        return lw.mv(args[0], args[1], out)
+    if name == 'aten.index_add.default':
+        return lw.index_add(*args, **kwargs, out=out)
+    if name == 'aten.index_put.default':
+        return lw.index_put(*args[:3], *args[3:], out=out)
+    if name == 'aten._to_copy.default':
+        want = kwargs.get('dtype')
+        if want is not None and want != lw.dtype:
+            raise TraceError(f'aten._to_copy of a variable to {want}')
+        return args[0]
+    if name in _MOVE:
+        return lw.move(target, name, args, kwargs)
+    raise TraceError(f'{name} is not in the op set of the CUDA NUTS kernels '
+                     '(ops/trace.py)')
 
 
+_VIEWS = _MOVE - {'aten.index.Tensor', 'aten.cat.default',
+                  'aten.stack.default', 'aten.roll.default',
+                  'aten.flip.default', 'aten.clone.default',
+                  'aten.lift_fresh_copy.default', 'aten.repeat.default',
+                  'aten.index_select.default', 'aten.gather.default'}
 
-def _lower(gm, D, dtype):
+
+def _lower(gm, D, dtype, leaves=(), batch=False):
     """The aten graph of ``make_fx`` as program nodes; returns (graph,
-    logp node id)."""
-    b = _Graph()
-    table = _lowerings(dtype)
+    logp node id). Its first input is x (D,), the others the leaves;
+    ``batch``: see ``_Lower``."""
+    lw = _Lower(dtype, batch)
+    b = lw.b
     env = {}
 
     def arg(a):
@@ -497,21 +829,57 @@ def _lower(gm, D, dtype):
         return a
 
     out = None
+    n_ph = 0
     for node in gm.graph.nodes:
         if node.op == 'placeholder':
-            env[node] = _V(b.add_node('x', n=D))
+            if n_ph == 0:
+                env[node] = _T(b.add_node('x', n=D), (D,))
+            else:
+                k = n_ph - 1
+                env[node] = _C(leaves[k], lambda L, k=k: L[k], {k},
+                               key=('leaf', k))
+            n_ph += 1
         elif node.op == 'get_attr':
             t = getattr(gm, node.target)
             if not torch.is_tensor(t):
                 raise TraceError(f'a constant of type {type(t).__name__}')
-            env[node] = b.const(t)
+            env[node] = _C(t, lambda L, t=t: t, captured=True,
+                           key=('t', id(t)))
         elif node.op == 'call_function':
             name = str(node.target)
-            fn = table.get(name)
-            if fn is None:
-                raise TraceError(f'{name} is not in the op set of the CUDA '
-                                 'NUTS kernels (ops/trace.py)')
-            env[node] = fn(b, *arg(node.args), **arg(node.kwargs))
+            args, kwargs = arg(node.args), arg(node.kwargs)
+            if name == '<built-in function getitem>':
+                env[node] = args[0][args[1]]
+                continue
+            mutates = (hasattr(node.target, '_schema')
+                       and node.target._schema.is_mutable)
+            if mutates and (not isinstance(node.args[0], torch.fx.Node)
+                            or str(getattr(node.args[0], 'target', ''))
+                            in _VIEWS or (isinstance(args[0], _C)
+                                          and not args[0].literal)):
+                raise TraceError(f'{name}: an in-place op on a view or a '
+                                 'constant the function reads')
+            meta = node.meta.get('val')
+            target = node.target
+            if mutates:
+                # the op out of place, its result bound to the operand
+                _, packet, overload = name.split('.')
+                if packet.endswith('_'):
+                    target = getattr(getattr(torch.ops.aten, packet[:-1]),
+                                     overload)
+                    name = str(target)
+            if name in _SHAPE_ONLY:
+                vals = [_like(a) if isinstance(a, torch.fx.Node) else a
+                        for a in node.args]
+                env[node] = lw.fold(target, name, tuple(vals), node.kwargs)
+            elif not _has_value(list(args) + list(kwargs.values())):
+                if not hasattr(target, '_schema'):
+                    raise TraceError(f'{name} is not an aten op')
+                env[node] = lw.const_op(target, name, args, kwargs, meta)
+            else:
+                env[node] = _lower_op(lw, target, name, args, kwargs, meta)
+            if mutates:
+                env[node.args[0]] = env[node]
         elif node.op == 'output':
             out = arg(node.args[0])
             if isinstance(out, (list, tuple)):
@@ -520,11 +888,12 @@ def _lower(gm, D, dtype):
                 out = out[0]
         else:
             raise TraceError(f'an fx node of kind {node.op}')
-    if isinstance(out, _V) and b.n(out.i) == 1:
-        out = _V(b.pick(out.i, 0))
-    if not isinstance(out, _V) or b.n(out.i) is not None:
-        raise TraceError('the logp of one point is not a scalar')
-    return b, out.i
+    if isinstance(out, (_T, _C)):
+        i, shape = lw.node_of(out)
+        if _numel(shape) != 1:
+            raise TraceError('the logp of one point is not a scalar')
+        return b, (i if b.n(i) is None else b.pick(i, 0))
+    raise TraceError('the logp of one point is not a scalar')
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +930,7 @@ def _adjoint(b, logp, x):
             continue
         nd = nodes[i]
         g, op, n = adj[i], nd.op, nd.n
-        if op == 'x':
+        if op == 'x' or op in LOGIC:
             continue
         a = nd.args[0] if nd.args else None
         if op in ('add', 'sub'):
@@ -596,6 +965,14 @@ def _adjoint(b, logp, x):
             acc(a, b.binary('div', g, b.binary('mul', b.lit(2.0), i)))
         elif op == 'sum':
             acc(a, g)
+        elif op == 'where':
+            # the selected branch's: the other takes a zero
+            c, x1, x2 = nd.args
+            z = b.lit(0.0)
+            if need[x1]:
+                acc(x1, red(b.where(c, g, z), x1, n))
+            if need[x2]:
+                acc(x2, red(b.where(c, z, g), x2, n))
         elif op == 'bcast':
             acc(a, b.sum(vec(g, n)))
         elif op == 'pick':
@@ -648,11 +1025,12 @@ class Program:
     the constants (``consts``: (tensor, kind) with kind 'scal', 'vec' or
     'mat'; ``offsets``: each one's offset in the packed parameters)."""
 
-    def __init__(self, D, nodes, logp, grad, consts):
+    def __init__(self, D, nodes, logp, grad, consts, const_fns=None):
         self.D = int(D)
         self.nodes = nodes
         self.logp, self.grad = logp, grad
         self.consts = consts
+        self.const_fns = const_fns or [None] * len(consts)
         self.offsets, off = [], 0
         for t, _ in consts:
             self.offsets.append(off)
@@ -661,13 +1039,18 @@ class Program:
         self._eval_cache = {}
         self._sources = {}
 
-    def pack(self, dtype=torch.float64, device='cpu'):
-        """The constants, flattened (matrices row-major) into one vector."""
+    def pack(self, dtype=torch.float64, device='cpu', leaves=None):
+        """The constants, flattened (matrices row-major) into one vector:
+        their values at the trace, or at other ``leaves`` (the runtime
+        parameters the function was traced with), each constant computed
+        from the leaves as the function computes it."""
         if not self.consts:
             return torch.zeros(1, dtype=dtype, device=device)
+        vals = [t if leaves is None or fn is None else fn(leaves)
+                for (t, _), fn in zip(self.consts, self.const_fns)]
         return torch.cat([t.detach().reshape(-1).to(device=device,
                                                    dtype=dtype)
-                          for t, _ in self.consts])
+                          for t in vals])
 
     def matrix(self, idx, tr):
         """The (m, n) shape of constant ``idx`` read transposed or not."""
@@ -681,7 +1064,8 @@ class Program:
         product; gathers, picks and broadcasts move data only."""
         total = 0
         for nd in self.nodes:
-            if nd.op in UNARY or nd.op in BINARY:
+            if (nd.op in UNARY or nd.op in BINARY or nd.op in LOGIC
+                    or nd.op == 'where'):
                 total += nd.n or 1
             elif nd.op == 'sum':
                 total += self.nodes[nd.args[0]].n
@@ -772,6 +1156,11 @@ class Program:
                 v = torch.log1p(a[0])
             elif op == 'sqrt':
                 v = torch.sqrt(a[0])
+            elif op in LOGIC:
+                v = _LOGIC_FNS[op](*a)
+            elif op == 'where':
+                c = a[0] if a[0].dtype == torch.bool else a[0] != 0
+                v = torch.where(c, a[1], a[2])
             elif op == 'sum':
                 v = (warp_sum(a[0]) if ordered
                      else torch.sum(a[0], dim=-1))[:, None]
@@ -806,6 +1195,11 @@ class Program:
             .contiguous()
 
 
+_LOGIC_FNS = {'lt': torch.lt, 'le': torch.le, 'gt': torch.gt, 'ge': torch.ge,
+              'eq': torch.eq, 'ne': torch.ne, 'and': torch.logical_and,
+              'or': torch.logical_or, 'not': torch.logical_not}
+
+
 def _prune(b, logp, grad):
     """The graph's nodes that ``logp`` and ``grad`` need, renumbered in
     order; returns (nodes, logp, grad)."""
@@ -823,26 +1217,34 @@ def _prune(b, logp, grad):
     return nodes, new[logp], new[grad]
 
 
-def trace_density(logp, D, dtype=torch.float64, device='cpu'):
+def trace_density(logp, D, dtype=torch.float64, device='cpu', leaves=(),
+                  batch=False):
     """Trace ``logp`` (batched torch, called here on one point x of shape
-    (D,) of ``dtype`` on ``device``) into a ``Program``. Raises
+    (D,) of ``dtype`` on ``device``, and on ``leaves``, tensors it reads as
+    runtime parameters: ``logp(x, *leaves)``) into a ``Program``; ``batch``
+    when it runs the point as a batch of one (``x[None]``), so that its
+    one-element values are scalars (``_Lower``). Raises
     ``TraceError`` naming the first aten op outside the op set, or what
-    else keeps the function from tracing."""
+    else keeps the function from tracing, or a program the kernels cannot
+    hold (``ops.codegen.check_limits``)."""
     from torch.fx.experimental.proxy_tensor import make_fx
+    from .codegen import check_limits
     x = torch.zeros(int(D), dtype=dtype, device=device)
     try:
-        gm = make_fx(logp)(x)
+        gm = make_fx(logp)(x, *leaves)
     except TraceError:
         raise
     except Exception as exc:
         raise TraceError(f'make_fx could not trace the logp: '
                          f'{type(exc).__name__}: {exc}'.splitlines()[0]) \
             from exc
-    b, out = _lower(gm, int(D), dtype)
+    b, out = _lower(gm, int(D), dtype, leaves, batch)
     x_id = next(i for i, nd in enumerate(b.nodes) if nd.op == 'x')
     grad = _adjoint(b, out, x_id)
     nodes, lp, g = _prune(b, out, grad)
-    return Program(D, nodes, lp, g, b.consts)
+    prog = Program(D, nodes, lp, g, b.consts, b.const_fns)
+    check_limits(prog, torch.finfo(dtype).bits // 8)
+    return prog
 
 
 # ---------------------------------------------------------------------------

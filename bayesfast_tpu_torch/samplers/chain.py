@@ -116,7 +116,7 @@ class ChainDriver:
         their plain versions) rather than the torch tree loop: NUTS with a
         diag metric, and a density the kernels take at the metric's D
         (``nuts_cuda.kernel_refusal``: a kernel spec, compiled in or
-        traced, and D <= 64). Otherwise ``nuts_kernel='cuda'`` raises
+        traced from a logp or a ``Density`` plan, and D <= 64). Otherwise ``nuts_kernel='cuda'`` raises
         ``NotImplementedError`` here, before any device work, and 'auto'
         and 'torch' take the tree loop; under 'auto' a logp that does not
         trace warns once, naming the op (as the JAX package warns when its
@@ -141,9 +141,10 @@ class ChainDriver:
                 and not self._warned):
             self._warned = True
             warnings.warn(
-                'the logp does not trace into the CUDA NUTS kernels; its '
-                'transitions run on the torch tree loop (set_nuts_kernel '
-                f'controls this). Cause: {trace_error}', RuntimeWarning)
+                'the logp (or Density plan) does not trace into the CUDA '
+                'NUTS kernels; its transitions run on the torch tree loop '
+                f'(set_nuts_kernel controls this). Cause: {trace_error}',
+                RuntimeWarning)
         return False
 
     @staticmethod

@@ -674,22 +674,24 @@ def _spec_entry(density, like):
     """The cache entry of ``density`` on ``like``'s dtype and device,
     rebuilt when an input of ``kernel_spec()`` changes (see ``_spec_for``).
     ``NotImplementedError`` for a density without a kernel spec."""
-    if not getattr(density, 'has_kernel_spec', False):
-        raise NotImplementedError(
-            'the CUDA NUTS kernels need a density with kernel_spec() '
-            '(ops/densities.py, or a Density whose plan is a PolyModel and a '
-            'Gaussian); sample it on the tree loop '
-            "(nuts_kernel='auto' or 'torch').")
     objs, state = _spec_inputs(density)
     key = (tuple(map(id, objs)), tuple(state))
     entries = _SPECS.setdefault(density, {})
     entry = entries.get((like.dtype, like.device))
-    if entry is None or entry[0] != key:
-        spec = density.kernel_spec()
-        # the last slot keeps the streamed path's parameters
-        # (``_stream_params``)
-        entry = (key, objs, spec, _launch_spec(spec, like), {})
-        entries[like.dtype, like.device] = entry
+    if entry is not None and entry[0] == key:
+        return entry
+    if not getattr(density, 'has_kernel_spec', False):
+        raise NotImplementedError(
+            'the CUDA NUTS kernels need a density with kernel_spec() '
+            '(ops/densities.py, a logp or a Density plan that traces into '
+            'the op set of ops/trace.py, or a Density whose plan is a '
+            'PolyModel and a Gaussian, compiled in); sample it on the tree '
+            "loop (nuts_kernel='auto' or 'torch').")
+    spec = density.kernel_spec()
+    # the last slot keeps the streamed path's parameters
+    # (``_stream_params``)
+    entry = (key, objs, spec, _launch_spec(spec, like), {})
+    entries[like.dtype, like.device] = entry
     return entry
 
 
@@ -716,17 +718,18 @@ def _spec_for(density, like):
 def kernel_refusal(density, dim):
     """Why the CUDA NUTS kernels cannot sample ``density`` at dimension
     ``dim`` (a string), or None when they can: a kernel spec (a
-    compiled-in density, a surrogate plan, or a logp that traces into
-    the kernels' op set) and ``dim`` <= ``_MAX_D``, as a lane holds at
-    most two dimensions. The plain versions could run either way; the
-    routing (``ChainDriver.uses_kernels``) asks this first."""
+    compiled-in density, the compiled-in PolyModel -> Gaussian plan, or a
+    logp or a ``Density`` plan that traces into the kernels' op set) and
+    ``dim`` <= ``_MAX_D``, as a lane holds at most two dimensions. The
+    plain versions could run either way; the routing
+    (``ChainDriver.uses_kernels``) asks this first."""
     if not getattr(density, 'has_kernel_spec', False):
         why = getattr(density, 'kernel_trace_error', lambda: None)()
         return ('the density has no kernel_spec()' +
                 (f': {why}' if why else
-                 ' (ops/densities.py, a logp that traces into the op set '
-                 'of ops/trace.py, or a Density whose plan is a PolyModel '
-                 'and a Gaussian)'))
+                 ' (ops/densities.py, a logp or a Density plan that traces '
+                 'into the op set of ops/trace.py, or a Density whose plan '
+                 'is a PolyModel and a Gaussian)'))
     if int(dim) > _MAX_D:
         return f'the CUDA NUTS kernels take D <= {_MAX_D}, got {int(dim)}'
     return None
@@ -879,10 +882,10 @@ def plain_lpg(density, ordered=True):
     """The plain versions' ``(C, D) -> (logp, grad)`` in transformed space:
     for a density with a kernel spec, its analytic form in the kernels'
     order of operations (``ops.densities.spec_logp_and_grad``, for a traced
-    logp its program's interpreter; not ``ordered``: in dense torch calls,
-    for the samplers that have no kernel to match); otherwise, and for a
-    traced logp not ``ordered``, autograd through the density's torch
-    logp, the function the user wrote."""
+    logp or plan its program's interpreter; not ``ordered``: in dense
+    torch calls, for the samplers that have no kernel to match);
+    otherwise, and for a traced logp or plan not ``ordered``, autograd
+    through the density's torch logp, the function the user wrote."""
     traced = getattr(density, 'has_traced_spec', False)
     if getattr(density, 'has_kernel_spec', False) and (ordered or
                                                        not traced):

@@ -77,11 +77,24 @@ card, drives the port's paths and checks what comes out:
   state; the funnel, ring and cauchy user forms' traced frozen chunk
   bitwise in float64 on [12]'s final states; each traced instantiation's
   registers and spills, nvcc seconds and kernel times.
+* a ``Density`` plan traced into the kernels ([15]): the 2-d donut Recipe
+  (``bayesfast_tpu_torch/examples/donut_recipe.py``, the reference's
+  headline example: OptimizeStep on a linear surrogate, two SampleSteps on
+  a quadratic one, each plan ending in the user's ``f_1``, the decay, IS
+  over 200 draws; 8 chains x 1000 iterations, float64) through
+  ``Recipe.run`` under ``nuts_kernel='auto'``: every transition on the
+  chunk kernels with the plan's generated functor (0 tree-loop
+  transitions), the two plans' units built in [2] from the Recipe's
+  objects before any fit and none during the run; n_call and the
+  IS-weighted E[r] gated, each step's wall, the chunk calls' host seconds
+  and kernel ms. Then the quadratic plan's frozen and warmup chunks and a
+  block launch bitwise against the program's interpreter at the Recipe's
+  8 chains on its final state, float64 and float32, and timed.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
 Cauchy instantiation that spills fails the run, except float64 at D > 32,
-and so does a float32 traced one. Each phase prints its wall, and a line
+and so does a traced one in float32 or at NE = 1. Each phase prints its wall, and a line
 before the last ones all of them.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -117,8 +130,8 @@ under generator seeds 0 to N - 1 (default 5). Its readings go to
 ``--work`` (default ``bayesfast_tpu_torch/build/ab``), one JSON file a
 process. Last, the A/B says whether the banana draws of [3] and [8], the
 Recipes' n_call and deviation, [10b]'s and [13b]'s outputs and a frozen
-and a warmup chunk of each of [12]'s anchors (float64, a seeded state) are
-bitwise equal in all four processes, and exits 1 if one is not, or if
+and a warmup chunk of each of [12]'s anchors and of [14]'s traced banana
+(float64, a seeded state) are bitwise equal in all four processes, and exits 1 if one is not, or if
 this checkout's build spills ([2b]).
 """
 
@@ -139,8 +152,9 @@ _REPO = os.path.dirname(os.path.abspath(__file__))
 N_CHAIN, D, Q, N_WARMUP, N_POST = 1024, 32, 0.01, 400, 300
 K_CMP = 4          # transitions per chunk in the kernel-vs-plain checks
 MAX_TREEDEPTH, MAX_CHANGE = 10, 1000.
-# [9]: the tree loop on a correlated Gaussian
-TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 300, 300, 0.2
+# [9]: the tree loop on a correlated Gaussian (200 + 150 iterations since
+# [15] came: the covariance's error read 0.01 at 300 + 300, the gate 0.2)
+TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 200, 150, 0.2
 # GBS as benchmarks/suite.py:197 runs it, and the banana's exact logz
 # (benchmarks/results.jsonl, "fiducial")
 F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
@@ -156,14 +170,15 @@ DES_N_IS, DES_JAX_NCALL, DES_REF_NCALL = 500, 1128, 2626
 # [13b]: the cubic surrogate's fit points (of [13]'s last step's draws)
 CUBIC_FIT = 1000
 # [11]: the other samplers at the bench width, plain torch on the card;
-# iterations cut below [3]'s 400 + 300 to fit the smoke's time
-H_WARMUP, H_POST, HMC_STEPS = 1000, 150, 32   # HMC on banana-32
-C_WARMUP, C_POST = 200, 100        # ChEES on banana-32, warm-started
+# iterations cut below [3]'s 400 + 300 to fit the smoke's time (the post
+# iterations cut again when [15] came: each gate is in standard errors)
+H_WARMUP, H_POST, HMC_STEPS = 1000, 75, 32   # HMC on banana-32
+C_WARMUP, C_POST = 200, 40         # ChEES on banana-32, warm-started
 T_D, T_VAR, T_BASE_VAR = 32, 0.5, 4.0   # the tempered Gaussian pair
-T_WARMUP, T_POST = 70, 60          # TNUTS
-TH_WARMUP, TH_POST, THMC_STEPS = 100, 100, 16
-E_WARMUP, E_POST = 500, 500        # the ensemble on banana-32
-EG_WARMUP, EG_POST = 1000, 1500    # the ensemble on [3b]'s Gaussian
+T_WARMUP, T_POST = 70, 30          # TNUTS
+TH_WARMUP, TH_POST, THMC_STEPS = 100, 60, 16
+E_WARMUP, E_POST = 500, 300        # the ensemble on banana-32
+EG_WARMUP, EG_POST = 1000, 750     # the ensemble on [3b]'s Gaussian
 N_PROFILE = 20                     # HMC warmup transitions profiled
 # [12]: the GBS anchors, run as their twins run them (the examples'
 # configuration: 64 chains, 1000 warmup of 2500 iterations, float64); the
@@ -180,6 +195,13 @@ TRACED_UNITS = (('bench_banana', 'float32'), ('bench_banana', 'float64'),
                 ('funnel', 'float64'), ('ring', 'float64'),
                 ('cauchy', 'float64'))
 TRACED_CHAINS = 256
+# [15]: the 2-d donut Recipe (bayesfast_tpu_torch/examples/donut_recipe.py,
+# the reference's headline example; 8 chains, float64): n_call at most the
+# notebook's ~330 plus 20 %, and the IS-weighted E[r] within DONUT_R_TOL of
+# the analytic mean of r under the donut, 5 + 0.25 / 5
+DONUT_NCALL, DONUT_R, DONUT_R_TOL = 400, 5.05, 0.25
+DONUT_UNITS = (('linear', 'float64'), ('quadratic', 'float64'),
+               ('quadratic', 'float32'))
 # one NVIDIA H100 SXM: fp32 and fp64 outside the tensor cores (NVIDIA's
 # data sheet), device memory
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -258,6 +280,91 @@ def _time_ms(torch, fn, n):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n, out
+
+
+class _CallEvents:
+    """CUDA events around every call of the NUTS kernels' C entry points
+    (``nuts_chunk_launch``, ``nuts_block_launch``, ``nuts_traced_launch``)
+    of every library loaded, inside the wrappers: a launch's device time
+    without the wrapper's host work before it (the spec lookup, the
+    allocations), which a small launch does not hide. A context manager;
+    ``events`` holds (kind, K, start, end) a launch, ``device_ms()`` their
+    sum once the card is done."""
+    _NAMES = ('nuts_chunk_launch', 'nuts_block_launch', 'nuts_traced_launch')
+
+    def __init__(self, torch):
+        self.torch, self.events, self._saved = torch, [], []
+        self._patched = set()
+
+    @staticmethod
+    def _kind(name, args):
+        if name == 'nuts_chunk_launch':
+            return ('warmup' if args[0] else 'frozen'), int(args[5])
+        if name == 'nuts_block_launch':
+            return 'block', 1
+        return ('frozen', 'warmup', 'block')[args[0]], int(args[4])
+
+    def __enter__(self):
+        from bayesfast_tpu_torch import _build
+        for lib in list(_build._libs.values()):
+            self._patch(lib)
+        # a library loaded while the context lasts (a generated unit's at
+        # its first launch) is patched as it is handed to the wrapper
+        for loader in ('load_library', 'load_traced'):
+            fn = getattr(_build, loader)
+            self._saved.append((_build, loader, fn))
+            setattr(_build, loader, self._loading(fn))
+        return self
+
+    def _loading(self, load):
+        def call(*args, **kwargs):
+            lib = load(*args, **kwargs)
+            self._patch(lib)
+            return lib
+        return call
+
+    def _patch(self, lib):
+        if id(lib) in self._patched:
+            return
+        self._patched.add(id(lib))
+        for name in self._NAMES:
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                self._saved.append((lib, name, fn))
+                setattr(lib, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        torch = self.torch
+
+        def call(*args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = fn(*args)
+            e1.record()
+            self.events.append((*self._kind(name, args), e0, e1))
+            return err
+        return call
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+        self._saved, self._patched = [], set()
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return sum(e0.elapsed_time(e1) for *_, e0, e1 in self.events)
+
+
+def _device_ms(torch, fn, n):
+    """Mean device ms of the launches of ``n`` calls of ``fn`` after a warm
+    one (``_CallEvents``); returns (ms a call, the warm call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    with _CallEvents(torch) as ev:
+        for _ in range(n):
+            fn()
+    return ev.device_ms() / n, out
 
 
 def _plain_once(torch, fn):
@@ -477,7 +584,7 @@ def _kernel_vs_plain(torch, den, carry, dtype):
 
 
 def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
-                 peak=PEAK_FP32):
+                 peak=PEAK_FP32, timer=_time_ms):
     """One K=4 chunk of each kernel at a path's shapes and final state
     (CUDA events; the kernel warmed up first), beside the plain version's
     ms that its comparison measured (``plain_ms``, by name + suffix; None:
@@ -485,7 +592,8 @@ def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
     times ``ops`` per leapfrog (default: the banana's) over ``peak``.
     Returns ({name + suffix: (ms, plain_ms, bound_ms, bound_by)}, {name +
     suffix: its slowest chain, ``_slowest_chain``}, {name: the warm call's
-    outputs})."""
+    outputs}). ``timer``: ``_time_ms`` (the wrapper's calls, CUDA events)
+    or ``_device_ms`` (the launches alone)."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     q, metric, step = carry.q, carry.metric, carry.step
     C, dim = q.shape
@@ -509,7 +617,7 @@ def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
     }
     times, chains, outs = {}, {}, {}
     for name, (kern, inputs) in runs.items():
-        ms, out = _time_ms(torch, kern, 5)
+        ms, out = timer(torch, kern, 5)
         outs[name] = out
         p_ms = (plain_ms or {}).get(name + suffix)
         sizes = (out[2].tree_size if name == 'nuts_multi'
@@ -597,7 +705,7 @@ def _block_vs_plain(torch, den, carry, dtype):
 
 
 def _time_block(torch, den, q, metric, eps, plain_ms=None, ops=None,
-                peak=PEAK_FP32, tag='[8c]'):
+                peak=PEAK_FP32, tag='[8c]', timer=_time_ms):
     """One block launch on ``q`` under ``metric`` and step sizes ``eps``
     (CUDA events; [8c] on the pooled path's final state, [12] on an
     anchor's) beside the plain version's ms that its comparison measured
@@ -608,7 +716,7 @@ def _time_block(torch, den, q, metric, eps, plain_ms=None, ops=None,
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     C, dim = q.shape
     ops = _leapfrog_ops(dim) if ops is None else ops
-    ms, out = _time_ms(torch, lambda: nc.nuts_transition_batched(
+    ms, out = timer(torch, lambda: nc.nuts_transition_batched(
         5, q, metric, eps, MAX_TREEDEPTH, MAX_CHANGE, density=den), 10)
     leapfrogs = int(out[1].tree_size.sum())
     bound = _bound(leapfrogs * ops, _nbytes(q, metric.var, eps, out), peak)
@@ -1238,25 +1346,25 @@ def _des_recipe_objects(bt, cubic=False):
     return rec, sigma
 
 
-def _des_recipe(torch, bt, cubic=False):
-    """[10] The DES-like Recipe (optimize, two sample steps, IS) at full
-    width with DES_CHAINS chains in float32 through ``Recipe.run``: every
-    surrogate sample step on the NUTS chunk kernels with the compiled-in
-    PolyModel -> Gaussian density; [13] with ``cubic``, the same with the
-    cubic surrogate in both sample steps. Times each step and its parts,
-    counts the launches of each sample() call, and checks n_call and the
-    IS-weighted posterior means against the truth. Returns (the Recipe,
-    the run's launch counts, its n_call, largest IS-weighted deviation in
-    sigma and the chunk kernels' device seconds)."""
+def _run_recipe(torch, rec, per_call=lambda out: ()):
+    """``rec.run()`` instrumented, for [10], [13] and [15]: the wall of each
+    phase (optimize, sample, post) and part (true model, fits, Laplace,
+    sample(), IS); each sample() call's seconds, launches, tree-loop
+    transitions, end time and ``per_call(its TraceTuple)``; the chunk
+    calls' host seconds (``ChainDriver.run_warmup_chunk`` and
+    ``run_frozen_chunk``, each to a synchronized card) and the kernels'
+    device time by launch kind and K (CUDA events around each launch, read
+    once the run is over: recording them does not wait on the card); the
+    generated units the run built. The device time is the C launch calls'
+    (``_CallEvents``), without the wrappers' host work. Every launch count
+    and the tree-loop
+    count are set to 0 just before the run and read just after. Returns a
+    dict of them."""
+    from bayesfast_tpu_torch import _build
     from bayesfast_tpu_torch.core import recipe as rmod
     from bayesfast_tpu_torch.samplers import nuts as tree
-    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
-    tag = '[13]' if cubic else '[10]'
-    bt.utils.set_generator(27)
-    rec, sigma = _des_recipe_objects(bt, cubic)
+    from bayesfast_tpu_torch.samplers.chain import ChainDriver
     counters = _counters()
-    # per sample() call: seconds, launches, tree-loop transitions, |draw
-    # mean - truth| / sigma, post-warmup tree depth and acceptance
     calls = []
     parts = dict(true_model_s=0.0, fit_s=0.0, laplace_s=0.0, sample_s=0.0,
                  is_s=0.0)
@@ -1269,16 +1377,12 @@ def _des_recipe(torch, bt, cubic=False):
         t0 = time.time()
         out = sample(density, sample_trace=sample_trace, verbose=False, **kw)
         torch.cuda.synchronize()
-        dt = time.time() - t0
-        parts['sample_s'] += dt
-        st = out.trace._stats_arrays
-        n_w = out.trace.n_warmup
-        calls.append((dt, {k: f.launches - before[k]
-                           for k, f in counters.items()},
-                      tree.nuts_transition_batched.transitions - tr0,
-                      np.abs(out.get().mean(0) - DES_TRUTH) / sigma,
-                      float(st['tree_depth'][:, n_w:].mean()),
-                      float(st['mean_tree_accept'][:, n_w:].mean())))
+        t1 = time.time()
+        parts['sample_s'] += t1 - t0
+        calls.append((t1 - t0, {k: f.launches - before[k]
+                                for k, f in counters.items()},
+                      tree.nuts_transition_batched.transitions - tr0, t1)
+                     + tuple(per_call(out)))
         return out
 
     wrapped_on = []
@@ -1303,31 +1407,39 @@ def _des_recipe(torch, bt, cubic=False):
                       ('_true_logp', 'is_s')):
         timed(rec, name, key, parts)
     timed(rec.density, 'fit', 'fit_s', parts)
-    # the kernels' own device time: CUDA events around each launch (the
-    # wrappers' shared launcher, so their launch counts stay theirs), read
-    # once the run is over (recording them does not wait on the device)
-    events = []
-    launch = nc._launch
+    host = {'chunk_calls': 0, 'chunk_host_s': 0.0}
+    chunk_fns = {n: getattr(ChainDriver, n)
+                 for n in ('run_warmup_chunk', 'run_frozen_chunk')}
 
-    def launch_with_events(*a, **kw):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = launch(*a, **kw)
-        e1.record()
-        events.append((a[0], int(a[5]), e0, e1))  # kind, K
-        return out
+    def host_timed(fn):
+        def wrapped(self, *a, **kw):
+            t0 = time.time()
+            out = fn(self, *a, **kw)
+            torch.cuda.synchronize()
+            host['chunk_host_s'] += time.time() - t0
+            host['chunk_calls'] += 1
+            return out
+        return wrapped
 
-    nc._launch = launch_with_events
+    call_events = _CallEvents(torch).__enter__()
     rmod.sample = timed_sample
+    for n, fn in chunk_fns.items():
+        setattr(ChainDriver, n, host_timed(fn))
     for f in counters.values():
         f.launches = 0
     tree.nuts_transition_batched.transitions = 0
+    # (an A/B's parent checkout may predate the record)
+    builds = getattr(_build, 'traced_builds', {})
+    built = set(builds)
+    t0 = time.time()
     try:
         rec.run()
     finally:
+        run_s = time.time() - t0
         rmod.sample = sample
-        nc._launch = launch
+        call_events.__exit__()
+        for n, fn in chunk_fns.items():
+            setattr(ChainDriver, n, fn)
         # the objects' own methods again (a copy of the density must fit
         # its own surrogates)
         for obj, name in wrapped_on:
@@ -1335,12 +1447,49 @@ def _des_recipe(torch, bt, cubic=False):
     torch.cuda.synchronize()
     # the launch mix: (kind, K) -> launches, device ms
     mix = {}
-    for kind, k, e0, e1 in events:
+    for kind, k, e0, e1 in call_events.events:
         n, ms = mix.get((kind, k), (0, 0.0))
         mix[kind, k] = (n + 1, ms + e0.elapsed_time(e1))
     parts['kernels_s'] = sum(ms for _, ms in mix.values()) / 1e3
-    launches = {k: f.launches for k, f in counters.items()}
-    n_tree = tree.nuts_transition_batched.transitions
+    return dict(run_s=run_s, start=t0, phases=phases, parts=parts,
+                calls=calls, mix=mix, host=host,
+                launches={k: f.launches for k, f in counters.items()},
+                n_tree=tree.nuts_transition_batched.transitions,
+                built={k: v for k, v in builds.items()
+                       if k not in built})
+
+
+def _mix_text(mix):
+    return '; '.join(f'{kind} {k}: {n}, {ms / 1e3:.3f}, {ms / (n * k):.3f}'
+                     for (kind, k), (n, ms) in sorted(mix.items()))
+
+
+def _des_recipe(torch, bt, cubic=False):
+    """[10] The DES-like Recipe (optimize, two sample steps, IS) at full
+    width with DES_CHAINS chains in float32 through ``Recipe.run``: every
+    surrogate sample step on the NUTS chunk kernels with the compiled-in
+    PolyModel -> Gaussian density; [13] with ``cubic``, the same with the
+    cubic surrogate in both sample steps. Times each step and its parts,
+    counts the launches of each sample() call, and checks n_call and the
+    IS-weighted posterior means against the truth. Returns (the Recipe,
+    the run's launch counts, its n_call, largest IS-weighted deviation in
+    sigma and the chunk kernels' device seconds)."""
+    tag = '[13]' if cubic else '[10]'
+    bt.utils.set_generator(27)
+    rec, sigma = _des_recipe_objects(bt, cubic)
+
+    def per_call(out):
+        # |draw mean - truth| / sigma, post-warmup tree depth and acceptance
+        st = out.trace._stats_arrays
+        n_w = out.trace.n_warmup
+        return (np.abs(out.get().mean(0) - DES_TRUTH) / sigma,
+                float(st['tree_depth'][:, n_w:].mean()),
+                float(st['mean_tree_accept'][:, n_w:].mean()))
+
+    run = _run_recipe(torch, rec, per_call)
+    phases, parts, calls, mix = (run['phases'], run['parts'], run['calls'],
+                                 run['mix'])
+    launches, n_tree = run['launches'], run['n_tree']
     res = rec.get()
     w = res.weights_trunc
     mean = np.sum(res.samples * w[:, None], axis=0) / np.sum(w)
@@ -1360,7 +1509,7 @@ def _des_recipe(torch, bt, cubic=False):
         print('    the true model is quadratic in the nine parameters, so the '
               'cubic terms fit to about 0 and no input_scales are set: '
               '[13b] runs non-zero cubic coefficients and the scales')
-    for i, (dt, ln, nt, zs, depth, acc) in enumerate(calls):
+    for i, (dt, ln, nt, _, zs, depth, acc) in enumerate(calls):
         step = 'optimize' if i == 0 else f'sample #{i - 1}'
         print(f'    {step}: sample() {dt:.2f} s, launches '
               f'{ {k: v for k, v in ln.items() if v} }, tree-loop '
@@ -1368,9 +1517,7 @@ def _des_recipe(torch, bt, cubic=False):
               f'accept {acc:.3f}, |draw mean - {DES_TRUTH}| max '
               f'{zs.max():.3f} sigma')
     print('    chunk launches (kind, K: launches, device s, ms a '
-          'transition): ' + '; '.join(
-              f'{kind} {k}: {n}, {ms / 1e3:.3f}, {ms / (n * k):.3f}'
-              for (kind, k), (n, ms) in sorted(mix.items())))
+          'transition): ' + _mix_text(mix))
     print(f'    n_call {res.n_call} ([10]: JAX package record '
           f'{DES_JAX_NCALL}, reference {DES_REF_NCALL}); tree-loop '
           f'transitions {n_tree}')
@@ -1908,6 +2055,139 @@ def _traced(torch, bt, dens, rates3, anchor_carries, ptxas, builds,
     return rows
 
 
+def _donut_sources(torch):
+    """[2] The generated units of the donut Recipe's two plans ([15]): the
+    OptimizeStep's linear surrogate and the SampleSteps' quadratic one, each
+    then the user's ``f_1`` and the decay, traced from the Recipe's own
+    objects before any fit (a plan's program is a function of its
+    structure; a fit changes its parameters only), in DONUT_UNITS' dtypes.
+    Returns {'donut plan dtype': source}."""
+    from bayesfast_tpu_torch import config
+    from bayesfast_tpu_torch.examples import donut_recipe
+    dtype = config.get_dtype()
+    rec = donut_recipe.build()
+    rt = rec.recipe_trace
+    den = rec.density
+    den.use_surrogate = True
+    plans = {'linear': rt._s_optimize.surrogate_list,
+             'quadratic': rt._strategy._sample_steps[0].surrogate_list}
+    srcs = {}
+    for plan, dt in DONUT_UNITS:
+        den.surrogate_list = list(plans[plan])
+        srcs[f'donut {plan} {dt}'] = den.kernel_spec()['program'].source(
+            getattr(torch, dt))
+    config.set_dtype(dtype)
+    return srcs
+
+
+def _donut(torch, bt, ptxas, builds, srcs, smi):
+    """[15] The 2-d donut Recipe (``examples/donut_recipe.py``) at its
+    configuration under ``nuts_kernel='auto'``, float64: both of its
+    sampled plans end in the user's ``f_1``, so every transition runs on
+    the chunk kernels with the plan's traced functor (0 tree-loop
+    transitions), each plan's unit the one [2] built before any fit. Gates
+    n_call <= DONUT_NCALL, finite weights and |E[r] - DONUT_R| <=
+    DONUT_R_TOL. Then the quadratic plan's frozen and warmup K = 4 chunks
+    and a block launch bitwise against the program's interpreter at the
+    Recipe's 8 chains on its final state, float64 and float32, and timed.
+    Returns {kernel row: (launches, max abs error, (ms, plain ms, bound
+    ms, bound by))} with the float64 times."""
+    from bayesfast_tpu_torch import config
+    from bayesfast_tpu_torch.examples import donut_recipe
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    config.set_nuts_kernel('auto')
+    rec = donut_recipe.build()
+    run = _run_recipe(torch, rec)
+    res = rec.get()
+    w = res.weights_trunc
+    r_mean = donut_recipe.mean_radius(res)
+    ph = run['phases']
+    print(f'[15] donut Recipe (examples/donut_recipe.py): D=2, 8 chains x '
+          f'1000 (500 warmup), float64, nuts_kernel=\'auto\'; Recipe.run() '
+          f'{run["run_s"]:.2f} s: ' +
+          ', '.join(f'{k} {v:.2f} s' for k, v in ph.items()))
+    print('    parts (s): ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in run['parts'].items()))
+    prev = run['start'] + ph['optimize']
+    for i, (dt, ln, nt, t_end) in enumerate(run['calls']):
+        step = ('optimize' if i == 0 else
+                f'sample step #{i - 1} {t_end - prev:.2f} s,')
+        prev = t_end if i else prev
+        print(f'    {step} sample() {dt:.2f} s, launches '
+              f'{ {k: v for k, v in ln.items() if v} }, tree-loop '
+              f'transitions {nt}')
+    print(f'    chunk calls: {run["host"]["chunk_calls"]}, host '
+          f'{run["host"]["chunk_host_s"]:.3f} s, kernels '
+          f'{run["parts"]["kernels_s"] * 1e3:.1f} ms; launches (kind, K: '
+          f'launches, device s, ms a transition): {_mix_text(run["mix"])}')
+    print(f'    units built during the run: {run["built"] or "none"}; '
+          f'each plan\'s unit built in [2]: ' + ', '.join(
+              f'{k} {builds[k]}' for k in srcs))
+    print(f'    n_call {res.n_call} (gate <= {DONUT_NCALL}; the notebook '
+          f'~330, both packages 296 on the CPU); IS-weighted E[r] '
+          f'{r_mean:.4f} (gate |E[r] - {DONUT_R}| <= {DONUT_R_TOL}); '
+          f'tree-loop transitions {run["n_tree"]}')
+    calls = run['calls']
+    if not (len(calls) == 3 and run['n_tree'] == 0 and all(
+            ln['nuts_warmup'] > 0 and ln['nuts_multi'] > 0 and nt == 0
+            for _, ln, nt, _ in calls)):
+        raise AssertionError('[15]: a donut sample step did not run every '
+                             'transition on the chunk kernels')
+    if run['built']:
+        raise AssertionError(f'[15]: the run built {run["built"]}: a plan\'s '
+                             'program changed with its fit')
+    if not (np.isfinite(w).all() and np.isfinite(res.weights).all()):
+        raise AssertionError('[15]: non-finite importance weights')
+    if not (res.n_call is not None and res.n_call <= DONUT_NCALL):
+        raise AssertionError(f'[15]: n_call {res.n_call} > {DONUT_NCALL}')
+    if not abs(r_mean - DONUT_R) <= DONUT_R_TOL:
+        raise AssertionError(f'[15]: E[r] {r_mean} off {DONUT_R}')
+    den = rec.density
+    den.use_surrogate = True
+    prog = den.kernel_spec()['program']
+    if prog.source(torch.float64) != srcs['donut quadratic float64']:
+        raise AssertionError('[15]: the last step\'s plan is not the '
+                             'quadratic unit of [2]')
+    ops = _traced_leapfrog_ops(prog)
+    carry = rec.recipe_trace.results.sample[-1].sample_trace.trace._carry
+    print(f'[15] the quadratic plan: {len(prog.nodes)} nodes '
+          f'({prog.describe()}), {prog.n_ops} operations an evaluation, '
+          f'{ops} a leapfrog; kernels vs plain at the Recipe\'s '
+          f'{carry.q.shape[0]} chains, its final state, K={K_CMP}')
+    errs, times = {}, {}
+    for dt, peak in ((torch.float64, PEAK_FP64), (torch.float32, PEAK_FP32)):
+        tag = str(dt)[6:]
+        c = _cast(carry, dt)
+        C, dim = c.q.shape
+        e, plain_ms = _chunks_vs_plain(torch, den, c, dt, 'traced donut',
+                                       '_donut', block=True)
+        # 8 chains: a launch is shorter than the wrapper's host work, so
+        # the kernels are timed on the device alone (_CallEvents)
+        t = _time_chunks(torch, den, c, plain_ms, ops, '_donut', peak,
+                         timer=_device_ms)[0]
+        metric = init_diag_metric(c.q, nc._mat(c.metric.var, C, dim, c.q))
+        t['nuts_block_donut'] = _time_block(
+            torch, den, c.q, metric, torch.exp(c.step.log_bar),
+            plain_ms['nuts_block_donut'], ops, peak,
+            f'  nuts_block_donut {tag}', timer=_device_ms)[0]
+        call_ms = _time_ms(torch, lambda: nc.nuts_chunk_batched(
+            5, c.q, metric, torch.exp(c.step.log_bar), K_CMP, MAX_TREEDEPTH,
+            MAX_CHANGE, density=den, i0=700), 5)[0]
+        print(f'  nuts_multi_donut {tag}: the wrapper\'s call (host work '
+              f'and launch, CUDA events) {call_ms:.3f} ms')
+        times[dt] = t
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        label = f'donut quadratic {tag}'
+        print(f'  traced donut {tag}: kernels {_ptxas_text(ptxas, label)}; '
+              f'built in {builds[label]}; {smi}')
+    launches = run['launches']
+    return {f'{kind}_donut': (launches[kind], errs[f'{kind}_donut'],
+                              times[torch.float64][f'{kind}_donut'])
+            for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block')}
+
+
 def _ptxas_text(ptxas, label):
     return '; '.join(f'{k.split()[0]} {k.split()[-1]}: {v[0]} registers, '
                      f'{v[2]} / {v[3]} B spilled'
@@ -1972,9 +2252,10 @@ def _check_registers(traced=None):
     if a PolyGaussian, Funnel, Ring or Cauchy instantiation spills, other
     than float64 at D > 32 (NE=2), where the transition's own state fills
     the 255 registers (as it did for PolyGaussian before the coefficients
-    were staged). ``traced`` ({label: generated source}, [14]'s units):
-    each one's three kernels too, from its own build's output; a float32
-    traced instantiation must not spill. Returns {label: its table}."""
+    were staged). ``traced`` ({label: generated source}, [14]'s and
+    [15]'s units): each one's three kernels too, from its own build's
+    output; a traced instantiation must not spill in float32, nor in
+    float64 at NE = 1. Returns {label: its table}."""
     from bayesfast_tpu_torch import _build
     log = _build.build_log('nuts')
     if log is None:
@@ -2005,9 +2286,9 @@ def _check_registers(traced=None):
             raise AssertionError(f'traced {label}: {len(tables[label])} '
                                  'kernels, not 3')
         bad = [k for k, v in tables[label].items()
-               if 'f32' in k and (v[2] or v[3])]
+               if ('f32' in k or 'NE=1' in k) and (v[2] or v[3])]
         if bad:
-            raise AssertionError(f'traced {label}: float32 spills {bad}')
+            raise AssertionError(f'traced {label}: spills {bad}')
     return tables
 
 
@@ -2198,6 +2479,10 @@ def _ab_one(tree, state, out_path, n_seeds):
     for name, dim, _ in ANCHORS:
         res['digests'][f'{name} chunk outputs [12]'] = _digest(
             _anchor_chunks(torch, name))
+    # [14]'s traced banana the same way: the tracer must keep its program
+    from bayesfast_tpu_torch.examples.user_densities import DENSITIES
+    res['digests']['traced banana chunk outputs [14]'] = _digest(
+        _seeded_chunks(torch, DENSITIES['bench_banana']()[0]))
     res['nuts_block'] = _time_block(
         torch, den, *_block_inputs(torch, st['pooled'], torch.float32))[1]
     x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
@@ -2221,10 +2506,16 @@ def _anchor_chunks(torch, name):
     generator: the A/B's check that [12]'s instantiations keep their
     draws. Returns the two chunks' outputs."""
     from bayesfast_tpu_torch import interop
+    return _seeded_chunks(torch, getattr(interop, f'{name}_density')()[0])
+
+
+def _seeded_chunks(torch, den):
+    """A frozen and a warmup K = 4 chunk (float64, 64 chains) with ``den``
+    on a state drawn from a generator seeded by its dimension; returns the
+    two chunks' outputs."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
     from bayesfast_tpu_torch.samplers.step_size import init_step_size
-    den = getattr(interop, f'{name}_density')()[0]
     dim = den.input_size
     rng = np.random.default_rng(dim)
     q = torch.as_tensor(rng.normal(size=(64, dim)) * 0.3, device='cuda')
@@ -2342,8 +2633,10 @@ def main():
     walls = {}  # each phase's wall, in the order run
 
     # ---- [2] build: one nvcc per source, in parallel, the units that
-    # [14]'s traced densities generate too ----
+    # [14]'s traced densities and [15]'s donut plans generate too ----
     traced_dens, traced_srcs = _traced_sources(torch)
+    donut_srcs = _donut_sources(torch)
+    traced_srcs.update(donut_srcs)
     paths = _build.build_library(verbose=True,
                                  sources=list(traced_srcs.values()))
     print(f'[2] built {[os.path.relpath(p, _REPO) for p in paths.values()]}'
@@ -2522,6 +2815,12 @@ def main():
                           smi)
     t_phase = _wall(walls, '[14]', t_phase)
 
+    # ---- [15] the 2-d donut Recipe under 'auto', every transition on the
+    # chunk kernels with its plans traced; the quadratic plan's kernels
+    # bitwise against the interpreter ----
+    traced_rows.update(_donut(torch, bt, ptxas, builds, donut_srcs, smi))
+    t_phase = _wall(walls, '[15]', t_phase)
+
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
                        'bayesfast_tpu/samplers/nuts_pallas.py:462'),
@@ -2569,12 +2868,13 @@ def main():
                      'launches': n, 'max_abs_err': err, 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': None})
-    # [14]'s traced instantiations: launches on its main path (the block
-    # kernel has none: the path adapts per chain), float32 times for the
-    # banana, float64 for the anchors' user forms
+    # [14]'s and [15]'s traced instantiations: launches on their main
+    # paths (the block kernel has none: both adapt per chain), float32
+    # times for the banana, float64 for the anchors' user forms and the
+    # donut's quadratic plan
     for k, (n, err, (ms, plain_ms, bound_ms, bound_by)) in \
             traced_rows.items():
-        line = pallas[k.split('_traced')[0]]
+        line = pallas[next(p for p in pallas if k.startswith(p))]
         rows.append({'name': k, 'route': 'cuda',
                      'source': 'bayesfast_tpu_torch/csrc/nuts_kernels.cuh',
                      'replaces': f'bayesfast_tpu/samplers/nuts_pallas.py:'

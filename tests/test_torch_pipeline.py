@@ -412,8 +412,10 @@ def test_spec_follows_every_refit():
 
 
 def test_user_post_module_has_no_kernel_spec():
-    """A pipeline whose surrogate feeds a user module is not compiled in:
-    'auto' samples it on the tree loop, 'cuda' raises."""
+    """A pipeline whose surrogate feeds a user module has no compiled-in
+    kernel spec: its plan is traced (``ops/trace.py``), and 'auto' samples
+    it on the kernels' path (their plain versions on the CPU), not on the
+    tree loop; 'cuda' raises on CPU tensors."""
     bt.utils.set_generator(5)
     su = PolyModel('quadratic', input_size=2, output_size=1,
                    input_vars='x', output_vars='m',
@@ -427,18 +429,18 @@ def test_user_post_module_has_no_kernel_spec():
     rng = np.random.default_rng(0)
     den.fit(den.fun(rng.normal(size=(30, 2)) * 2, use_surrogate=False))
     den.use_surrogate = True
-    assert not den.has_kernel_spec
-    with pytest.raises(NotImplementedError):
-        den.kernel_spec()
-    # what a launch on the card would raise: no spec to launch with
-    with pytest.raises(NotImplementedError):
-        tnc._spec_for(den, torch.zeros(4, 2, dtype=torch.float64))
+    assert den._kernel_parts() is None
+    assert den.has_kernel_spec and den.has_traced_spec
+    assert den.kernel_spec()['density'] == 'traced'
+    # what a launch on the card would take: the traced program's constants
+    spec = tnc._spec_for(den, torch.zeros(4, 2, dtype=torch.float64))
+    assert spec[0] == tnc.DENSITY_IDS['traced']
     trace = dict(n_chain=4, n_iter=10, n_warmup=5,
                  x_0=rng.normal(size=(4, 2)))
     n0 = bt.samplers.nuts.nuts_transition_batched.transitions
     tt = bt.sample(den, bt.NTrace(**trace), verbose=False)
     assert np.isfinite(tt.get()).all()
-    assert bt.samplers.nuts.nuts_transition_batched.transitions - n0 == 10
+    assert bt.samplers.nuts.nuts_transition_batched.transitions - n0 == 0
     tconfig.set_nuts_kernel('cuda')
     try:
         with pytest.raises((NotImplementedError, RuntimeError)):
