@@ -624,7 +624,9 @@ class Density(Pipeline, _DensityBase):
             return TraceError('input_size is not set: the plan is traced at '
                               'one point of that size')
         if D > 64:
-            return TraceError(f'the CUDA NUTS kernels take D <= 64, got {D}')
+            return TraceError(f'the CUDA NUTS kernels take a Density plan '
+                              f'(the compiled-in PolyGaussian or a traced '
+                              f'plan) at D <= 64, got {D}')
         if self._has_external(us):
             names = [self._module_by_ref(k, i).label or f'{k} #{i}'
                      for k, i in self._plan(us)

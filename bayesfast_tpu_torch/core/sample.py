@@ -14,14 +14,15 @@ as the JAX package dispatches (``core/sample.py:465-602``):
   shared Welford update between launches;
 * either diag case after warmup: frozen chunks, one launch each;
 * NUTS with a full metric, a density without ``kernel_spec()`` or D >
-  64, and every HMC, THMC, TNUTS and ChEES transition: the per-transition
-  path in plain torch on the device (NUTS and TNUTS on the tree loop), as
-  the JAX package runs them in XLA. ``ChainDriver.uses_kernels`` routes:
-  under ``nuts_kernel='auto'`` a ``DensityLite`` whose logp does not trace
-  into the kernels' op set warns once (the op named) and takes the tree
-  loop, as the JAX package warns and falls back when its kernel does not
-  lower; under ``'cuda'`` such a density, or D > 64, raises
-  ``NotImplementedError`` before any device work;
+  256 (a ``Density`` plan past 64), and every HMC, THMC, TNUTS and ChEES
+  transition: the per-transition path in plain torch on the device (NUTS
+  and TNUTS on the tree loop), as the JAX package runs them in XLA.
+  ``ChainDriver.uses_kernels`` routes: under ``nuts_kernel='auto'`` a
+  ``DensityLite`` whose logp does not trace into the kernels' op set warns
+  once (the op named) and takes the tree loop, as the JAX package warns
+  and falls back when its kernel does not lower; under ``'cuda'`` such a
+  density, or D > 256, raises ``NotImplementedError`` before any device
+  work;
 * the ensemble: ``_run_ensemble``, gradient-free stretch moves.
 
 A ``DensityLite`` over a compiled-in density (``ops.densities``) or over

@@ -147,8 +147,13 @@ __host__ __device__ constexpr int row_stride() {
 // of x known when the functor is generated, lets the padded products past
 // it be that constant +0 without a load: a matrix 2 or 3 wide then keeps
 // a few partial sums live, not 32 (the adds of the levels stay, since s +
-// 0 is not s when s is -0).
-template <typename T, int NI, int NO, int S, int N = 32 * NI>
+// 0 is not s when s is -0). GLOBAL: M is not staged but read, in the same
+// layout (rows of S, zero-padded, 16-byte aligned), from device memory
+// through the read-only path: a matrix past a block's shared memory (the
+// 250-d MVN's precision), each chain reading it from L2 itself, in the same
+// order of products and sums.
+template <typename T, int NI, int NO, int S, int N = 32 * NI,
+          bool GLOBAL = false>
 __device__ __forceinline__ void tree_matvec(const T* __restrict__ M,
                                             T* __restrict__ xbuf,
                                             const T (&x)[NI], int n,
@@ -176,8 +181,9 @@ __device__ __forceinline__ void tree_matvec(const T* __restrict__ M,
         }
         const typename V::type xv =
             *reinterpret_cast<const typename V::type*>(xbuf + 32 * e + k0);
-        const typename V::type mv =
-            *reinterpret_cast<const typename V::type*>(row + 32 * e + k0);
+        const typename V::type* mp =
+            reinterpret_cast<const typename V::type*>(row + 32 * e + k0);
+        const typename V::type mv = GLOBAL ? __ldg(mp) : *mp;
 #pragma unroll
         for (int i = 0; i < V::n; ++i) {
           const T p = V::at(mv, i) * V::at(xv, i);

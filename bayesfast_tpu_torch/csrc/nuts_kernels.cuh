@@ -68,6 +68,17 @@
 // chains a second wave of blocks starts only as blocks of the first
 // finish.
 //
+// Lane width: a lane holds NE = ceil(D / 32) dimensions, NE = 1..8 (D <=
+// 256, `check_launch`). Past NE = 2 a lane's state (three `State`s of 5
+// NE + 2 values, the frames, the merge temporaries) outgrows the 255
+// registers and ptxas keeps the rest in local memory (L1, then L2): the
+// compiled-in Gaussian fits at NE = 4 in f32 and spills ~1 KB a thread in
+// f64; the traced MVN-250 at NE = 8 spills 5-6 KB (f32) and 19-23 KB
+// (f64) of stores a thread (chip_smoke.py [2b]). The arithmetic and its
+// order, and so the bits, stay the plain versions'; a layout of the state
+// that does not spill (the tree edges in a per-warp slab of shared
+// memory) is later work.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (see ../_build.py)
 // --fmad=false and no fast math keep each elementwise operation rounded as
@@ -865,11 +876,13 @@ cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s,
 }
 
 // the arguments that no kernel takes: cudaErrorInvalidValue for C, D, K or
-// the depth out of range (D in 1..64: a lane holds at most two dimensions),
-// or a pointer table of the wrong length for the kind
+// the depth out of range (D in 1..256: a lane holds at most eight
+// dimensions), or a pointer table of the wrong length for the kind
+constexpr int kMaxD = 256;
 inline cudaError_t check_launch(int kind, int C, int D, int K, int maxdepth,
                                 int n_ptrs) {
-  if (C < 1 || D < 1 || D > 64 || K < 1 || maxdepth < 1 || maxdepth > 24)
+  if (C < 1 || D < 1 || D > kMaxD || K < 1 || maxdepth < 1 ||
+      maxdepth > 24)
     return cudaErrorInvalidValue;
   if (n_ptrs != (kind == kWarmup ? kPtrsWarmup : kPtrsFrozen))
     return cudaErrorInvalidValue;

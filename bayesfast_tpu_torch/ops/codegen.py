@@ -20,7 +20,11 @@ rules of the hand-written ``Banana`` hold:
 * each constant matrix of a ``mv`` node is staged in shared memory once
   per block, as read (transposed or not), one row a lane, zero-padded, 16
   bytes of padding a row (``row_stride``), and read 16 bytes at a time by
-  ``tree_matvec`` through the warp's buffer;
+  ``tree_matvec`` through the warp's buffer; a matrix that does not fit
+  beside those staged before it (the 250-d MVN's precision: 266 KB in
+  float32) keeps that layout in device memory, after the packed constants
+  (``launch_params``), and each chain reads it from L2 16 bytes at a time
+  in the same order of products and sums;
 * sums are the xor butterfly (``warp_sum``), so every lane holds the same
   bits and every branch stays warp-uniform; a sum's lane part adds its
   slots in turn, a position past a vector's length as zero, so it rounds
@@ -42,15 +46,15 @@ comparison is ``(a < b) ? 1 : 0`` a slot and a select ``c != 0 ? a : b``
 (selects, not branches: a comparison of scalars holds the same bits in
 every lane); a scatter-add is its sums in program order, gathers of the
 sources added in turn. ``check_limits`` refuses, at the trace, a program
-whose staged matrices and warp buffers pass a block's shared memory or
-whose gather tables pass the constant memory, so a launch never meets one.
-"""
+whose gather tables pass the constant memory, or whose matrix products'
+x buffers pass a block's shared memory, so a launch never meets one.
+D goes up to 256 (NE = 8 slots a lane)."""
 
 import torch
 
 from .trace import BINARY, CMP, UNARY, TraceError
 
-__all__ = ['cuda_source', 'check_limits']
+__all__ = ['cuda_source', 'check_limits', 'launch_params']
 
 _UN = {'neg': '-{0}', 'recip': 'Real(1) / {0}', 'exp': 'm_exp({0})',
        'log': 'm_log({0})', 'log1p': 'm_log1p({0})', 'sqrt': 'm_sqrt({0})'}
@@ -63,6 +67,8 @@ _CMP = {'lt': '({0} < {1})', 'le': '({0} <= {1})', 'gt': '({0} > {1})',
 # module's __constant__ data may take
 MAX_SMEM = 232448
 MAX_CONST = 65536
+# the kernels' largest D: eight dimensions a lane (nuts_kernels.cuh kMaxD)
+MAX_D = 256
 
 
 def _slots(n):
@@ -79,25 +85,44 @@ def _lit(attr):
 
 
 class _Layout:
-    """Where the functor keeps things: staged matrices and the warp
-    buffer (shared memory), gather tables (constant memory)."""
+    """Where the functor keeps things: the matrices of ``mv`` nodes
+    (staged in shared memory, in order while they fit beside the warps'
+    x buffers; past that read from device memory, a zero-padded copy in
+    the same layout after the packed constants, ``launch_params``), the
+    warp buffer (shared memory) and the gather tables (constant
+    memory)."""
 
     def __init__(self, program, itemsize):
         p = program
-        self.mats = []            # (idx, tr, m, n, rows, stride, offset)
-        off = 0
-        xb = 0
         pad = 16 // itemsize
+        xb = 0
+        for nd in p.nodes:
+            if nd.op == 'mv':
+                xb = max(xb, 32 * _slots(p.nodes[nd.args[0]].n))
+        room = MAX_SMEM // itemsize - 8 * xb   # kWarps buffers
+        # (idx, tr, m, n, rows, stride, offset, staged): the offset in
+        # shared memory when staged, else in the launch's parameters
+        self.mats = []
+        off = 0
+        # the device-memory copies start at a multiple of 32 elements
+        # past the packed constants (16-byte aligned rows)
+        goff = -(-max(p.n_params, 1) // 32) * 32
+        self.params_base = goff
         for nd in p.nodes:
             if nd.op == 'mv' and nd.attr not in [m[:2] for m in self.mats]:
                 m, n = p.matrix(*nd.attr)
                 rows, stride = 32 * _slots(m), 32 * _slots(n) + pad
-                self.mats.append((*nd.attr, m, n, rows, stride, off))
-                off += rows * stride
-            if nd.op == 'mv':
-                xb = max(xb, 32 * _slots(p.nodes[nd.args[0]].n))
+                if off + rows * stride <= room:
+                    self.mats.append((*nd.attr, m, n, rows, stride, off,
+                                      True))
+                    off += rows * stride
+                else:
+                    self.mats.append((*nd.attr, m, n, rows, stride, goff,
+                                      False))
+                    goff += rows * stride
         self.xbuf_off, self.xbuf = off, xb
-        self.smem = off + 8 * xb   # kWarps buffers
+        self.smem = off + 8 * xb
+        self.params_end = goff
         self.gathers, goff = {}, 0
         for i, nd in enumerate(p.nodes):
             if nd.op == 'gather':
@@ -118,17 +143,41 @@ class _Layout:
 
 def check_limits(program, itemsize):
     """Raise ``TraceError`` when the functor of ``program`` at
-    ``itemsize`` bytes a value does not fit the kernels: its staged
-    matrices and warp buffers past a block's shared memory, or its gather
-    tables past the constant memory."""
+    ``itemsize`` bytes a value cannot launch: the warps' x buffers of its
+    matrix products past a block's shared memory, or its gather tables
+    past the constant memory. (A matrix that does not fit beside them is
+    read from device memory, see ``_Layout``.)"""
     lay = _Layout(program, itemsize)
     smem, table = lay.smem * itemsize, 4 * len(lay.table)
     if smem > MAX_SMEM:
-        raise TraceError(f'the program stages {smem} bytes of matrices in '
-                         f'shared memory, past the {MAX_SMEM} a block has')
+        raise TraceError(f'the program\'s matrix products take {smem} bytes '
+                         f'of x buffers in shared memory, past the '
+                         f'{MAX_SMEM} a block has')
     if table > MAX_CONST:
         raise TraceError(f'the program\'s gather tables take {table} bytes '
                          f'of constant memory, past its {MAX_CONST}')
+
+
+def launch_params(program, packed):
+    """The parameters a launch of the functor of ``program`` reads: the
+    packed constants ``packed`` (``Program.pack`` in the run dtype, on the
+    card), then, when a matrix is read from device memory, zeros to
+    ``_Layout.params_base`` and each such matrix as read (transposed or
+    not), zero-padded to its rows and row stride, in the order of the
+    layout."""
+    lay = _Layout(program, packed.element_size())
+    glob = [m for m in lay.mats if not m[7]]
+    if not glob:
+        return packed
+    parts = [packed, packed.new_zeros(lay.params_base - packed.numel())]
+    for idx, tr, m, n, rows, stride, _, _ in glob:
+        off = program.offsets[idx]
+        m0, n0 = program.consts[idx][0].shape
+        M = packed[off:off + m0 * n0].view(m0, n0)
+        pad = packed.new_zeros(rows, stride)
+        pad[:m, :n] = M.T if tr else M
+        parts.append(pad.reshape(-1))
+    return torch.cat(parts).contiguous()
 
 
 def _ancestors(p, roots):
@@ -177,8 +226,9 @@ def cuda_source(program, dtype):
         raise ValueError(f'unsupported dtype {dtype}.')
     f64 = dtype == torch.float64
     itemsize = 8 if f64 else 4
-    if p.D > 64:
-        raise ValueError(f'the CUDA NUTS kernels take D <= 64, got {p.D}.')
+    if p.D > MAX_D:
+        raise ValueError(f'the CUDA NUTS kernels take D <= {MAX_D}, got '
+                         f'{p.D}.')
     NE = _slots(p.D)
     lay = _Layout(p, itemsize)
     nodes = p.nodes
@@ -207,11 +257,17 @@ def cuda_source(program, dtype):
         return out
 
     members, stage, bind = [], [], []
-    if lay.mats:
+    if any(m[7] for m in lay.mats):
         # one base pointer: each matrix at a constant offset from it
         members.append('const Real* sm;  // the staged matrices')
         bind.append('sm = smem;')
-    for k, (idx, tr, m, n, rows, stride, off) in enumerate(lay.mats):
+    for idx, tr, m, n, rows, stride, off, staged in lay.mats:
+        if not staged:
+            members.append(f'// par + {off}: constant {idx}'
+                           f'{" transposed" if tr else ""}, {m} x {n}, '
+                           f'{rows} rows of {stride}, read from device '
+                           f'memory')
+            continue
         members.append(f'// sm + {off}: constant {idx}'
                        f'{" transposed" if tr else ""}, {m} x {n}, '
                        f'{rows} rows of {stride}')
@@ -287,12 +343,14 @@ def cuda_source(program, dtype):
                     [f'  v{i} = warp_sum(p);', '}'])
         if op == 'mv':
             k = lay.mat(nd.attr)
-            _, _, _, n_in, _, stride, off = lay.mats[k]
+            _, _, _, n_in, _, stride, off, staged = lay.mats[k]
             full = n_in == 32 * _slots(n_in)
+            tail = ('' if full else f', {n_in}') if staged else \
+                f', {n_in}, true'
             return [f'Real v{i}[{ns}];',
                     f'tree_matvec<Real, {_slots(n_in)}, {ns}, {stride}'
-                    f'{"" if full else f", {n_in}"}>('
-                    f'sm + {off}, xbuf, v{a[0]}, {n_in}, v{i});']
+                    f'{tail}>({"sm" if staged else "par"} + {off}, xbuf, '
+                    f'v{a[0]}, {n_in}, v{i});']
         if op == 'pick':
             return [f'const Real v{i} = __shfl_sync(kFull, '
                     f'v{a[0]}[{nd.attr >> 5}], {nd.attr & 31});']

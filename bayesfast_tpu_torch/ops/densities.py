@@ -384,7 +384,8 @@ def poly_gaussian_spec(dim, configs, n_out, mean, var_inv, norm, bound=None,
     D, M = int(dim), int(n_out)
     if D > 64:
         raise NotImplementedError(
-            f'the CUDA NUTS kernels take D <= 64, got {D}.')
+            f'the CUDA NUTS kernels take the PolyGaussian density at D <= '
+            f'64, got {D}.')
     trip, blocks = [], []
     for order, im, om, a in configs:
         trip.append(_triples(order, im, D))

@@ -45,8 +45,9 @@ are lowered as their out-of-place forms. Any other aten op raises
 ``TraceError`` naming it; so does control flow on the data (``make_fx``
 refuses to read a value), a random factory, an in-place op on a view or
 on a constant the function reads, an index that depends on the
-parameters, and a program that does not fit the kernels' shared or
-constant memory (``ops.codegen.check_limits``).
+parameters, and a program whose gather tables do not fit the kernels'
+constant memory, or its matrix products' x buffers their shared memory
+(``ops.codegen.check_limits``).
 
 Gradients at ties follow torch's autograd: ``clamp``'s goes to x where lo
 <= x <= hi (a bound included), ``maximum``'s and ``minimum``'s split in

@@ -12,7 +12,7 @@ together. Two kinds of path:
   a Python loop over transitions, then the dual-averaging update and the
   pooled or per-chain Welford update as batched torch ops. A NUTS
   transition is one launch of the block kernel (or, for a full metric, a
-  density without ``kernel_spec()`` or D > 64, one pass of the torch tree
+  density without ``kernel_spec()`` or D > 256, one pass of the torch tree
   loop, ``nuts.py``; ``uses_kernels`` routes). HMC, THMC, TNUTS and
   ChEES transitions are plain torch on the chains' device (``hmc.py``,
   ``tempered.py``, ``chees.py``), as they are XLA in the JAX package; the
@@ -116,7 +116,9 @@ class ChainDriver:
         their plain versions) rather than the torch tree loop: NUTS with a
         diag metric, and a density the kernels take at the metric's D
         (``nuts_cuda.kernel_refusal``: a kernel spec, compiled in or
-        traced from a logp or a ``Density`` plan, and D <= 64). Otherwise ``nuts_kernel='cuda'`` raises
+        traced from a logp or a ``Density`` plan, and D <= 256; a
+        ``Density`` plan and the compiled-in banana name their own lower
+        limits). Otherwise ``nuts_kernel='cuda'`` raises
         ``NotImplementedError`` here, before any device work, and 'auto'
         and 'torch' take the tree loop; under 'auto' a logp that does not
         trace warns once, naming the op (as the JAX package warns when its
@@ -126,8 +128,8 @@ class ChainDriver:
             return False
         dim = int(metric.var.shape[-1])
         if dim not in self._refusals:
-            self._refusals[dim] = nuts_cuda.kernel_refusal(self._density,
-                                                           dim)
+            self._refusals[dim] = nuts_cuda.kernel_refusal(
+                self._density, dim, metric.var.dtype)
         why = self._refusals[dim]
         if why is None:
             return True

@@ -26,8 +26,13 @@ traced from a user's torch logp (``ops/trace.py``, spec ``'traced'``)
 launches the same kernels compiled with its generated functor
 (``ops/codegen.py``, built per program and dtype by
 ``_build.load_traced``); its plain versions run the program's
-interpreter. ``kernel_refusal`` says why a density cannot take the
-kernels at a dimension; ``ChainDriver.uses_kernels`` routes by it.
+interpreter. The kernels hold a chain in a warp, lane ``l`` holding
+dimensions ``l, l + 32, ...``: up to eight a lane, D <= 256. The
+compiled-in densities are in ``csrc/nuts.cu``'s library at D <= 64 (NE =
+1, 2); at D 65..256 each (density, NE, dtype) is a unit of its own
+(``wide_unit_source``), built at first use like a traced one.
+``kernel_refusal`` says why a density cannot take the kernels at a
+dimension; ``ChainDriver.uses_kernels`` routes by it.
 
 Randomness is the JAX package's counter RNG, reproduced bit for bit:
 ``_fmix32``/``_uniforms`` (murmur3 finalizer over golden-ratio-spread
@@ -52,13 +57,16 @@ import weakref
 import numpy as np
 import torch
 
-from ..ops.densities import DENSITY_IDS, spec_logp_and_grad, warp_sum
+from ..config import get_dtype
+from ..ops.densities import (DENSITY_IDS, RotatedBanana, spec_logp_and_grad,
+                             warp_sum)
 from .metrics import DiagMetricState
 from .nuts import NutsStats, _kahan_add
 
 __all__ = ['nuts_transition_batched', 'nuts_chunk_batched',
            'nuts_warmup_chunk_batched', 'nuts_block_plain', 'nuts_chunk_plain',
-           'nuts_warmup_chunk_plain', 'plain_lpg', 'kernel_refusal']
+           'nuts_warmup_chunk_plain', 'plain_lpg', 'kernel_refusal',
+           'wide_unit_source']
 
 _M32 = 0xFFFFFFFF
 # float32(2 pi), the Box-Muller angle constant as the float32 kernels use it
@@ -497,7 +505,10 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 
-_MAX_D = 64
+# eight dimensions a lane (csrc/nuts_kernels.cuh kMaxD); csrc/nuts.cu's
+# own library holds NE = 1 and 2, D <= 64 (the PolyGaussian surrogate and
+# a traced Density plan stay there: core/pipeline.py)
+_MAX_D, _LIB_D = 256, 64
 # the kinds of nuts_traced_launch (ops/codegen.py)
 _KINDS = {'frozen': 0, 'warmup': 1, 'block': 2}
 _N_EXTRA = 14  # density scalars past the first two, then the staging plan
@@ -715,13 +726,25 @@ def _spec_for(density, like):
     return spec
 
 
-def kernel_refusal(density, dim):
+def _banana_smem(dim, itemsize):
+    """Shared memory of a block of the compiled-in banana at D = ``dim``
+    (``csrc/nuts_densities.cuh::Banana``): A and A^T zero-padded to P =
+    32 NE rows of ``row_stride`` = P + 16 / itemsize, and each warp's P x
+    values."""
+    P = 32 * max(1, -(-int(dim) // 32))
+    return (2 * P * (P + 16 // itemsize) + _WARPS * P) * itemsize
+
+
+def kernel_refusal(density, dim, dtype=None):
     """Why the CUDA NUTS kernels cannot sample ``density`` at dimension
-    ``dim`` (a string), or None when they can: a kernel spec (a
-    compiled-in density, the compiled-in PolyModel -> Gaussian plan, or a
-    logp or a ``Density`` plan that traces into the kernels' op set) and
-    ``dim`` <= ``_MAX_D``, as a lane holds at most two dimensions. The
-    plain versions could run either way; the routing
+    ``dim`` in ``dtype`` (default: the configured one) (a string), or
+    None when they can: a kernel spec (a compiled-in density, the
+    compiled-in PolyModel -> Gaussian plan, or a logp or a ``Density``
+    plan that traces into the kernels' op set; a ``Density`` names its
+    own limit of D <= 64 here) and ``dim`` <= ``_MAX_D``, as a lane holds
+    at most eight dimensions; and for the compiled-in banana, its A and
+    A^T within a block's shared memory (D <= 160 in float32, 96 in
+    float64). The plain versions could run either way; the routing
     (``ChainDriver.uses_kernels``) asks this first."""
     if not getattr(density, 'has_kernel_spec', False):
         why = getattr(density, 'kernel_trace_error', lambda: None)()
@@ -730,9 +753,65 @@ def kernel_refusal(density, dim):
                  ' (ops/densities.py, a logp or a Density plan that traces '
                  'into the op set of ops/trace.py, or a Density whose plan '
                  'is a PolyModel and a Gaussian)'))
-    if int(dim) > _MAX_D:
-        return f'the CUDA NUTS kernels take D <= {_MAX_D}, got {int(dim)}'
+    dim = int(dim)
+    if dim > _MAX_D:
+        return (f'the CUDA NUTS kernels take D <= {_MAX_D} (eight '
+                f'dimensions a lane), got {dim}')
+    if isinstance(getattr(density, '_logp', None), RotatedBanana):
+        itemsize = torch.finfo(dtype or get_dtype()).bits // 8
+        need = _banana_smem(dim, itemsize)
+        if need > _MAX_SMEM:
+            return (f'the compiled-in banana stages A and A^T in shared '
+                    f'memory: {need} bytes a block at D = {dim} in '
+                    f'float{8 * itemsize}, past the {_MAX_SMEM} it has')
     return None
+
+
+# the compiled-in densities of csrc/nuts_densities.cuh, by id
+_UNIT_DENSITIES = {DENSITY_IDS[k]: k for k in ('banana', 'gaussian', 'funnel',
+                                              'ring', 'cauchy')}
+
+
+@functools.lru_cache(maxsize=None)
+def wide_unit_source(dens_id, dim, dtype):
+    """The translation unit of the compiled-in density ``dens_id`` at D =
+    ``dim`` (65..256) in ``dtype``: the three kernels at lane width NE =
+    ceil(D / 32) (``csrc/nuts_densities.cuh::launch_unit``), behind the
+    entry point of a traced unit (``nuts_traced_launch``), so that
+    ``_build.load_traced`` builds it at first use and ``_launch`` calls it
+    as it calls a traced one. ``ValueError`` for another density or
+    D."""
+    if dens_id not in _UNIT_DENSITIES or not _LIB_D < int(dim) <= _MAX_D:
+        raise ValueError(f'no unit of density {dens_id} at D = {dim}: the '
+                         f'compiled-in banana, gaussian, funnel, ring and '
+                         f'cauchy at D {_LIB_D + 1}..{_MAX_D}.')
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f'unsupported dtype {dtype}.')
+    ne = -(-int(dim) // 32)
+    real = 'double' if dtype == torch.float64 else 'float'
+    return f'''// The compiled-in {_UNIT_DENSITIES[dens_id]} density of the CUDA NUTS kernels
+// at NE = {ne} (D {32 * ne - 31}..{32 * ne}), {real}: launch_unit of
+// csrc/nuts_densities.cuh.
+// Written by bayesfast_tpu_torch/samplers/nuts_cuda.py::wide_unit_source;
+// built and loaded by bayesfast_tpu_torch/_build.py.
+
+#include "nuts_densities.cuh"
+
+extern "C" int nuts_traced_launch(int kind, int f64, int C, int D, int K,
+                                  int maxdepth, unsigned seed, unsigned i0,
+                                  unsigned chain_start, int adapt_step,
+                                  int adapt_metric, const double* fargs,
+                                  void* const* ptrs, int n_ptrs,
+                                  void* stream) {{
+  return (int)launch_unit<{real}, {ne}, {dens_id}>(
+      kind, f64, C, D, K, maxdepth, seed, i0, chain_start, adapt_step,
+      adapt_metric, fargs, ptrs, n_ptrs, stream);
+}}
+
+extern "C" const char* nuts_traced_error_string(int err) {{
+  return cudaGetErrorString((cudaError_t)err);
+}}
+'''
 
 
 def _stream_params(density, like, plan):
@@ -756,11 +835,15 @@ def _stream_params(density, like, plan):
 def _launch_spec(spec, like):
     """(density id, transform rows, packed parameters on ``like``'s dtype
     and device, logw, scalars); a traced spec's parameters are its
-    program's packed constants."""
+    program's packed constants (``ops.codegen.launch_params``)."""
     tf = spec['transform']
     tf_mat = torch.stack([tf[k].to(like) for k in
                           ('lo', 'width', 'm_lohi', 'm_lo', 'm_hi')])
     dpar = spec['params'][0].to(like).contiguous()
+    if spec['density'] == 'traced':
+        # with its matrices that are read from device memory
+        from ..ops.codegen import launch_params
+        dpar = launch_params(spec['program'], dpar)
     return (DENSITY_IDS[spec['density']], tf_mat.contiguous(), dpar,
             float(tf['logw']), spec['scalars'])
 
@@ -786,7 +869,8 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
     K = int(n_steps)
     dev, dt = q0.device, q0.dtype
     if D > _MAX_D:
-        raise ValueError(f'the CUDA NUTS kernels take D <= {_MAX_D}, got {D}.')
+        raise ValueError(f'the CUDA NUTS kernels take D <= {_MAX_D}, got '
+                         f'{D}.')
     if dt not in (torch.float32, torch.float64):
         raise ValueError(f'unsupported dtype {dt}.')
     dens_id, tf_mat, dpar, logw, dscal = _spec_for(density, q0)
@@ -824,9 +908,15 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
             'count', 'var', 'fg_mean', 'fg_raw', 'fg_w', 'bg_mean',
             'bg_raw', 'bg_w'))]
         rows.update(fin)
+    # a traced density's unit, or a compiled-in one's past nuts.cu's D
     traced = dens_id == DENSITY_IDS['traced']
-    lib = (load_traced(_spec_entry(density, q0)[2]['program'].source(dt))
-           if traced else load_library('nuts'))
+    unit = traced or D > _LIB_D
+    if traced:
+        lib = load_traced(_spec_entry(density, q0)[2]['program'].source(dt))
+    elif unit:
+        lib = load_traced(wide_unit_source(dens_id, D, dt))
+    else:
+        lib = load_library('nuts')
     adapt = adapt or (0., 0., 0., 0., False, False)
     adapt_step, adapt_metric = adapt[4:]
     plan = _spec_plan(dens_id, dscal, D, max_treedepth, q0.element_size())
@@ -838,7 +928,7 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
         *[0 if p is None else p.data_ptr() for p in ptrs])
     stream = torch.cuda.current_stream(dev).cuda_stream
     f64 = 1 if dt == torch.float64 else 0
-    if traced:
+    if unit:
         fn = 'nuts_traced_launch'
         err = lib.nuts_traced_launch(
             _KINDS[kind], f64, C, D, K, int(max_treedepth), int(seed) & _M32,

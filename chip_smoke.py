@@ -90,12 +90,26 @@ card, drives the port's paths and checks what comes out:
   and kernel ms. Then the quadratic plan's frozen and warmup chunks and a
   block launch bitwise against the program's interpreter at the Recipe's
   8 chains on its final state, float64 and float32, and timed.
+* the kernels past D = 64 ([16]; ``bayesfast_tpu_torch/examples/
+  wide_gaussians.py``): Neal's 100-d Gaussian (the compiled-in Gaussian,
+  its unit at NE = 4) and Hoffman & Gelman's 250-d MVN (the user's torch
+  logp traced, NE = 8, its precision read from L2), each through
+  ``sample`` at 1024 chains, float32, depth 10, seed 32 under
+  ``nuts_kernel='auto'`` (0 tree-loop transitions, no unit built during
+  the run, post-warmup divergences below 5 %, every coordinate's mean
+  within 5 group standard errors of 0; Neal's variances within 10 %, the
+  MVN's mean x'Px within 5 % of 250), the MVN also with a pooled metric
+  on the block kernel; then [16a]: each new instantiation's frozen and
+  warmup chunks (K = 2) and block launch bitwise against their plain
+  versions in float32 and float64 on the runs' final states, and timed.
+  Their four units are built in [2] beside the others.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
 Cauchy instantiation that spills fails the run, except float64 at D > 32,
-and so does a traced one in float32 or at NE = 1. Each phase prints its wall, and a line
-before the last ones all of them.
+and so does a traced one in float32 or at NE = 1; [16]'s units at NE = 4
+and 8 are printed, not gated (past NE = 2 a lane's state spills). Each
+phase prints its wall, and a line before the last ones all of them.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Every phase that fails makes the script exit non-zero; without
@@ -107,6 +121,11 @@ repository root, with no arguments:
 Output, last lines: the card's name and power limit as nvidia-smi reports
 them, one JSON line with each kernel's measurements, and
 ``{"ok": true, "device": {...}}``.
+
+Registers and spills past D = 64 at every lane width (the Gaussian's units
+and a traced x'Px at NE = 3..8, float32 and float64, built in parallel):
+
+    python3 chip_smoke.py --ptxas-sweep
 
 A/B against another checkout on the same card:
 
@@ -131,8 +150,9 @@ under generator seeds 0 to N - 1 (default 5). Its readings go to
 process. Last, the A/B says whether the banana draws of [3] and [8], the
 Recipes' n_call and deviation, [10b]'s and [13b]'s outputs and a frozen
 and a warmup chunk of each of [12]'s anchors and of [14]'s traced banana
-(float64, a seeded state) are bitwise equal in all four processes, and exits 1 if one is not, or if
-this checkout's build spills ([2b]).
+(float64, a seeded state) are bitwise equal in all four processes, and
+exits 1 if one is not, or if this checkout's build spills ([2b]). It also
+prints each library's nvcc seconds, each checkout built alone.
 """
 
 import argparse
@@ -202,6 +222,21 @@ TRACED_CHAINS = 256
 DONUT_NCALL, DONUT_R, DONUT_R_TOL = 400, 5.05, 0.25
 DONUT_UNITS = (('linear', 'float64'), ('quadratic', 'float64'),
                ('quadratic', 'float32'))
+# [16]: past D = 64 (bayesfast_tpu_torch/examples/wide_gaussians.py):
+# Neal's 100-d Gaussian compiled in (a unit at NE = 4) and Hoffman &
+# Gelman's 250-d MVN traced (NE = 8), through sample() at 1024 chains,
+# float32, depth 10, seed 32 under 'auto'; the units built in [2]. The
+# iterations are cut to [16]'s two minutes: each gate is in standard
+# errors of its own run, or relative (Neal's variances, the MVN's x'Px)
+WIDE_UNITS = (('neal_100', 'float32'), ('neal_100', 'float64'),
+              ('mvn_250', 'float32'), ('mvn_250', 'float64'))
+WIDE_CHAINS, WIDE_SEED, WIDE_GROUPS = 1024, 32, 32
+NEAL_WARMUP, NEAL_POST = 300, 200
+MVN_WARMUP, MVN_POST, MVN_POOLED_WARMUP, MVN_POOLED_POST = 200, 100, 100, 20
+# [16a]: transitions a chunk, and the chains of the MVN's plain float32
+# chunk (its plain version runs a 256 x 256 matvec per leaf and chain) and
+# of every float64 check
+WIDE_K, MVN_CMP_CHAINS, WIDE_F64_CHAINS = 2, 64, 64
 # one NVIDIA H100 SXM: fp32 and fp64 outside the tensor cores (NVIDIA's
 # data sheet), device memory
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -584,8 +619,9 @@ def _kernel_vs_plain(torch, den, carry, dtype):
 
 
 def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
-                 peak=PEAK_FP32, timer=_time_ms):
-    """One K=4 chunk of each kernel at a path's shapes and final state
+                 peak=PEAK_FP32, timer=_time_ms, k=K_CMP):
+    """One K=4 (``k``) chunk of each kernel at a path's shapes and final
+    state
     (CUDA events; the kernel warmed up first), beside the plain version's
     ms that its comparison measured (``plain_ms``, by name + suffix; None:
     not timed), and the chunk's bound from the leapfrogs its trees took
@@ -600,13 +636,13 @@ def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
     ops = _leapfrog_ops(dim) if ops is None else ops
     var = nc._mat(metric.var, C, dim, q)
     eps = torch.exp(step.log_bar)
-    wsched, _ = nc._window_schedule(400, 370, 240, K_CMP, 1, True)
-    args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
+    wsched, _ = nc._window_schedule(400, 370, 240, k, 1, True)
+    args = (k, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
             True, wsched)
     steps, mets = nc._warmup_leaves(q, step, metric)
     runs = {
         'nuts_multi': (
-            lambda: nc.nuts_chunk_batched(5, q, metric, eps, K_CMP,
+            lambda: nc.nuts_chunk_batched(5, q, metric, eps, k,
                                           MAX_TREEDEPTH, MAX_CHANGE,
                                           density=den, i0=700),
             (q, var, eps)),
@@ -625,7 +661,7 @@ def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
         leapfrogs = int(sizes.sum())
         bound = _bound(leapfrogs * ops, _nbytes(inputs, out), peak)
         times[name + suffix] = (ms, p_ms) + bound
-        print(f'  {name}{suffix}: one K={K_CMP} chunk at C={C}, D={dim}, '
+        print(f'  {name}{suffix}: one K={k} chunk at C={C}, D={dim}, '
               f'{str(q.dtype)[6:]}: kernel {ms:.3f} ms, plain torch '
               f'{_ms_text(p_ms)}; {leapfrogs} leapfrogs, bound '
               f'{bound[0]:.4f} ms ({bound[1]})')
@@ -1580,12 +1616,12 @@ def _poly_leapfrog_ops(dim, spec):
 
 
 def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
-                     block=False, warmup=True):
+                     block=False, warmup=True, k=K_CMP):
     """Both chunk kernels (the frozen one alone without ``warmup``; with
     ``block`` one block launch too) with the density ``den`` (``name`` in
-    the printed lines) against their plain versions at K = 4 on a path's
-    final state cast to ``dtype``: [10b]'s PolyGaussian, [12]'s anchors,
-    [14]'s traced densities. Returns the max abs errors and the plain
+    the printed lines) against their plain versions at K = 4 (``k``) on a
+    path's final state cast to ``dtype``: [10b]'s PolyGaussian, [12]'s
+    anchors, [14]'s traced densities, [16]'s wide ones. Returns the max abs errors and the plain
     versions' ms (each the one call compared), keyed by kernel + suffix."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
@@ -1599,11 +1635,11 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
     tag = label + str(dtype).replace('torch.', '')
     metric = init_diag_metric(q, var)
     errs, plain_ms = {}, {}
-    ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, K_CMP,
+    ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, k,
                                           MAX_TREEDEPTH, MAX_CHANGE,
                                           density=den, i0=i0))
     ms, o = _plain_once(torch, lambda: nc.nuts_chunk_plain(
-        seed, q, var, eps, K_CMP, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg, i0))
+        seed, q, var, eps, k, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg, i0))
     ref = _as_dict(o['q'], o['q_final'], nc._chunk_stats(o, dtype))
     print(f'  {name} frozen {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
@@ -1612,9 +1648,9 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
                                            ref, C)
     plain_ms['nuts_multi' + suffix] = ms
     if warmup:
-        wsched, _ = nc._window_schedule(4, 0, 5, K_CMP, 1, True)
+        wsched, _ = nc._window_schedule(4, 0, 5, k, 1, True)
         step = init_step_size(eps)
-        args = (K_CMP, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
+        args = (k, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
                 True, wsched)
         ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
                                            density=den, i0=i0)
@@ -2188,6 +2224,290 @@ def _donut(torch, bt, ptxas, builds, srcs, smi):
             for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block')}
 
 
+def _wide_sources(torch):
+    """[2] The targets of [16] (``examples/wide_gaussians.py``) and the
+    generated unit of each of WIDE_UNITS: Neal-100's compiled-in Gaussian
+    at NE = 4 (``nuts_cuda.wide_unit_source``) and MVN-250's traced
+    functor at NE = 8. Returns ({name: (density, info)}, {'name dtype':
+    source})."""
+    from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250, neal_100
+    from bayesfast_tpu_torch.ops.densities import DENSITY_IDS
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    dens = {'neal_100': neal_100(), 'mvn_250': mvn_250()}
+    prog = dens['mvn_250'][0].kernel_spec()['program']
+    srcs = {}
+    for name, dt in WIDE_UNITS:
+        dtype = getattr(torch, dt)
+        srcs[f'{name} {dt}'] = (
+            nc.wide_unit_source(DENSITY_IDS['gaussian'], 100, dtype)
+            if name == 'neal_100' else prog.source(dtype))
+    return dens, srcs
+
+
+def _unit_registers(srcs, tag='[2b]'):
+    """Registers and spills of each generated unit's three kernels, from
+    its build's -Xptxas -v output; past NE = 2 a lane's transition state
+    spills to local memory (not gated). Returns {label: table}."""
+    from bayesfast_tpu_torch import _build
+    tables = {}
+    for label, src in srcs.items():
+        log = _build.build_log(source=src)
+        if log is None:
+            raise AssertionError(f'no compiler output beside the unit of '
+                                 f'{label}')
+        tables[label] = _ptxas_table(log)
+        print(f'{tag} {label}:')
+        for k in sorted(tables[label]):
+            print(f'    {k:52s} {tables[label][k]}')
+        if len(tables[label]) != 3:
+            raise AssertionError(f'{label}: {len(tables[label])} kernels, '
+                                 'not 3')
+    return tables
+
+
+def _gaussian_leapfrog_ops(dim):
+    """Operations of one leapfrog of the compiled-in Gaussian behind the
+    fused bound transform: about 70 a dimension for the transition's own
+    (``_anchor_leapfrog_ops``) and the density's difference, square,
+    divide and gradient (4)."""
+    return (70 + 4) * dim
+
+
+def _wide_sample(torch, bt, den, tag, n_warm, n_post, **trace_kw):
+    """[16] One target through ``sample`` at WIDE_CHAINS chains, seed
+    WIDE_SEED, under 'auto': every launch count and the tree-loop count
+    set to 0 just before, read just after, the kernels' device time by
+    launch kind and K (``_CallEvents``). Gates 0 tree-loop transitions, no
+    unit built during the run, finite draws of the expected shape and
+    post-warmup divergences below 5 %. Returns (trace tuple, launches,
+    the run's numbers)."""
+    from bayesfast_tpu_torch import _build
+    from bayesfast_tpu_torch.samplers import nuts as tree
+    bt.utils.set_generator(WIDE_SEED)
+    trace = bt.NTrace(n_chain=WIDE_CHAINS, n_iter=n_warm + n_post,
+                      n_warmup=n_warm, **trace_kw)
+    for f in _counters().values():
+        f.launches = 0
+    tree.nuts_transition_batched.transitions = 0
+    built = set(_build.traced_builds)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with _CallEvents(torch) as ev:
+        tt = bt.sample(den, trace, verbose=False)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: f.launches for k, f in _counters().items()}
+    n_tree = tree.nuts_transition_batched.transitions
+    new = sorted(set(_build.traced_builds) - built)
+    mix = {}
+    for kind, k, e0, e1 in ev.events:
+        n, ms = mix.get((kind, k), (0, 0.0))
+        mix[kind, k] = (n + 1, ms + e0.elapsed_time(e1))
+    st = tt.trace._stats_arrays
+    s = tt.get(flatten=False)
+    div = float(np.mean(st['diverging'][:, n_warm:]))
+    size = st['tree_size'][:, n_warm:]
+    depth = float(np.mean(st['tree_depth'][:, n_warm:]))
+    acc = float(np.mean(st['mean_tree_accept'][:, n_warm:]))
+    dim = den.input_size
+    print(f'{tag}: {WIDE_CHAINS} chains x {n_warm} + {n_post}, D={dim}, '
+          f'float32, sample() {wall:.2f} s; launches '
+          f'{ {k: v for k, v in launches.items() if v} }; tree-loop '
+          f'transitions {n_tree}; units built during the run: '
+          f'{new or "none"}')
+    print(f'    launches (kind, K: launches, device s, ms a transition): '
+          f'{_mix_text(mix)}')
+    print(f'    post-warmup: mean tree size {size.mean():.2f} (max '
+          f'{int(size.max())}), depth {depth:.3f}, accept {acc:.4f}, '
+          f'divergent {div:.4f}')
+    if n_tree != 0:
+        raise AssertionError(f'{tag}: transitions ran on the tree loop')
+    if new:
+        raise AssertionError(f'{tag}: the run built {new}')
+    if not (np.isfinite(s).all() and s.shape == (WIDE_CHAINS, n_post, dim)):
+        raise AssertionError(f'{tag}: non-finite or misshapen draws '
+                             f'{s.shape}')
+    if not div < 0.05:
+        raise AssertionError(f'{tag}: post-warmup divergence fraction {div}')
+    return tt, launches, dict(wall=wall, mix=mix, size=float(size.mean()))
+
+
+def _stacks_text(den, dim, dtype):
+    """Where a launch keeps the checkpoint stacks
+    (``csrc/nuts_kernels.cuh::launch_kernel``): beside the density's own
+    shared memory when a block's 8 warps' frames fit there, else in global
+    scratch."""
+    from bayesfast_tpu_torch.ops.codegen import _Layout
+    itemsize = dtype.itemsize
+    spec = den.kernel_spec()
+    own = (_Layout(spec['program'], itemsize).smem * itemsize
+           if spec['density'] == 'traced' else 0)
+    stacks = 8 * (MAX_TREEDEPTH - 1) * (4 * dim + 3) * itemsize
+    where = ('shared memory' if own + stacks <= 232448 else
+             'global scratch')
+    return (f'checkpoint stacks {stacks} B + the density\'s {own} B of '
+            f'232448: {where}')
+
+
+def _zero_mean_gate(s, tag):
+    """Every coordinate's mean over the draws ``s`` (C, N, D) within 5 of
+    its standard errors of 0, each from the spread over WIDE_GROUPS = 32
+    groups of chains, as [3] reads them (over 8 groups, 7 degrees of
+    freedom, a fair run's largest of 250 such ratios passes 5 about a
+    third of the time)."""
+    m = s.mean((0, 1))
+    se = _group_se(lambda a: a.mean((0, 1)), s, WIDE_GROUPS)
+    z = np.abs(m) / se
+    print(f'    every coordinate\'s mean: max |mean| / group se {z.max():.3f} '
+          f'(gate 5; se {se.min():.3g}..{se.max():.3g})')
+    if not (np.isfinite(z).all() and z.max() < 5.0):
+        raise AssertionError(f'{tag}: a mean is {z.max()} group standard '
+                             'errors off 0')
+
+
+def _wide(torch, bt, dens, ptxas, builds, smi):
+    """[16] The kernels past D = 64: [16b] Neal-100 (the compiled-in
+    Gaussian, its unit at NE = 4) and [16c] MVN-250 (the user's torch
+    logp traced, NE = 8) through ``sample`` (``_wide_sample``), the MVN
+    also with a pooled metric (every warmup transition one block launch);
+    the moment gates; then [16a] each new instantiation's frozen and
+    warmup chunks (K = WIDE_K) and block launch bitwise against their
+    plain versions on the runs' final states, float32 (Neal at 1024
+    chains, the MVN at MVN_CMP_CHAINS) and float64 (WIDE_F64_CHAINS), and
+    timed in float32 at 1024 chains. Returns {kernel row: (launches, max
+    abs error, (ms, plain ms, bound ms, bound by))}."""
+    from bayesfast_tpu_torch import config
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    config.set_dtype(torch.float32)
+    config.set_nuts_kernel('auto')
+    rows = {}
+    den_n, info_n = dens['neal_100']
+    den_m, info_m = dens['mvn_250']
+    prog = den_m.kernel_spec()['program']
+    P = info_m['P']
+
+    # ---- [16b] Neal-100 ----
+    tn, ln, _ = _wide_sample(torch, bt, den_n, "[16b] Neal-100, compiled-in "
+                             "Gaussian (NE = 4)", NEAL_WARMUP, NEAL_POST)
+    s = tn.get(flatten=False)
+    _zero_mean_gate(s, '[16b]')
+    v = s.reshape(-1, s.shape[-1]).var(0) / info_n['sd'] ** 2 - 1.0
+    print(f'    variances: max |var / sd^2 - 1| {np.abs(v).max():.4f} (gate '
+          f'0.1)')
+    if not np.abs(v).max() < 0.1:
+        raise AssertionError('[16b]: a variance is off by more than 10 %')
+
+    # ---- [16c] MVN-250, per chain then pooled ----
+    print(f'[16c] MVN-250 traced: {len(prog.nodes)} nodes '
+          f'({prog.describe()}), {prog.n_ops} operations an evaluation, '
+          f'{_traced_leapfrog_ops(prog)} a leapfrog; P read from L2 (its '
+          f'staged size past a block)')
+    tm, lm, _ = _wide_sample(torch, bt, den_m, '[16c] MVN-250, per-chain '
+                             'metric', MVN_WARMUP, MVN_POST)
+    s = tm.get(flatten=False)
+    _zero_mean_gate(s, '[16c]')
+    flat = s.reshape(-1, s.shape[-1]).astype(np.float64)
+    chi2 = float(np.mean(np.sum((flat @ P) * flat, axis=-1)))
+    print(f'    mean x\'Px {chi2:.3f} (chi^2_250: 250; gate within 5 %)')
+    if not abs(chi2 / 250.0 - 1.0) < 0.05:
+        raise AssertionError(f'[16c]: mean x\'Px {chi2} off 250')
+    tp, lp, _ = _wide_sample(torch, bt, den_m, '[16c] MVN-250, pooled '
+                             'metric', MVN_POOLED_WARMUP, MVN_POOLED_POST,
+                             pooled_metric=True)
+    var_shape = tuple(tp.trace._carry.metric.var.shape)
+    print(f'    shared metric variance shape {var_shape}')
+    if var_shape != (250,) or lp['nuts_block'] != MVN_POOLED_WARMUP:
+        raise AssertionError(f'[16c]: pooled variance of shape {var_shape},'
+                             f' {lp["nuts_block"]} block launches')
+
+    # ---- [16a] the new instantiations bitwise, then timed ----
+    cases = (('neal', 'Neal-100', den_n, tn, WIDE_CHAINS, ln,
+              _gaussian_leapfrog_ops(100), 'neal_100'),
+             ('mvn', 'MVN-250', den_m, tm, MVN_CMP_CHAINS,
+              {**lm, 'nuts_block': lp['nuts_block']},
+              _traced_leapfrog_ops(prog), 'mvn_250'))
+    for key, name, den, tt, c32, launches, ops, unit in cases:
+        carry = tt.trace._carry
+        errs = {}
+        for dt, n_c in ((torch.float32, c32),
+                        (torch.float64, WIDE_F64_CHAINS)):
+            c = _cast(_first_chains(carry, n_c), dt)
+            print(f'[16a] {name} kernels vs plain, C={n_c}, K={WIDE_K}, '
+                  f'{str(dt)[6:]}, the run\'s final state')
+            e, plain_ms = _chunks_vs_plain(torch, den, c, dt, name,
+                                           f'_wide_{key}', block=True,
+                                           k=WIDE_K)
+            for k, val in e.items():
+                errs[k] = max(errs.get(k, 0.0), val)
+            if dt == torch.float32:
+                plain32 = plain_ms
+            label = f'{unit} {str(dt)[6:]}'
+            print(f'  {name} {str(dt)[6:]}: kernels '
+                  f'{_ptxas_text(ptxas, label)}; built in {builds[label]}; '
+                  f'{_stacks_text(den, c.q.shape[1], dt)}')
+        # timed at the path's 1024 chains (the plain ms: at c32 chains),
+        # on the device alone (Neal's launches are shorter than the
+        # wrapper's host work)
+        C, dim = carry.q.shape
+        times = _time_chunks(torch, den, carry, plain32, ops,
+                             f'_wide_{key}', k=WIDE_K, timer=_device_ms)[0]
+        metric = init_diag_metric(carry.q,
+                                  nc._mat(carry.metric.var, C, dim, carry.q))
+        times[f'nuts_block_wide_{key}'] = _time_block(
+            torch, den, carry.q, metric, torch.exp(carry.step.log_bar),
+            plain32[f'nuts_block_wide_{key}'], ops,
+            tag=f'  nuts_block_wide_{key}', timer=_device_ms)[0]
+        print(f'  {name}: plain ms at C={c32}; {smi}')
+        for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
+            k = f'{kind}_wide_{key}'
+            rows[k] = (launches.get(kind, 0), errs[k], times[k])
+    return rows
+
+
+def _ptxas_sweep(torch):
+    """Registers and spills of the three kernels past D = 64 at every lane
+    width NE = 3..8, float32 and float64: the compiled-in Gaussian's unit
+    (the transition with the lightest density) and a traced -0.5 x'Px at
+    D = 32 NE (P a Wishart(D, I) draw: staged in shared memory while it
+    fits, else read from L2), all built in parallel. Prints each kernel's
+    registers, stack frame and spill bytes and each build's nvcc
+    seconds."""
+    from scipy.stats import wishart
+    from bayesfast_tpu_torch import _build
+    from bayesfast_tpu_torch.ops.codegen import _Layout
+    from bayesfast_tpu_torch.ops.densities import DENSITY_IDS
+    from bayesfast_tpu_torch.ops.trace import trace_density
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    def quadratic(P):
+        def logp(x):
+            return -0.5 * torch.sum((x @ P.to(x)) * x, dim=-1)
+        return logp
+
+    srcs = {}
+    for ne in range(3, 9):
+        D = 32 * ne
+        P = torch.as_tensor(wishart(df=D, scale=np.eye(D)).rvs(
+            random_state=0))
+        prog = trace_density(quadratic(P), D, torch.float64, 'cpu')
+        for dt in (torch.float32, torch.float64):
+            tag = str(dt)[6:]
+            srcs[f'gaussian NE={ne} {tag}'] = nc.wide_unit_source(
+                DENSITY_IDS['gaussian'], D, dt)
+            staged = [m[7] for m in _Layout(prog, dt.itemsize).mats]
+            srcs[f'traced x\'Px NE={ne} {tag} staged {staged}'] = \
+                prog.source(dt)
+    _build.build_library([], sources=list(srcs.values()))
+    for label, src in srcs.items():
+        stem = os.path.basename(_build.traced_path(src))[6:-3]
+        w = _build.last_build_walls.get(stem)
+        print(f'[sweep] {label}: nvcc '
+              f'{"reused" if w is None else f"{w:.1f} s"}')
+    _unit_registers(srcs, '[sweep]')
+    print(f'[sweep] {len(srcs)} units built together in '
+          f'{_build.last_build_seconds:.1f} s')
+
+
 def _ptxas_text(ptxas, label):
     return '; '.join(f'{k.split()[0]} {k.split()[-1]}: {v[0]} registers, '
                      f'{v[2]} / {v[3]} B spilled'
@@ -2435,8 +2755,11 @@ def _ab_one(tree, state, out_path, n_seeds):
     config.set_dtype(torch.float32)
     config.set_nuts_kernel('cuda')
     A, den = _bench_density(torch.float32)
+    # each library's nvcc seconds where this process built it (the first
+    # process of a checkout)
     res = {'tree': tree, 'device': torch.cuda.get_device_name(0),
-           'nvidia_smi': _nvidia_smi()}
+           'nvidia_smi': _nvidia_smi(),
+           'nvcc_s': dict(getattr(_build, 'last_build_walls', {}))}
     tt, _, res['chain'] = _sample_path(
         torch, bt, den, A, '[3]', {'nuts_warmup': 1 + 4 * 2,
                                    'nuts_multi': 3 * 2})
@@ -2565,6 +2888,7 @@ def _ab(parent, work, n_seeds):
     not change differs."""
     from bayesfast_tpu_torch import _build
     _build.build_library()  # this checkout's processes reuse the build
+    nvcc = dict(_build.last_build_walls)
     try:
         _check_registers()
         spills = None
@@ -2599,6 +2923,11 @@ def _ab(parent, work, n_seeds):
     for i, r in enumerate(runs):
         print(f'gbs run {i}: ' + ', '.join(f'{z:.4f} +- {e:.4f}'
                                            for z, e in r['gbs']))
+    # nvcc seconds of each library, each checkout built alone: the parent
+    # in its first process, this checkout before the runs
+    print(f'nvcc (s), each checkout built alone: parent '
+          f'{ {k: round(v, 1) for k, v in runs[0].get("nvcc_s", {}).items()} }'
+          f', this checkout { {k: round(v, 1) for k, v in nvcc.items()} }')
     # outputs that the change must leave bit for bit as they were
     differ = 0
     for k in runs[0]['digests']:
@@ -2637,22 +2966,25 @@ def main():
     traced_dens, traced_srcs = _traced_sources(torch)
     donut_srcs = _donut_sources(torch)
     traced_srcs.update(donut_srcs)
+    wide_dens, wide_srcs = _wide_sources(torch)
     paths = _build.build_library(verbose=True,
-                                 sources=list(traced_srcs.values()))
+                                 sources=list(traced_srcs.values())
+                                 + list(wide_srcs.values()))
     print(f'[2] built {[os.path.relpath(p, _REPO) for p in paths.values()]}'
           f' in {_build.last_build_seconds:.1f} s; each nvcc (s): '
           f'{ {k: round(v, 1) for k, v in _build.last_build_walls.items()} }')
-    builds = {}  # each traced unit's nvcc wall, by its label
-    for label, src in traced_srcs.items():
+    builds = {}  # each generated unit's nvcc wall, by its label
+    for label, src in {**traced_srcs, **wide_srcs}.items():
         stem = os.path.basename(_build.traced_path(src))[6:-3]
         w = _build.last_build_walls.get(stem)
         builds[label] = 'reused, not built' if w is None else f'{w:.1f} s'
         print(f'    traced {label}: {stem}, nvcc {builds[label]}')
     for lib in _build.LIBRARIES:
         _build.load_library(lib)
-    for src in traced_srcs.values():
+    for src in {**traced_srcs, **wide_srcs}.values():
         _build.load_traced(src)
     ptxas = _check_registers(traced_srcs)
+    ptxas.update(_unit_registers(wide_srcs))
     t_phase = _wall(walls, '[2]', t_phase)
 
     # ---- [3] the sampling path at bench.py's configuration (the port's
@@ -2821,6 +3153,12 @@ def main():
     traced_rows.update(_donut(torch, bt, ptxas, builds, donut_srcs, smi))
     t_phase = _wall(walls, '[15]', t_phase)
 
+    # ---- [16] past D = 64: Neal-100 compiled in (NE = 4) and MVN-250
+    # traced (NE = 8) through sample() under 'auto', the MVN also pooled;
+    # the new instantiations bitwise against their plain versions ----
+    wide_rows = _wide(torch, bt, wide_dens, ptxas, builds, smi)
+    t_phase = _wall(walls, '[16]', t_phase)
+
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
                        'bayesfast_tpu/samplers/nuts_pallas.py:462'),
@@ -2882,6 +3220,20 @@ def main():
                      'launches': n, 'max_abs_err': err, 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': None})
+    # [16]'s instantiations: launches on the two targets' paths (Neal's
+    # per-chain run has no block launch; the MVN's pooled warmup is its
+    # block launches), float32 times at 1024 chains
+    for k, (n, err, (ms, plain_ms, bound_ms, bound_by)) in wide_rows.items():
+        line = pallas[next(p for p in pallas if k.startswith(p))]
+        rows.append({'name': k, 'route': 'cuda',
+                     'source': 'bayesfast_tpu_torch/csrc/' + (
+                         'nuts_densities.cuh' if k.endswith('neal')
+                         else 'nuts_kernels.cuh'),
+                     'replaces': f'bayesfast_tpu/samplers/nuts_pallas.py:'
+                                 f'{line}',
+                     'launches': n, 'max_abs_err': err, 'ms': ms,
+                     'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                     'bound_by': bound_by, 'library_ms': None})
     print('phase walls (s): ' + ', '.join(f'{k} {v:.1f}'
                                           for k, v in walls.items())
           + f'; total {time.time() - t_run:.1f}')
@@ -2900,6 +3252,9 @@ def _args():
     ap.add_argument('--ab-one', nargs=3, metavar=('TREE', 'STATE', 'OUT'),
                     help='one process of the A/B')
     ap.add_argument('--gbs-seeds', type=int, default=5)
+    ap.add_argument('--ptxas-sweep', action='store_true',
+                    help='build the kernels past D = 64 at NE = 3..8 and '
+                         'print their registers and spills')
     ap.add_argument('--work', default=os.path.join(
         _REPO, 'bayesfast_tpu_torch', 'build', 'ab'))
     return ap.parse_args()
@@ -2913,6 +3268,13 @@ if __name__ == '__main__':
                          a.gbs_seeds) or 0
         elif a.ab:
             rc = _ab(os.path.abspath(a.ab), a.work, a.gbs_seeds)
+        elif a.ptxas_sweep:
+            import torch
+            sys.path.insert(0, _REPO)
+            if not torch.cuda.is_available():
+                raise RuntimeError('no CUDA device')
+            _ptxas_sweep(torch)
+            rc = 0
         else:
             rc = main()
     except Exception:

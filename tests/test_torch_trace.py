@@ -18,7 +18,7 @@ on the CPU.
   tolerances (the two momenta cases there).
 * Routing: a traced density takes the kernels' path; one that does not
   trace warns once under 'auto' and takes the tree loop, and raises under
-  'cuda'; so does D > 64, for a compiled-in and a traced density.
+  'cuda'; so does D > 256, for a compiled-in and a traced density.
 """
 
 import os
@@ -433,17 +433,17 @@ def _wide_traced(D):
 @pytest.mark.parametrize('make', [_wide_gaussian, _wide_traced],
                          ids=['compiled_in', 'traced'])
 def test_past_64_dimensions_takes_the_tree_loop(make):
-    """D = 65 (the kernels take D <= 64): the density keeps its spec (the
-    plain versions' analytic form serves any D), ``uses_kernels`` says no,
-    'auto' samples on the tree loop and 'cuda' raises before any device
-    work."""
-    D = 65
+    """D = 257 (the kernels take D <= 256, eight dimensions a lane): the
+    density keeps its spec (the plain versions' analytic form serves any
+    D), ``uses_kernels`` says no, 'auto' samples on the tree loop and
+    'cuda' raises before any device work."""
+    D = 257
     den = make(D)
     assert den.has_kernel_spec
     q = torch.zeros(4, D, dtype=torch.float64)
     metric = init_diag_metric(q, torch.ones(4, D, dtype=torch.float64))
-    assert 'D <= 64' in tnc.kernel_refusal(den, D)
-    assert tnc.kernel_refusal(den, 64) is None
+    assert 'D <= 256' in tnc.kernel_refusal(den, D)
+    assert tnc.kernel_refusal(den, 256) is None
     assert not ChainDriver(den).uses_kernels(metric)
     tconfig.set_nuts_kernel('auto')
     n0 = ttree.nuts_transition_batched.transitions
@@ -452,11 +452,11 @@ def test_past_64_dimensions_takes_the_tree_loop(make):
         tt = bt.sample(den, _trace(D=D), verbose=False, n_update=6)
     assert ttree.nuts_transition_batched.transitions - n0 == 12
     assert np.isfinite(tt.get()).all()
-    with pytest.raises(NotImplementedError, match='D <= 64'):
+    with pytest.raises(NotImplementedError, match='D <= 256'):
         ChainDriver(den, nuts_kernel='cuda').uses_kernels(metric)
     tconfig.set_nuts_kernel('cuda')
     try:
-        with pytest.raises(NotImplementedError, match='D <= 64'):
+        with pytest.raises(NotImplementedError, match='D <= 256'):
             bt.sample(den, _trace(D=D), verbose=False)
     finally:
         tconfig.set_nuts_kernel('auto')
