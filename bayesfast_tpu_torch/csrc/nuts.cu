@@ -20,43 +20,9 @@
 
 namespace {
 
-// ---- block-wide steps of the streamed PolyGaussian path ----------------
-// 16-byte copy from device memory to shared memory that does not wait for
-// its data (cp.async, through L2 only); a thread's copies are done, and
-// visible to it, after cp_async_wait_all, and to the block after a barrier
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Barriers of all the block's threads that need not be the same
-// instruction in every warp (no .aligned): a warp meets its block's
-// others at them from a leapfrog, from the transition's first evaluation
-// or from an idle pass. bar_count returns how many threads passed `pred`.
-constexpr int kBarTile = 1, kBarTick = 2;
-template <int ID>
-__device__ __forceinline__ void bar_sync() {
-  asm volatile("barrier.sync %0;\n" ::"n"(ID) : "memory");
-}
-template <int ID>
-__device__ __forceinline__ int bar_count(bool pred) {
-  int n;
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.u32 p, %1, 0;\n"
-      " barrier.red.popc.u32 %0, %2, p;\n}\n"
-      : "=r"(n)
-      : "r"((unsigned)pred), "n"(ID)
-      : "memory");
-  return n;
-}
+// The block-wide steps of the streamed path (cp_async16, bar_sync,
+// bar_count, the barrier IDs) are nuts_device.cuh's, shared with the
+// generated densities whose matrices stream.
 
 // Row stride, in T, of R staged coefficients a row: R padded to whole
 // 16-byte vectors, and one vector more when their count is even, so that
@@ -302,13 +268,12 @@ struct PolyGaussian {
   // ---- the streamed tiles (STREAM) ----
   // Tile t holds features R + t TW .. of every output, transposed like the
   // staged rows (output j's TW features as row j), and lives in buffer
-  // t & 1. An evaluation is one tick of the block: a forward pass over
-  // the tiles up (0 .. NT - 1), then a back pass down (NT - 1 .. 0), so
-  // that a pass starts on the two tiles that the last one ended on; every
-  // step after a pass's first waits for its tile and starts the copy of
-  // the next one into the buffer that the step before read. Every warp of
-  // the block takes the same barriers in the same order, those with no
-  // leapfrog due in an idle tick (`drain`).
+  // t & 1; the block streams them as nuts_device.cuh's tile stream sets
+  // out. An evaluation is one tick of the block (which copies nothing): a
+  // forward pass over the tiles up (0 .. NT - 1, steps 1 .. NT - 1), then
+  // a back pass down (NT - 1 .. 0, steps NT .. 2 NT - 2), so that a pass
+  // starts on the two tiles that the last one ended on; each step copies
+  // the next tile of its pass into the buffer that the step before read.
 
   // every thread's part of tile t's copy into buffer t & 1
   __device__ __forceinline__ void load_tile(int t) const {
@@ -318,28 +283,18 @@ struct PolyGaussian {
       cp_async16(dst + i, src + i);
     cp_async_commit();
   }
-  // a step of a pass after its first: this thread's copies are done, then
-  // the block's (the step's tile has arrived, and every warp is done with
-  // the buffer that tile `next` takes); next's copy starts (none out of
-  // range)
-  __device__ __forceinline__ void tile_step(int next) const {
+  // this thread's copies landed (the step's barrier then shows them to all)
+  __device__ __forceinline__ void await_step(int) const {
     cp_async_wait_all();
-    bar_sync<kBarTile>();
-    if (next >= 0 && next < NT) load_tile(next);
   }
-  // the start of a tick; true while a warp of the block has work
-  __device__ __forceinline__ bool tick(bool work) const {
-    return bar_count<kBarTick>(work) != 0;
+  __device__ __forceinline__ int n_steps() const { return 2 * NT - 2; }
+  __device__ __forceinline__ int step_tile(int s) const {
+    return s < NT ? (s + 1 < NT ? s + 1 : -1) : 2 * NT - 3 - s;
   }
-  // idle ticks, until no warp of the block has work: every warp calls it
-  // once after its last evaluation
+  __device__ __forceinline__ int tick_tile() const { return -1; }
+  // idle ticks, until no warp of the block has work (nuts_kernels.cuh)
   __device__ void drain() const {
-    if constexpr (STREAM) {
-      while (tick(false)) {
-        for (int k = 1; k < NT; ++k) tile_step(k + 1);
-        for (int k = 1; k < NT; ++k) tile_step(NT - 2 - k);
-      }
-    }
+    if constexpr (STREAM) tile_drain(*this);
   }
 
   // gphi[f0 + f] (f < 8, f0 + f < lim) from each lane's partials s of
@@ -461,9 +416,9 @@ struct PolyGaussian {
         for (int u = 0; u < kOut; ++u)
           if (j0 + 32 * u < M) gbuf[j0 + 32 * u] = acc[u];
       }
-      tick(true);
+      tile_tick(*this, true);
       for (int k = 0; k < NT; ++k) {
-        if (k) tile_step(k + 1);
+        if (k) tile_step(*this, k);
         const T* const tw = b.tb + (k & 1) * tile_elems();
         const T* const ph = phi + R + k * TW;
         for (int p0 = 0; p0 < M; p0 += 32 * kOut) {
@@ -576,7 +531,7 @@ struct PolyGaussian {
       // own: their order changes no bit)
       for (int k = 0; k < NT; ++k) {
         const int t = NT - 1 - k;
-        if (k) tile_step(t - 1);
+        if (k) tile_step(*this, NT - 1 + k);
         const T* const tw = b.tb + (t & 1) * tile_elems();
         for (int g0 = 0; g0 < TW; g0 += kBack) {
           T s[kBack];

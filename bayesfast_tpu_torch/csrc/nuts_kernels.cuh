@@ -73,11 +73,13 @@
 // NE + 2 values, the frames, the merge temporaries) outgrows the 255
 // registers and ptxas keeps the rest in local memory (L1, then L2): the
 // compiled-in Gaussian fits at NE = 4 in f32 and spills ~1 KB a thread in
-// f64; the traced MVN-250 at NE = 8 spills 5-6 KB (f32) and 19-23 KB
-// (f64) of stores a thread (chip_smoke.py [2b]). The arithmetic and its
-// order, and so the bits, stay the plain versions'; a layout of the state
-// that does not spill (the tree edges in a per-warp slab of shared
-// memory) is later work.
+// f64; the traced MVN-250 at NE = 8 spills 0.7-1.1 KB (f32) and 3.7-4.4
+// KB (f64) of stores a thread since its products stream with their row
+// groups in a loop (chip_smoke.py [2b]; csrc/nuts_device.cuh::tiled_matvec:
+// unrolled, 4.1-4.6 and 14.8-15.3 KB, PERF.md). The arithmetic
+// and its order, and so the bits, stay the plain versions'. The tree's
+// edge states in a per-warp slab of shared memory made MVN-250 slower
+// (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (see ../_build.py)
@@ -556,7 +558,8 @@ __device__ __forceinline__ T* stage_block(const Args<T>& a, Dens& dens,
 }
 
 // A density whose evaluations meet the block's other warps at barriers
-// (PolyGaussian's streamed path) keeps a warp in idle ticks after its last
+// (PolyGaussian's streamed path, a generated density whose matrices stream
+// through shared tiles) keeps a warp in idle ticks after its last
 // evaluation until every warp of the block is done (`drain`); for the
 // others this is nothing.
 template <class Dens>

@@ -23,8 +23,22 @@ rules of the hand-written ``Banana`` hold:
   ``tree_matvec`` through the warp's buffer; a matrix that does not fit
   beside those staged before it (the 250-d MVN's precision: 266 KB in
   float32) keeps that layout in device memory, after the packed constants
-  (``launch_params``), and each chain reads it from L2 16 bytes at a time
-  in the same order of products and sums;
+  (``launch_params``), and streams: ``tiled_matvec`` reads it in the same
+  order of products and sums from two shared-memory tile buffers, each
+  tile (a row group of 32 rows, all its slots or a run of them) copied
+  from L2 once per block for its eight chains (one TMA bulk copy of
+  thread 0, or one a row in column tiles, landing on its buffer's
+  mbarrier, at which every thread of the block arrives and waits), the
+  next one in flight while one is read. The schedule of tiles is fixed (every
+  streamed product of an evaluation in order, ``_Layout``), so the block's
+  warps evaluate in lockstep ticks, meeting at a block barrier before each
+  tile, and a warp with no evaluation left runs idle ticks until the
+  block's last one is done: ``csrc/nuts_device.cuh``'s tile stream
+  (``tile_tick``, ``tile_step``, ``tile_drain``, which ``PolyGaussian``
+  uses too), the schedule a ``TileRing`` of the tile count; the functor
+  emits the tile table, the copy of a tile and, for an odd count, the
+  step after the last product that reads no tile. A program with no
+  streamed matrix has no barrier;
 * sums are the xor butterfly (``warp_sum``), so every lane holds the same
   bits and every branch stays warp-uniform; a sum's lane part adds its
   slots in turn, a position past a vector's length as zero, so it rounds
@@ -47,7 +61,8 @@ comparison is ``(a < b) ? 1 : 0`` a slot and a select ``c != 0 ? a : b``
 every lane); a scatter-add is its sums in program order, gathers of the
 sources added in turn. ``check_limits`` refuses, at the trace, a program
 whose gather tables pass the constant memory, or whose matrix products'
-x buffers pass a block's shared memory, so a launch never meets one.
+x buffers (with two tile buffers of one slot, when a matrix streams) pass
+a block's shared memory, so a launch never meets one.
 D goes up to 256 (NE = 8 slots a lane)."""
 
 import torch
@@ -87,10 +102,27 @@ def _lit(attr):
 class _Layout:
     """Where the functor keeps things: the matrices of ``mv`` nodes
     (staged in shared memory, in order while they fit beside the warps'
-    x buffers; past that read from device memory, a zero-padded copy in
-    the same layout after the packed constants, ``launch_params``), the
-    warp buffer (shared memory) and the gather tables (constant
-    memory)."""
+    x buffers; past that streamed: a zero-padded copy in the same layout
+    in device memory after the packed constants, ``launch_params``, read
+    through two shared-memory tile buffers that the block's eight warps
+    share), the tile buffers and their schedule, the warp buffers (shared
+    memory) and the gather tables (constant memory).
+
+    A tile is one row group of a streamed matrix (32 rows, the lane's row
+    of one output slot) and ``te`` of its input slots (all of them when
+    two buffers of a whole row group fit; else column tiles), a row every
+    ``32 te + pad`` values in shared memory, so that the 8 rows of a
+    16-byte load phase fall on distinct bank groups. ``te`` is the
+    largest that two buffers fit beside the staged matrices and the x
+    buffers (the last staged matrix streams too where not one slot
+    would). The schedule (``tiles``) is every emitted streamed ``mv``
+    node in the functor's order of evaluation, each node's row groups in
+    order and each row group's column tiles in order: (node, row group,
+    column tile, offset of its first value in the launch's parameters,
+    the row stride there, 16-byte vectors a row, the row stride in shared
+    memory); ``node_tiles[i]`` is node i's (first tile, slots a tile, row
+    stride in shared memory). The two buffers' mbarriers, 8 bytes each,
+    end the block's shared memory (``bar_off``, in bytes)."""
 
     def __init__(self, program, itemsize):
         p = program
@@ -100,6 +132,30 @@ class _Layout:
             if nd.op == 'mv':
                 xb = max(xb, 32 * _slots(p.nodes[nd.args[0]].n))
         room = MAX_SMEM // itemsize - 8 * xb   # kWarps buffers
+        # (attr, m, n, rows, stride) of each matrix, in node order
+        uniq = []
+        for nd in p.nodes:
+            if nd.op == 'mv' and nd.attr not in [u[0] for u in uniq]:
+                m, n = p.matrix(*nd.attr)
+                uniq.append((nd.attr, m, n, 32 * _slots(m),
+                             32 * _slots(n) + pad))
+        staged, off = [], 0
+        for k, u in enumerate(uniq):
+            if off + u[3] * u[4] <= room:
+                staged.append(k)
+                off += u[3] * u[4]
+        te = 0
+        if len(staged) < len(uniq):
+            while True:
+                left = room - 16 // itemsize - sum(uniq[k][3] * uniq[k][4]
+                                                   for k in staged)
+                ni = max(_slots(u[2]) for k, u in enumerate(uniq)
+                         if k not in staged)
+                te = min(ni, (left // 64 - pad) // 32)
+                if te >= 1 or not staged:
+                    break
+                staged.pop()
+        self.te = te
         # (idx, tr, m, n, rows, stride, offset, staged): the offset in
         # shared memory when staged, else in the launch's parameters
         self.mats = []
@@ -108,21 +164,45 @@ class _Layout:
         # past the packed constants (16-byte aligned rows)
         goff = -(-max(p.n_params, 1) // 32) * 32
         self.params_base = goff
-        for nd in p.nodes:
-            if nd.op == 'mv' and nd.attr not in [m[:2] for m in self.mats]:
-                m, n = p.matrix(*nd.attr)
-                rows, stride = 32 * _slots(m), 32 * _slots(n) + pad
-                if off + rows * stride <= room:
-                    self.mats.append((*nd.attr, m, n, rows, stride, off,
-                                      True))
-                    off += rows * stride
-                else:
-                    self.mats.append((*nd.attr, m, n, rows, stride, goff,
-                                      False))
-                    goff += rows * stride
-        self.xbuf_off, self.xbuf = off, xb
-        self.smem = off + 8 * xb
+        for k, (attr, m, n, rows, stride) in enumerate(uniq):
+            if k in staged:
+                self.mats.append((*attr, m, n, rows, stride, off, True))
+                off += rows * stride
+            else:
+                self.mats.append((*attr, m, n, rows, stride, goff, False))
+                goff += rows * stride
         self.params_end = goff
+        streams = len(staged) < len(uniq)
+        # two buffers of 32 rows of `te` slots (at least one, for the
+        # bytes that check_limits reports)
+        self.tile_elems = 32 * (32 * max(te, 1) + pad) if streams else 0
+        self.tile_off = off
+        self.xbuf_off, self.xbuf = off + 2 * self.tile_elems, xb
+        self.smem = self.xbuf_off + 8 * xb
+        # the tile buffers' two mbarriers, 8 bytes each, after the x
+        # buffers (an offset in bytes)
+        self.bar_off = self.smem * itemsize
+        if streams:
+            self.smem += 16 // itemsize
+        self.tiles, self.node_tiles = [], {}
+        for i in _order(p) if streams and te >= 1 else ():
+            nd = p.nodes[i]
+            if nd.op != 'mv' or self.mats[self.mat(nd.attr)][7]:
+                continue
+            _, _, _, n, rows, stride, base, _ = self.mats[self.mat(nd.attr)]
+            ni = _slots(n)
+            tw = min(ni, te)
+            ts = 32 * tw + pad
+            self.node_tiles[i] = (len(self.tiles), tw, ts)
+            for o in range(rows // 32):
+                for c in range(-(-ni // tw)):
+                    w = min(tw, ni - c * tw)
+                    self.tiles.append((i, o, c, base + 32 * o * stride +
+                                       32 * c * tw, stride, 32 * w // pad,
+                                       ts))
+        # a streamed matrix that one buffer holds whole would have been
+        # staged: a schedule has two tiles or more
+        assert len(self.tiles) != 1
         self.gathers, goff = {}, 0
         for i, nd in enumerate(p.nodes):
             if nd.op == 'gather':
@@ -140,18 +220,26 @@ class _Layout:
     def mat(self, attr):
         return next(k for k, m in enumerate(self.mats) if m[:2] == attr)
 
+    def l2_bytes(self):
+        """Bytes a block copies from device memory (L2) per evaluation, its
+        eight chains on one: every streamed tile once."""
+        return sum(32 * t[5] * 16 for t in self.tiles)
+
 
 def check_limits(program, itemsize):
     """Raise ``TraceError`` when the functor of ``program`` at
     ``itemsize`` bytes a value cannot launch: the warps' x buffers of its
-    matrix products past a block's shared memory, or its gather tables
-    past the constant memory. (A matrix that does not fit beside them is
-    read from device memory, see ``_Layout``.)"""
+    matrix products and, when a matrix streams, the two tile buffers and
+    their mbarriers past a block's shared memory, or its gather tables
+    past the constant memory. (A matrix that does not fit beside them
+    streams, see ``_Layout``.)"""
     lay = _Layout(program, itemsize)
     smem, table = lay.smem * itemsize, 4 * len(lay.table)
     if smem > MAX_SMEM:
+        what = (' and two tile buffers of one slot' if lay.tile_elems
+                else '')
         raise TraceError(f'the program\'s matrix products take {smem} bytes '
-                         f'of x buffers in shared memory, past the '
+                         f'of x buffers{what} in shared memory, past the '
                          f'{MAX_SMEM} a block has')
     if table > MAX_CONST:
         raise TraceError(f'the program\'s gather tables take {table} bytes '
@@ -161,10 +249,10 @@ def check_limits(program, itemsize):
 def launch_params(program, packed):
     """The parameters a launch of the functor of ``program`` reads: the
     packed constants ``packed`` (``Program.pack`` in the run dtype, on the
-    card), then, when a matrix is read from device memory, zeros to
-    ``_Layout.params_base`` and each such matrix as read (transposed or
-    not), zero-padded to its rows and row stride, in the order of the
-    layout."""
+    card), then, when a matrix streams, zeros to ``_Layout.params_base``
+    and each such matrix as read (transposed or not), zero-padded to its
+    rows and row stride, in the order of the layout: the tiles of the
+    schedule are cut from these copies."""
     lay = _Layout(program, packed.element_size())
     glob = [m for m in lay.mats if not m[7]]
     if not glob:
@@ -218,6 +306,25 @@ def _tail(p, need_g):
     return None
 
 
+def _parts(p):
+    """(the gradient's nodes, the nodes that only the logp needs, the
+    tail of ``_tail``): the functor evaluates the first, then the
+    second, each in program order."""
+    need_g = _ancestors(p, [p.grad])
+    tail = _tail(p, need_g)
+    if tail is None:
+        need_l = _ancestors(p, [p.logp]) - need_g
+    else:
+        need_l = _ancestors(p, [p.nodes[tail[0]].args[0]]) - need_g
+    return need_g, need_l, tail
+
+
+def _order(p):
+    """The nodes the functor evaluates, in its order."""
+    need_g, need_l, _ = _parts(p)
+    return sorted(need_g) + sorted(need_l)
+
+
 def cuda_source(program, dtype):
     """The CUDA translation unit of ``program`` at ``dtype`` (float32 or
     float64)."""
@@ -232,12 +339,7 @@ def cuda_source(program, dtype):
     NE = _slots(p.D)
     lay = _Layout(p, itemsize)
     nodes = p.nodes
-    need_g = _ancestors(p, [p.grad])
-    tail = _tail(p, need_g)
-    if tail is None:
-        need_l = _ancestors(p, [p.logp]) - need_g
-    else:
-        need_l = _ancestors(p, [nodes[tail[0]].args[0]]) - need_g
+    need_g, need_l, tail = _parts(p)
 
     def ref(i, e='e'):
         return f'v{i}[{e}]' if nodes[i].n is not None else f'v{i}'
@@ -265,8 +367,8 @@ def cuda_source(program, dtype):
         if not staged:
             members.append(f'// par + {off}: constant {idx}'
                            f'{" transposed" if tr else ""}, {m} x {n}, '
-                           f'{rows} rows of {stride}, read from device '
-                           f'memory')
+                           f'{rows} rows of {stride}, streamed through '
+                           f'the tiles')
             continue
         members.append(f'// sm + {off}: constant {idx}'
                        f'{" transposed" if tr else ""}, {m} x {n}, '
@@ -279,6 +381,38 @@ def cuda_source(program, dtype):
                   f'  const int r = i / {stride}, c = i % {stride};',
                   f'  smem[{off} + i] = r < {m} && c < {n} ? {src} : '
                   f'Real(0);', '}']
+    methods, nt = [], len(lay.tiles)
+    if nt:
+        # the buffers' mbarriers, then tile 0's copy, which the first
+        # evaluation's tick waits for before it copies tile 1
+        stage += ['if (threadIdx.x == 0) {',
+                  '  mbar_init(tile_bar(0), kWarps * 32 + 1);',
+                  '  mbar_init(tile_bar(1), kWarps * 32 + 1);', '}',
+                  'load_tile(0);']
+        methods += [
+            '// tile k\'s buffer, k & 1 (addressed from the shared-memory',
+            '// symbol itself, so that every access is a shared-memory one)',
+            '__device__ __forceinline__ Real* tile(int k) const {',
+            '  extern __shared__ __align__(16) unsigned char g_smem[];',
+            f'  return reinterpret_cast<Real*>(g_smem) + {lay.tile_off} + '
+            f'(k & 1) * {lay.tile_elems};', '}',
+            '// buffer b\'s mbarrier: a phase a tile, complete once every',
+            '// thread of the block has arrived and the copy has landed',
+            '__device__ __forceinline__ uint64_t* tile_bar(int b) const {',
+            '  extern __shared__ __align__(16) unsigned char g_smem[];',
+            f'  return reinterpret_cast<uint64_t*>(g_smem + {lay.bar_off}) + '
+            f'b;', '}',
+            '// tile t\'s copy into its buffer (bulk copies of thread 0)',
+            '__device__ __forceinline__ void load_tile(int t) const {',
+            '  bulk_tile(tile(t), kTiles[t][3], par + kTiles[t][0], '
+            'kTiles[t][1],', '            kTiles[t][2], tile_bar(t & 1));',
+            '}',
+            '// this thread\'s wait for the tile that step s (0: the tick)',
+            '// reads; the step after the last tile reads none',
+            '__device__ __forceinline__ void await_step(int s) const {',
+            f'  if (s < {nt}) mbar_arrive_wait(tile_bar(s & 1));', '}',
+            '// idle ticks, until no warp of the block has work',
+            '__device__ void drain() const { tile_drain(*this); }']
     if lay.xbuf:
         members.append(f'Real* xbuf;  // this warp\'s {lay.xbuf} values')
         bind.append(f'xbuf = smem + {lay.xbuf_off} + (threadIdx.x >> 5) * '
@@ -344,13 +478,21 @@ def cuda_source(program, dtype):
         if op == 'mv':
             k = lay.mat(nd.attr)
             _, _, _, n_in, _, stride, off, staged = lay.mats[k]
+            if not staged:
+                k0, tw, ts = lay.node_tiles[i]
+                out = [f'Real v{i}[{ns}];',
+                       f'tiled_matvec<Real, {_slots(n_in)}, {ns}, {n_in}, '
+                       f'{tw}, {ts}, {k0}>(*this, xbuf, v{a[0]}, {n_in}, '
+                       f'v{i});']
+                if nt % 2 and i == lay.tiles[-1][0]:
+                    out.append(f'tile_step(*this, {nt});  // the step with '
+                               f'no tile (TileRing)')
+                return out
             full = n_in == 32 * _slots(n_in)
-            tail = ('' if full else f', {n_in}') if staged else \
-                f', {n_in}, true'
+            tail = '' if full else f', {n_in}'
             return [f'Real v{i}[{ns}];',
                     f'tree_matvec<Real, {_slots(n_in)}, {ns}, {stride}'
-                    f'{tail}>({"sm" if staged else "par"} + {off}, xbuf, '
-                    f'v{a[0]}, {n_in}, v{i});']
+                    f'{tail}>(sm + {off}, xbuf, v{a[0]}, {n_in}, v{i});']
         if op == 'pick':
             return [f'const Real v{i} = __shfl_sync(kFull, '
                     f'v{a[0]}[{nd.attr >> 5}], {nd.attr & 31});']
@@ -370,8 +512,10 @@ def cuda_source(program, dtype):
                     [f'  v{i}[e] = r;', '}'])
         raise AssertionError(op)
 
-    body = ['const int lane = threadIdx.x & 31;', '(void)lane;',
-            '// the gradient']
+    body = ['const int lane = threadIdx.x & 31;', '(void)lane;']
+    if nt:
+        body.append('tile_tick(*this, true);  // this evaluation\'s tick')
+    body.append('// the gradient')
     for i in sorted(need_g):
         body += emit(i)
     body += ['#pragma unroll', f'for (int e = 0; e < NE; ++e) g[e] = '
@@ -399,6 +543,18 @@ def cuda_source(program, dtype):
         return '\n'.join(' ' * indent + s if s else '' for s in lines)
 
     table = ', '.join(str(c) for c in lay.table) or '0'
+    tiles = methods_text = ''
+    if nt:
+        rows_ = ',\n'.join(f'    {{{t[3]}, {t[4]}, {t[5]}, {t[6]}}}'
+                           for t in lay.tiles)
+        tiles = (f'// the tiles of an evaluation, in order: offset of the '
+                 f'first value in the\n// parameters, row stride there, '
+                 f'16-byte vectors a row, row stride in\n// shared memory '
+                 f'(ops/codegen.py::_Layout; {lay.l2_bytes()} bytes '
+                 f'a block\n// and evaluation)\n__constant__ int kTiles[{nt}]'
+                 f'[4] = {{\n{rows_}}};\n')
+        methods_text = '\n' + block(methods, 2) + '\n'
+    ring = f' : TileRing<{nt}>' if nt else ''
     real = 'double' if f64 else 'float'
     head = (f'// Generated by bayesfast_tpu_torch/ops/codegen.py from a '
             f'traced density: D = {p.D},\n// {real}, {len(nodes)} nodes '
@@ -416,8 +572,8 @@ constexpr int kD = {p.D};
 
 // each gather's source and position for every lane and slot
 __constant__ int kGather[{max(1, len(lay.table))}] = {{{table}}};
-
-struct Traced {{
+{tiles}
+struct Traced{ring} {{
   static constexpr int kSmem = {lay.smem};
   __host__ __device__ size_t smem_elems() const {{ return kSmem; }}
   const Real* par;  // the program's packed constants, device memory
@@ -442,7 +598,7 @@ struct Traced {{
   __device__ Real finish(Real sum) const {{
 {block(finish, 4)}
   }}
-}};
+{methods_text}}};
 
 }}  // namespace
 

@@ -93,7 +93,8 @@ card, drives the port's paths and checks what comes out:
 * the kernels past D = 64 ([16]; ``bayesfast_tpu_torch/examples/
   wide_gaussians.py``): Neal's 100-d Gaussian (the compiled-in Gaussian,
   its unit at NE = 4) and Hoffman & Gelman's 250-d MVN (the user's torch
-  logp traced, NE = 8, its precision read from L2), each through
+  logp traced, NE = 8, its precision streamed through two shared-memory
+  tiles a block), each through
   ``sample`` at 1024 chains, float32, depth 10, seed 32 under
   ``nuts_kernel='auto'`` (0 tree-loop transitions, no unit built during
   the run, post-warmup divergences below 5 %, every coordinate's mean
@@ -101,8 +102,14 @@ card, drives the port's paths and checks what comes out:
   MVN's mean x'Px within 5 % of 250), the MVN also with a pooled metric
   on the block kernel; then [16a]: each new instantiation's frozen and
   warmup chunks (K = 2) and block launch bitwise against their plain
-  versions in float32 and float64 on the runs' final states, and timed.
-  Their four units are built in [2] beside the others.
+  versions in float32 and float64 on the runs' final states, and timed,
+  with the MVN's tile plan and L2 bytes a leapfrog and block; the same
+  for column tiles and an odd count of tiles (a D = 4 density with a 4 x
+  990 matrix: its adjoint's rows in column tiles, 35 tiles an evaluation
+  in float64) at 64 chains; and the MVN's frozen chunk with every tile
+  copied twice (a variant of its float32 unit), timed at 1024 chains and
+  on one block beside the unit as built: what the copies cost. Their
+  seven units are built in [2] beside the others.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
@@ -144,13 +151,17 @@ surrogates that the first process saved, so that every process times the
 same inputs, [5]'s chunks, [10b]'s PolyGaussian chunks and [13b]'s cubic
 ones (float32 and float64) and [8c]'s block launch with their slowest
 chains, [7]'s KDE kernel,
-[8d]'s pooled transitions and busy share, and GBS on the per-chain draws
-under generator seeds 0 to N - 1 (default 5). Its readings go to
+[8d]'s pooled transitions and busy share, [16a]'s MVN-250 K = 2 frozen
+and warmup chunks and block launch (float32, device only, on a state at
+1024 chains that the first process samples) with the L2 bytes a leapfrog
+and block and the unit's registers and spills, and GBS on the per-chain
+draws under generator seeds 0 to N - 1 (default 5). Its readings go to
 ``--work`` (default ``bayesfast_tpu_torch/build/ab``), one JSON file a
 process. Last, the A/B says whether the banana draws of [3] and [8], the
 Recipes' n_call and deviation, [10b]'s and [13b]'s outputs and a frozen
 and a warmup chunk of each of [12]'s anchors and of [14]'s traced banana
-(float64, a seeded state) are bitwise equal in all four processes, and
+(float64, a seeded state) and MVN-250's chunks and block launch are
+bitwise equal in all four processes, and
 exits 1 if one is not, or if this checkout's build spills ([2b]). It also
 prints each library's nvcc seconds, each checkout built alone.
 """
@@ -229,7 +240,9 @@ DONUT_UNITS = (('linear', 'float64'), ('quadratic', 'float64'),
 # iterations are cut to [16]'s two minutes: each gate is in standard
 # errors of its own run, or relative (Neal's variances, the MVN's x'Px)
 WIDE_UNITS = (('neal_100', 'float32'), ('neal_100', 'float64'),
-              ('mvn_250', 'float32'), ('mvn_250', 'float64'))
+              ('mvn_250', 'float32'), ('mvn_250', 'float64'),
+              ('wide_4', 'float32'), ('wide_4', 'float64'))
+COPIES_TWICE = 'mvn_250 float32, tiles copied twice'
 WIDE_CHAINS, WIDE_SEED, WIDE_GROUPS = 1024, 32, 32
 NEAL_WARMUP, NEAL_POST = 300, 200
 MVN_WARMUP, MVN_POST, MVN_POOLED_WARMUP, MVN_POOLED_POST = 200, 100, 100, 20
@@ -237,6 +250,9 @@ MVN_WARMUP, MVN_POST, MVN_POOLED_WARMUP, MVN_POOLED_POST = 200, 100, 100, 20
 # chunk (its plain version runs a 256 x 256 matvec per leaf and chain) and
 # of every float64 check
 WIDE_K, MVN_CMP_CHAINS, WIDE_F64_CHAINS = 2, 64, 64
+# --ab: MVN-250's saved state, from a per-chain sample() at 1024 chains,
+# float32, seed 32 of this many warmup + post iterations (the first process)
+MVN_AB_WARMUP, MVN_AB_POST = 100, 10
 # one NVIDIA H100 SXM: fp32 and fp64 outside the tensor cores (NVIDIA's
 # data sheet), device memory
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -2224,23 +2240,49 @@ def _donut(torch, bt, ptxas, builds, srcs, smi):
             for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block')}
 
 
+def _wide_4(torch):
+    """[16a] A D = 4 density with a 4 x 990 matrix: its adjoint's 32 rows
+    of 990 pass a buffer, so they stream in column tiles (35 tiles an
+    evaluation in float64: an odd count)."""
+    import bayesfast_tpu_torch as bt
+    W = torch.as_tensor(np.random.default_rng(2).normal(size=(4, 990)))
+    return bt.DensityLite(
+        logp=lambda x: torch.sum(torch.exp(0.01 * (x @ W.to(x))), -1),
+        input_size=4), {}
+
+
+def _copies_twice(src):
+    """The source of a generated unit whose every tile is copied twice
+    (``load_tile``'s bulk copies repeated, each buffer's mbarrier counting
+    the second copy's arrival too): the same bits, twice the copies."""
+    import re
+    call = re.search(r'\n( *)bulk_tile\(.*?\);', src, re.S)
+    src = src[:call.end()] + call.group(0) + src[call.end():]
+    assert src.count('kWarps * 32 + 1);') == 2
+    return src.replace('kWarps * 32 + 1);', 'kWarps * 32 + 2);')
+
+
 def _wide_sources(torch):
-    """[2] The targets of [16] (``examples/wide_gaussians.py``) and the
-    generated unit of each of WIDE_UNITS: Neal-100's compiled-in Gaussian
-    at NE = 4 (``nuts_cuda.wide_unit_source``) and MVN-250's traced
-    functor at NE = 8. Returns ({name: (density, info)}, {'name dtype':
-    source})."""
+    """[2] The targets of [16] (``examples/wide_gaussians.py``) and
+    [16a]'s D = 4 density (``_wide_4``), and the generated unit of each of
+    WIDE_UNITS: Neal-100's compiled-in Gaussian at NE = 4
+    (``nuts_cuda.wide_unit_source``), MVN-250's traced functor at NE = 8,
+    the D = 4 density's and the MVN's float32 unit with its tiles copied
+    twice (``_copies_twice``). Returns ({name: (density, info)}, {'name
+    dtype': source})."""
     from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250, neal_100
     from bayesfast_tpu_torch.ops.densities import DENSITY_IDS
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
-    dens = {'neal_100': neal_100(), 'mvn_250': mvn_250()}
-    prog = dens['mvn_250'][0].kernel_spec()['program']
+    dens = {'neal_100': neal_100(), 'mvn_250': mvn_250(),
+            'wide_4': _wide_4(torch)}
     srcs = {}
     for name, dt in WIDE_UNITS:
         dtype = getattr(torch, dt)
         srcs[f'{name} {dt}'] = (
             nc.wide_unit_source(DENSITY_IDS['gaussian'], 100, dtype)
-            if name == 'neal_100' else prog.source(dtype))
+            if name == 'neal_100' else
+            dens[name][0].kernel_spec()['program'].source(dtype))
+    srcs[COPIES_TWICE] = _copies_twice(srcs['mvn_250 float32'])
     return dens, srcs
 
 
@@ -2365,7 +2407,7 @@ def _zero_mean_gate(s, tag):
                              'errors off 0')
 
 
-def _wide(torch, bt, dens, ptxas, builds, smi):
+def _wide(torch, bt, dens, srcs, ptxas, builds, smi):
     """[16] The kernels past D = 64: [16b] Neal-100 (the compiled-in
     Gaussian, its unit at NE = 4) and [16c] MVN-250 (the user's torch
     logp traced, NE = 8) through ``sample`` (``_wide_sample``), the MVN
@@ -2374,8 +2416,12 @@ def _wide(torch, bt, dens, ptxas, builds, smi):
     warmup chunks (K = WIDE_K) and block launch bitwise against their
     plain versions on the runs' final states, float32 (Neal at 1024
     chains, the MVN at MVN_CMP_CHAINS) and float64 (WIDE_F64_CHAINS), and
-    timed in float32 at 1024 chains. Returns {kernel row: (launches, max
-    abs error, (ms, plain ms, bound ms, bound by))}."""
+    timed in float32 at 1024 chains; the D = 4 density's (``_wide_4``:
+    column tiles, an odd count) bitwise at 64 chains; the MVN's frozen and
+    warmup chunks with its tiles copied twice (``srcs[COPIES_TWICE]``)
+    against its unit as built, at 1024 chains and on one block, bitwise.
+    Returns {kernel row: (launches, max abs error, (ms, plain ms, bound
+    ms, bound by))}."""
     from bayesfast_tpu_torch import config
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
@@ -2401,8 +2447,8 @@ def _wide(torch, bt, dens, ptxas, builds, smi):
     # ---- [16c] MVN-250, per chain then pooled ----
     print(f'[16c] MVN-250 traced: {len(prog.nodes)} nodes '
           f'({prog.describe()}), {prog.n_ops} operations an evaluation, '
-          f'{_traced_leapfrog_ops(prog)} a leapfrog; P read from L2 (its '
-          f'staged size past a block)')
+          f'{_traced_leapfrog_ops(prog)} a leapfrog; P^T and P past a '
+          f'block\'s shared memory, streamed')
     tm, lm, _ = _wide_sample(torch, bt, den_m, '[16c] MVN-250, per-chain '
                              'metric', MVN_WARMUP, MVN_POST)
     s = tm.get(flatten=False)
@@ -2430,6 +2476,10 @@ def _wide(torch, bt, dens, ptxas, builds, smi):
     for key, name, den, tt, c32, launches, ops, unit in cases:
         carry = tt.trace._carry
         errs = {}
+        if key == 'mvn':
+            for dt in (torch.float32, torch.float64):
+                print(f'[16a] MVN-250 {str(dt)[6:]} plan: '
+                      f'{_tile_plan(prog, dt.itemsize)}')
         for dt, n_c in ((torch.float32, c32),
                         (torch.float64, WIDE_F64_CHAINS)):
             c = _cast(_first_chains(carry, n_c), dt)
@@ -2462,7 +2512,69 @@ def _wide(torch, bt, dens, ptxas, builds, smi):
         for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
             k = f'{kind}_wide_{key}'
             rows[k] = (launches.get(kind, 0), errs[k], times[k])
+
+    _stream_checks(torch, dens, srcs, tm.trace._carry, ptxas, builds)
     return rows
+
+
+def _stream_checks(torch, dens, srcs, carry, ptxas, builds):
+    """[16a] The streamed route's other shapes and its copies: the D = 4
+    density's (``_wide_4``: column tiles, an odd count) frozen and warmup
+    chunks and block launch bitwise against their plain versions on a
+    seeded state at 64 chains, float32 and float64; then MVN-250's float32
+    chunks on ``carry`` (1024 chains, and its first 8: one block) with
+    every tile copied twice (``srcs[COPIES_TWICE]``) against its unit as
+    built, device only, bitwise."""
+    # ---- [16a] column tiles and an odd count of tiles: the D = 4
+    # density's kernels bitwise on a seeded state at 64 chains ----
+    from types import SimpleNamespace as NS
+    den_w = dens['wide_4'][0]
+    wprog = den_w.kernel_spec()['program']
+    rng = np.random.default_rng(5)
+    dev = torch.device('cuda')
+    carry_w = NS(q=torch.as_tensor(rng.normal(size=(64, 4)) * 0.3,
+                                   device=dev),
+                 metric=NS(var=torch.ones(64, 4, device=dev)),
+                 step=NS(log_bar=torch.full((64,), -3.0, device=dev)))
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt)[6:]
+        print(f'[16a] D = 4 x 990 {tag}, C=64, K={WIDE_K}: '
+              f'{_tile_plan(wprog, dt.itemsize)}; kernels '
+              f'{_ptxas_text(ptxas, f"wide_4 {tag}")}; built in '
+              f'{builds[f"wide_4 {tag}"]}')
+        _chunks_vs_plain(torch, den_w, carry_w, dt, 'D = 4 x 990', '_wide4',
+                         block=True, k=WIDE_K)
+
+    # ---- [16a] what the MVN's tile copies cost: its float32 chunks with
+    # every tile copied twice against the unit as built, on [16c]'s final
+    # state (device only) ----
+    den_m = dens['mvn_250'][0]
+    prog = den_m.kernel_spec()['program']
+    unit, key = prog.source(torch.float32), str(torch.float32)
+    ops = _traced_leapfrog_ops(prog)
+    for n in (WIDE_CHAINS, 8):
+        c = carry if n == WIDE_CHAINS else _first_chains(carry, n)
+        ms, digests = {}, {}
+        for label, src in (('as built', unit),
+                           ('copied twice', srcs[COPIES_TWICE])):
+            prog._sources[key] = src
+            try:
+                t, _, outs = _time_chunks(torch, den_m, c, ops=ops,
+                                          suffix=f' [{label}, C={n}]',
+                                          k=WIDE_K, timer=_device_ms)
+            finally:
+                prog._sources[key] = unit
+            ms[label] = [v[0] for v in t.values()]
+            digests[label] = _digest(outs)
+        same = digests['as built'] == digests['copied twice']
+        print(f'[16a] MVN-250 tiles copied twice, C={n}: frozen / warmup '
+              f'K={WIDE_K} chunks ' + ' / '.join(
+                  f'{b / a - 1:+.2%}' for a, b in zip(
+                      ms['as built'], ms['copied twice']))
+              + f'; outputs bitwise: {same}')
+        if not same:
+            raise AssertionError('[16a]: the MVN\'s unit with its tiles '
+                                 'copied twice disagrees with it')
 
 
 def _ptxas_sweep(torch):
@@ -2470,9 +2582,9 @@ def _ptxas_sweep(torch):
     width NE = 3..8, float32 and float64: the compiled-in Gaussian's unit
     (the transition with the lightest density) and a traced -0.5 x'Px at
     D = 32 NE (P a Wishart(D, I) draw: staged in shared memory while it
-    fits, else read from L2), all built in parallel. Prints each kernel's
-    registers, stack frame and spill bytes and each build's nvcc
-    seconds."""
+    fits, else streamed through shared tiles), all built in parallel.
+    Prints each kernel's registers, stack frame and spill bytes and each
+    build's nvcc seconds."""
     from scipy.stats import wishart
     from bayesfast_tpu_torch import _build
     from bayesfast_tpu_torch.ops.codegen import _Layout
@@ -2512,6 +2624,89 @@ def _ptxas_text(ptxas, label):
     return '; '.join(f'{k.split()[0]} {k.split()[-1]}: {v[0]} registers, '
                      f'{v[2]} / {v[3]} B spilled'
                      for k, v in sorted(ptxas.get(label, {}).items()))
+
+
+def _tile_plan(prog, itemsize):
+    """The streamed matrices of a traced program's functor at
+    ``itemsize`` (``ops/codegen.py::_Layout``) in words, with the bytes a
+    block reads from L2 per leapfrog (``_traced_l2_bytes``)."""
+    from bayesfast_tpu_torch.ops.codegen import _Layout
+    lay = _Layout(prog, itemsize)
+    tiles = getattr(lay, 'tiles', None)
+    if tiles is None:
+        plan = 'each chain reads its unstaged matrices from L2'
+    elif tiles:
+        plan = (f'{len(tiles)} tiles an evaluation of 32 rows x {lay.te} '
+                f'slots, two buffers of {lay.tile_elems * itemsize} B '
+                f'shared by the block\'s 8 chains')
+    else:
+        plan = 'every matrix staged'
+    return (f'{plan}; {lay.smem * itemsize} B of shared memory a block; '
+            f'{_traced_l2_bytes(prog, itemsize)} L2 bytes a leapfrog and '
+            f'block')
+
+
+def _traced_l2_bytes(prog, itemsize):
+    """Bytes a block reads from L2 per leapfrog (its 8 chains on one) for
+    a traced functor's matrices that are not staged: every streamed tile
+    once (the layout's schedule); on a checkout without tiles (each chain
+    reading them through ``__ldg``) each chain's products' loads, rows x
+    32 NI values a product."""
+    from bayesfast_tpu_torch.ops.codegen import _Layout
+    lay = _Layout(prog, itemsize)
+    if hasattr(lay, 'tiles'):
+        return lay.l2_bytes()
+    total = 0
+    for nd in prog.nodes:
+        if nd.op == 'mv' and not lay.mats[lay.mat(nd.attr)][7]:
+            _, _, m, n, rows, _, _, _ = lay.mats[lay.mat(nd.attr)]
+            total += rows * 32 * (-(-n // 32)) * itemsize
+    return 8 * total
+
+
+def _mvn_state(torch, bt):
+    """--ab: MVN-250's final state after a per-chain ``sample`` at 1024
+    chains, float32, seed WIDE_SEED, MVN_AB_WARMUP + MVN_AB_POST
+    iterations (the first process; every process times on it)."""
+    from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250
+    bt.utils.set_generator(WIDE_SEED)
+    tt = bt.sample(mvn_250()[0], bt.NTrace(
+        n_chain=WIDE_CHAINS, n_iter=MVN_AB_WARMUP + MVN_AB_POST,
+        n_warmup=MVN_AB_WARMUP), verbose=False)
+    return tt.trace._carry
+
+
+def _mvn_timed(torch, carry):
+    """--ab: MVN-250's K = WIDE_K frozen and warmup chunks and a block
+    launch on ``carry`` (float32, 1024 chains), timed on the device alone
+    with their slowest chains, the f32 unit's registers and spills and the
+    L2 bytes a leapfrog and block of this checkout. Returns ({kernel:
+    slowest chain}, {name: outputs digest}, ptxas table, L2 bytes)."""
+    from bayesfast_tpu_torch import _build
+    from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    den = mvn_250()[0]
+    prog = den.kernel_spec()['program']
+    ops = _traced_leapfrog_ops(prog)
+    print(f'[16a] MVN-250 float32 plan: {_tile_plan(prog, 4)}')
+    _, chains, outs = _time_chunks(torch, den, carry, ops=ops,
+                                   suffix='_wide_mvn', k=WIDE_K,
+                                   timer=_device_ms)
+    C, dim = carry.q.shape
+    metric = init_diag_metric(carry.q,
+                              nc._mat(carry.metric.var, C, dim, carry.q))
+    eps = torch.exp(carry.step.log_bar)
+    _, chains['nuts_block_wide_mvn'] = _time_block(
+        torch, den, carry.q, metric, eps, ops=ops,
+        tag='  nuts_block_wide_mvn', timer=_device_ms)
+    block = nc.nuts_transition_batched(5, carry.q, metric, eps,
+                                       MAX_TREEDEPTH, MAX_CHANGE,
+                                       density=den)
+    digests = {f'MVN-250 {k} outputs [16a]': _digest(v)
+               for k, v in {**outs, 'nuts_block': block}.items()}
+    table = _ptxas_table(_build.build_log(source=prog.source(torch.float32)))
+    return chains, digests, table, _traced_l2_bytes(prog, 4)
 
 
 def _wall(walls, tag, t0):
@@ -2781,6 +2976,7 @@ def _ab_one(tree, state, out_path, n_seeds):
             saved[k + '_tf'] = r.density.kernel_spec()['transform']
             saved[k + '_carry'] = \
                 r.recipe_trace.results.sample[-1].sample_trace.trace._carry
+        saved['mvn_carry'] = _mvn_state(torch, bt)
         torch.save(saved, state)
     st = torch.load(state, weights_only=False)
     res.update(_time_chunks(torch, den, st['carry'])[1])
@@ -2806,6 +3002,11 @@ def _ab_one(tree, state, out_path, n_seeds):
     from bayesfast_tpu_torch.examples.user_densities import DENSITIES
     res['digests']['traced banana chunk outputs [14]'] = _digest(
         _seeded_chunks(torch, DENSITIES['bench_banana']()[0]))
+    # [16a]'s MVN-250 kernels on the saved float32 state at 1024 chains
+    chains, digests, res['mvn_ptxas'], res['mvn_l2_bytes'] = _mvn_timed(
+        torch, st['mvn_carry'])
+    res.update(chains)
+    res['digests'].update(digests)
     res['nuts_block'] = _time_block(
         torch, den, *_block_inputs(torch, st['pooled'], torch.float32))[1]
     x, data, w, h = _kde_inputs(torch, st['draws'], torch.float32)
@@ -2868,13 +3069,15 @@ def _ab_readings(res):
     for k in ('nuts_block', 'nuts_multi', 'nuts_warmup', 'nuts_multi_poly',
               'nuts_warmup_poly', 'nuts_multi_poly64', 'nuts_warmup_poly64',
               'nuts_multi_cubic', 'nuts_warmup_cubic', 'nuts_multi_cubic64',
-              'nuts_warmup_cubic64'):
+              'nuts_warmup_cubic64', 'nuts_multi_wide_mvn',
+              'nuts_warmup_wide_mvn', 'nuts_block_wide_mvn'):
         for f in ('ms', 'max_leapfrogs', 'mean_leapfrogs', 'ns_per_leapfrog'):
             out[f'{k} {f}'] = res[k][f]
     for k, tag in (('recipe', '[10]'), ('recipe_cubic', '[13]')):
         out[f'recipe n_call {tag}'] = res[k]['n_call']
         out[f'recipe max IS dev, sigma {tag}'] = res[k]['max_dev_sigma']
         out[f'recipe chunk kernels s {tag}'] = res[k]['kernels_s']
+    out['MVN-250 L2 bytes a leapfrog and block'] = res['mvn_l2_bytes']
     logz = np.array([z for z, _ in res['gbs']])
     if len(logz) > 1:
         out['gbs logz, mean over seeds'] = float(logz.mean())
@@ -2928,6 +3131,12 @@ def _ab(parent, work, n_seeds):
     print(f'nvcc (s), each checkout built alone: parent '
           f'{ {k: round(v, 1) for k, v in runs[0].get("nvcc_s", {}).items()} }'
           f', this checkout { {k: round(v, 1) for k, v in nvcc.items()} }')
+    # MVN-250's float32 unit: registers, stack frame and spills, before
+    # (the parent) and after
+    for i in (0, 1):
+        print(f'MVN-250 float32 unit, {("parent", "change")[i]} ([2b]):')
+        for k, v in sorted(runs[i]['mvn_ptxas'].items()):
+            print(f'    {k:52s} {tuple(v)}')
     # outputs that the change must leave bit for bit as they were
     differ = 0
     for k in runs[0]['digests']:
@@ -3156,7 +3365,7 @@ def main():
     # ---- [16] past D = 64: Neal-100 compiled in (NE = 4) and MVN-250
     # traced (NE = 8) through sample() under 'auto', the MVN also pooled;
     # the new instantiations bitwise against their plain versions ----
-    wide_rows = _wide(torch, bt, wide_dens, ptxas, builds, smi)
+    wide_rows = _wide(torch, bt, wide_dens, wide_srcs, ptxas, builds, smi)
     t_phase = _wall(walls, '[16]', t_phase)
 
     meta = {
@@ -3273,6 +3482,7 @@ if __name__ == '__main__':
             sys.path.insert(0, _REPO)
             if not torch.cuda.is_available():
                 raise RuntimeError('no CUDA device')
+            warnings.filterwarnings('ignore', message='for chain #')
             _ptxas_sweep(torch)
             rc = 0
         else:

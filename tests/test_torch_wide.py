@@ -1,6 +1,6 @@
 """The CUDA NUTS kernels past D = 64 (``csrc/nuts_densities.cuh``'s units
 of one compiled-in density at NE = 3..8, a traced functor at NE = 8 that
-reads its matrices from device memory) and their routing, on the CPU.
+streams its matrices from device memory) and their routing, on the CPU.
 
 * The port's plain chunk, warmup and block transitions against the JAX
   Pallas kernels in interpret mode (``make_nuts_pallas_multi`` /
@@ -19,9 +19,11 @@ reads its matrices from device memory) and their routing, on the CPU.
   257; a ``Density`` plan (the compiled-in PolyGaussian or a traced one)
   and the compiled-in banana past its shared memory name their own.
 * The generated source of an NE = 8 program whose matrices do not fit a
-  block's shared memory reads them from device memory, ``check_limits``
-  accepts it, and ``launch_params`` lays them out as the source reads
-  them; the units of the compiled-in densities at NE = 3..8.
+  block's shared memory streams them from device memory through shared
+  tiles (``tests/test_torch_stream.py`` holds the schedule and the loop
+  order), ``check_limits`` accepts it, and ``launch_params`` lays them out
+  as the tiles are cut from them; the units of the compiled-in densities
+  at NE = 3..8.
 * The new module imports no JAX.
 """
 
@@ -254,11 +256,13 @@ def test_the_banana_past_its_shared_memory():
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_mvn_reads_its_matrices_from_device_memory(dtype):
     """MVN-250's precision, read transposed and not, is past a block's
-    shared memory in either dtype: the NE = 8 functor reads both from the
-    launch's parameters (``tree_matvec<..., true>``), ``check_limits``
+    shared memory in either dtype: the NE = 8 functor streams both from
+    the launch's parameters through two shared-memory tiles of 32 rows x
+    256 (+ padding) that the block's chains share (``tiled_matvec``, 8
+    tiles a product, the second product's first tile 8), ``check_limits``
     accepts the program, and ``launch_params`` puts each matrix, as read,
     zero-padded to 256 rows of the row stride, at the offset the source
-    names, 16-byte aligned."""
+    names, 16-byte aligned, where the tiles are cut from it."""
     den, info = mvn_250()
     prog = den.kernel_spec()['program']
     itemsize = dtype.itemsize
@@ -273,24 +277,31 @@ def test_mvn_reads_its_matrices_from_device_memory(dtype):
     par = launch_params(prog, packed)
     assert torch.equal(par[:packed.numel()], packed)
     P = torch.as_tensor(info['P'], dtype=dtype)
-    for _, tr, m, n, rows, st, off, _ in lay.mats:
+    for k, (_, tr, m, n, rows, st, off, _) in enumerate(lay.mats):
         assert (m, n, rows, st) == (250, 250, 256, stride)
         assert off * itemsize % 16 == 0
-        assert (f'tree_matvec<Real, 8, 8, {stride}, 250, true>(par + {off},'
-                in src)
+        assert (f'// par + {off}: constant 0{" transposed" if tr else ""}, '
+                f'250 x 250, 256 rows of {stride}, streamed' in src)
+        assert (f'tiled_matvec<Real, 8, 8, 250, 8, {stride}, {8 * k}>'
+                f'(*this, xbuf, ' in src)
         M = par[off:off + rows * st].view(rows, st)
         assert torch.equal(M[:250, :250], P.T if tr else P)
         assert not M[250:].any() and not M[:, 250:].any()
+        assert [t[3] for t in lay.tiles[8 * k:8 * k + 8]] == [
+            off + 32 * o * stride for o in range(8)]
     assert par.numel() == lay.params_end
-    # nothing is staged: the block's shared memory holds the x buffers
-    assert f'kSmem = {8 * 256};' in src and 'stage' in src
+    assert '__ldg' not in src and 'true>' not in src
+    # nothing is staged: the block's shared memory holds the two tiles,
+    # the x buffers and the tiles' two mbarriers (16 bytes)
+    assert (f'kSmem = {2 * 32 * stride + 8 * 256 + 16 // itemsize};' in src
+            and 'stage' in src)
 
 
 def test_a_wide_matrix_at_small_d_traces():
     """A 4 x 1000 matrix at D = 4, read as 1024 rows of 34 doubles and
     its adjoint's 32 rows of 1026 (past a block's shared memory, once
-    refused), traces: in float64 both are read from device memory, in
-    float32 the first is staged and the second read; the interpreter
+    refused), traces: in float64 both stream from device memory, in
+    float32 the first is staged and the second streams; the interpreter
     agrees with the eager function and autograd."""
     W = torch.as_tensor(np.random.default_rng(2).normal(size=(4, 1000)))
 
