@@ -29,6 +29,7 @@ import torch.utils._pytree as pytree
 
 from ..config import get_device, get_dtype
 from ..ops import constraint as _con
+from ..samplers.nuts_cuda import _MAX_D
 from ..utils import all_isinstance
 from ..utils.collections import VariableDict, PropertyList
 from .density import _PipelineBase, _DensityBase
@@ -569,7 +570,7 @@ class Density(Pipeline, _DensityBase):
         with or without its own ``input_scales``) from the density's input
         vars to one var, then one ``Gaussian`` (diagonal or full
         covariance, no ``input_scales``) from that var to
-        ``density_name``, at D <= 64."""
+        ``density_name``, at D <= 256 (``nuts_cuda._MAX_D``)."""
         from ..modules import Gaussian, PolyModel
         if not self.use_surrogate:
             return None
@@ -580,7 +581,7 @@ class Density(Pipeline, _DensityBase):
         ga = self._module_list[plan[1][1]]
         D = self.input_size
         ok = (isinstance(su, PolyModel) and isinstance(ga, Gaussian)
-              and D is not None and D <= 64 and su.input_size == D
+              and D is not None and D <= _MAX_D and su.input_size == D
               and ga.input_scales is None
               and list(su.input_vars) == list(self.input_vars)
               and len(su.output_vars) == 1
@@ -616,17 +617,17 @@ class Density(Pipeline, _DensityBase):
         in the configured dtype on the configured device; kept until the
         plan's structure (``_trace_structure``) or the parameters' tree
         changes. A ``TraceError`` when it does not trace, when the plan has
-        an external module, or at D > 64."""
+        an external module, or at D > 256 (``nuts_cuda._MAX_D``)."""
         from ..ops.trace import TraceError, trace_density
         D = self.input_size
         us = self.use_surrogate
         if D is None:
             return TraceError('input_size is not set: the plan is traced at '
                               'one point of that size')
-        if D > 64:
+        if D > _MAX_D:
             return TraceError(f'the CUDA NUTS kernels take a Density plan '
                               f'(the compiled-in PolyGaussian or a traced '
-                              f'plan) at D <= 64, got {D}')
+                              f'plan) at D <= {_MAX_D}, got {D}')
         if self._has_external(us):
             names = [self._module_by_ref(k, i).label or f'{k} #{i}'
                      for k, i in self._plan(us)
@@ -665,7 +666,7 @@ class Density(Pipeline, _DensityBase):
         """Whether the CUDA NUTS kernels can sample this density as it
         stands: a PolyModel surrogate then a Gaussian, compiled in (see
         ``_kernel_parts``), or any other plan that traces into the
-        kernels' op set at D <= 64 (``_program``)."""
+        kernels' op set (``_program``), at D <= 256."""
         return self._kernel_parts() is not None or self.has_traced_spec
 
     def kernel_trace_error(self):
@@ -684,7 +685,7 @@ class Density(Pipeline, _DensityBase):
             raise NotImplementedError(
                 'this density has no kernel_spec(): the CUDA NUTS kernels '
                 'compile in a PolyModel surrogate followed by a Gaussian '
-                'likelihood only, at D <= 64.')
+                f'likelihood only, at D <= {_MAX_D}.')
         su, ga = parts
         # the surrogate's own arrays, not copies: the spec (or its key) is
         # built from them at once

@@ -377,15 +377,17 @@ def poly_gaussian_spec(dim, configs, n_out, mean, var_inv, norm, bound=None,
     Hessians and the precision are symmetrized, which leaves each
     quadratic form as it is and makes its gradient ``2 H delta``; row k of
     the symmetric precision is its column k, which the kernel reads
-    coalesced. Returns the spec dict: the structured ``arrays`` for the
-    plain version, one packed float64 parameter vector for the kernel
-    (``csrc/nuts.cu``, ``PolyGaussian``) and the ``scalars`` (norm, gamma,
-    M, F, NNZ, bound on, decay on, alpha, alpha^2, full precision)."""
+    coalesced, and so is row k of a Hessian, which the kernel reads from
+    device memory past D = 64. Returns the spec dict: the structured
+    ``arrays`` for the plain version, one packed float64 parameter vector
+    for the kernel (``csrc/nuts_poly.cuh``, ``PolyGaussian``) and the
+    ``scalars`` (norm, gamma, M, F, NNZ, bound on, decay on, alpha,
+    alpha^2, full precision)."""
     D, M = int(dim), int(n_out)
-    if D > 64:
+    if D > 256:
         raise NotImplementedError(
             f'the CUDA NUTS kernels take the PolyGaussian density at D <= '
-            f'64, got {D}.')
+            f'256 (eight dimensions a lane), got {D}.')
     trip, blocks = [], []
     for order, im, om, a in configs:
         trip.append(_triples(order, im, D))

@@ -30,7 +30,8 @@ interpreter. The kernels hold a chain in a warp, lane ``l`` holding
 dimensions ``l, l + 32, ...``: up to eight a lane, D <= 256. The
 compiled-in densities are in ``csrc/nuts.cu``'s library at D <= 64 (NE =
 1, 2); at D 65..256 each (density, NE, dtype) is a unit of its own
-(``wide_unit_source``), built at first use like a traced one.
+(``wide_unit_source``; the PolyGaussian surrogate's a (NE, dtype, path),
+``poly_unit_source``), built at first use like a traced one.
 ``kernel_refusal`` says why a density cannot take the kernels at a
 dimension; ``ChainDriver.uses_kernels`` routes by it.
 
@@ -66,7 +67,7 @@ from .nuts import NutsStats, _kahan_add
 __all__ = ['nuts_transition_batched', 'nuts_chunk_batched',
            'nuts_warmup_chunk_batched', 'nuts_block_plain', 'nuts_chunk_plain',
            'nuts_warmup_chunk_plain', 'plain_lpg', 'kernel_refusal',
-           'wide_unit_source']
+           'wide_unit_source', 'poly_unit_source']
 
 _M32 = 0xFFFFFFFF
 # float32(2 pi), the Box-Muller angle constant as the float32 kernels use it
@@ -505,9 +506,9 @@ def nuts_warmup_chunk_plain(seed, q0, step_leaves, metric_leaves, n_steps,
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 
-# eight dimensions a lane (csrc/nuts_kernels.cuh kMaxD); csrc/nuts.cu's
-# own library holds NE = 1 and 2, D <= 64 (the PolyGaussian surrogate and
-# a traced Density plan stay there: core/pipeline.py)
+# eight dimensions a lane (csrc/nuts_kernels.cuh kMaxD), for every density
+# (a Density plan too: core/pipeline.py); csrc/nuts.cu's own library holds
+# NE = 1 and 2, D <= 64, and a unit each wider (density, NE, dtype)
 _MAX_D, _LIB_D = 256, 64
 # the kinds of nuts_traced_launch (ops/codegen.py)
 _KINDS = {'frozen': 0, 'warmup': 1, 'block': 2}
@@ -535,8 +536,10 @@ def _coef_stride(rows, itemsize):
 def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows,
                  tile=0):
     """A block of a launch with the PolyGaussian density that stages the
-    first ``rows`` features of the coefficients WT, as ``csrc/nuts.cu`` lays
-    it out: the two staged D x D Hessians, the input scales, each warp's
+    first ``rows`` features of the coefficients WT, as
+    ``csrc/nuts_poly.cuh`` lays it out: at D <= 64 (NE <= 2) the two
+    staged D x D Hessians (past that they stay in device memory:
+    ``hess_smem`` False), the input scales, each warp's
     exchange buffers and the integer tables (three indices a feature, the
     row pointers, three a sparse-row entry); then those features,
     transposed (output j's features as row j, ``row_stride`` elements);
@@ -544,10 +547,13 @@ def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows,
     of the other features for every output, and phi long enough for the
     last tile's padding; then every warp's checkpoint stack if it still
     fits in a block, else the stacks stay in global scratch. Returns a
-    dict (rows, row_stride, stacks_smem, bytes), and on the streamed path
-    also stream (True), tile and tile_bytes (one buffer's)."""
+    dict (rows, row_stride, stacks_smem, bytes), on the streamed path also
+    stream (True), tile and tile_bytes (one buffer's), and past D = 64
+    hess_smem (False)."""
     n = 16 // itemsize
     P = 32 * max(1, -(-int(D) // 32))
+    # PolyGaussian::kHessSmem
+    hess = P <= _LIB_D
     n_phi = rows + -(-(F - rows) // tile) * tile if tile else F
     # xbuf, xa, phi, gphi, the back pass's scratch (32 lanes x 8 features),
     # the outputs' gradients, with a full precision r and m0 - f_mu
@@ -555,12 +561,14 @@ def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows,
             + (3 if full else 1) * _up(M, 4))
     ints = _up(-(-(3 * F + D + 1 + 3 * NNZ) * 4 // itemsize), 4)
     stride = _coef_stride(rows, itemsize)
-    own = (2 * P * (P + n) + 2 * P + _WARPS * warp + ints
+    own = (2 * P * (P + n) * hess + 2 * P + _WARPS * warp + ints
            + M * stride + 2 * M * tile) * itemsize
     stacks = _WARPS * max(int(max_treedepth) - 1, 1) * (4 * D + 3) * itemsize
     stk = own + stacks <= _MAX_SMEM
     plan = dict(rows=int(rows), row_stride=stride, stacks_smem=stk,
                 bytes=own + stk * stacks)
+    if not hess:
+        plan['hess_smem'] = False
     if tile:
         plan.update(stream=True, tile=int(tile),
                     tile_bytes=int(M) * int(tile) * itemsize)
@@ -635,13 +643,14 @@ def _spec_plan(dens_id, dscal, D, max_treedepth, itemsize):
 
 
 def _fargs(max_change, logw, dscal, adapt, plan):
-    """The launch's double arguments (``csrc/nuts.cu::make_args`` and
-    ``launch_poly``): max_change, logw, the density's first two scalars,
-    target, gamma, k, t_0, the density's other scalars from index 8, and
-    after them the plan's features staged, bytes, stacks in shared memory,
-    path (1: the streamed tiles), features a tile and a tile's bytes (0 and
-    0 on the other path) (PolyGaussian only; the launch fails if the kernel
-    lays the block out otherwise)."""
+    """The launch's double arguments (``csrc/nuts_kernels.cuh::make_args``
+    and ``csrc/nuts_poly.cuh::launch_poly``): max_change, logw, the
+    density's first two scalars, target, gamma, k, t_0, the density's other
+    scalars from index 8, and after them the plan's features staged, bytes,
+    stacks in shared memory, path (1: the streamed tiles), features a tile
+    and a tile's bytes (0 and 0 on the other path) (PolyGaussian only; the
+    launch fails if the kernel lays the block out otherwise: where the
+    Hessians live is in the bytes)."""
     target, gamma, k_exp, t_0 = adapt[:4]
     extra = [float(v) for v in dscal[2:]]
     if plan is not None:
@@ -740,9 +749,10 @@ def kernel_refusal(density, dim, dtype=None):
     ``dim`` in ``dtype`` (default: the configured one) (a string), or
     None when they can: a kernel spec (a compiled-in density, the
     compiled-in PolyModel -> Gaussian plan, or a logp or a ``Density``
-    plan that traces into the kernels' op set; a ``Density`` names its
-    own limit of D <= 64 here) and ``dim`` <= ``_MAX_D``, as a lane holds
-    at most eight dimensions; and for the compiled-in banana, its A and
+    plan that traces into the kernels' op set) and ``dim`` <= ``_MAX_D``
+    for every kind of density, as a lane holds at most eight dimensions
+    (a ``Density`` past it says so in its own words, as its plan has no
+    spec there); and for the compiled-in banana, its A and
     A^T within a block's shared memory (D <= 160 in float32, 96 in
     float64). The plain versions could run either way; the routing
     (``ChainDriver.uses_kernels``) asks this first."""
@@ -785,17 +795,41 @@ def wide_unit_source(dens_id, dim, dtype):
         raise ValueError(f'no unit of density {dens_id} at D = {dim}: the '
                          f'compiled-in banana, gaussian, funnel, ring and '
                          f'cauchy at D {_LIB_D + 1}..{_MAX_D}.')
+    return _unit_source(f'The compiled-in {_UNIT_DENSITIES[dens_id]} '
+                        f'density', 'nuts_densities.cuh', 'launch_unit',
+                        'wide_unit_source', dim, dtype, str(dens_id))
+
+
+@functools.lru_cache(maxsize=None)
+def poly_unit_source(dim, dtype, stream):
+    """The translation unit of the PolyGaussian surrogate at D = ``dim``
+    (65..256) in ``dtype`` on the streamed path or not (``stream``, the
+    plan's): the three kernels at lane width NE = ceil(D / 32)
+    (``csrc/nuts_poly.cuh::launch_poly_unit``), built and called as
+    ``wide_unit_source``'s are. ``ValueError`` for another D."""
+    if not _LIB_D < int(dim) <= _MAX_D:
+        raise ValueError(f'no PolyGaussian unit at D = {dim}: D '
+                         f'{_LIB_D + 1}..{_MAX_D} (csrc/nuts.cu holds D <= '
+                         f'{_LIB_D}).')
+    return _unit_source('The PolyGaussian surrogate', 'nuts_poly.cuh',
+                        'launch_poly_unit', 'poly_unit_source', dim, dtype,
+                        'true' if stream else 'false')
+
+
+def _unit_source(what, header, launch, writer, dim, dtype, arg):
+    """A unit exporting ``nuts_traced_launch`` (the entry point of a traced
+    unit, ``ops/codegen.py``) as ``launch<real, NE, arg>`` of ``header``."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f'unsupported dtype {dtype}.')
     ne = -(-int(dim) // 32)
     real = 'double' if dtype == torch.float64 else 'float'
-    return f'''// The compiled-in {_UNIT_DENSITIES[dens_id]} density of the CUDA NUTS kernels
-// at NE = {ne} (D {32 * ne - 31}..{32 * ne}), {real}: launch_unit of
-// csrc/nuts_densities.cuh.
-// Written by bayesfast_tpu_torch/samplers/nuts_cuda.py::wide_unit_source;
+    return f'''// {what} of the CUDA NUTS kernels at NE = {ne}
+// (D {32 * ne - 31}..{32 * ne}), {real}: {launch} of
+// csrc/{header}.
+// Written by bayesfast_tpu_torch/samplers/nuts_cuda.py::{writer};
 // built and loaded by bayesfast_tpu_torch/_build.py.
 
-#include "nuts_densities.cuh"
+#include "{header}"
 
 extern "C" int nuts_traced_launch(int kind, int f64, int C, int D, int K,
                                   int maxdepth, unsigned seed, unsigned i0,
@@ -803,7 +837,7 @@ extern "C" int nuts_traced_launch(int kind, int f64, int C, int D, int K,
                                   int adapt_metric, const double* fargs,
                                   void* const* ptrs, int n_ptrs,
                                   void* stream) {{
-  return (int)launch_unit<{real}, {ne}, {dens_id}>(
+  return (int){launch}<{real}, {ne}, {arg}>(
       kind, f64, C, D, K, maxdepth, seed, i0, chain_start, adapt_step,
       adapt_metric, fargs, ptrs, n_ptrs, stream);
 }}
@@ -908,18 +942,20 @@ def _launch(kind, seed, i0, chain_start, q0, n_steps, max_treedepth,
             'count', 'var', 'fg_mean', 'fg_raw', 'fg_w', 'bg_mean',
             'bg_raw', 'bg_w'))]
         rows.update(fin)
+    plan = _spec_plan(dens_id, dscal, D, max_treedepth, q0.element_size())
     # a traced density's unit, or a compiled-in one's past nuts.cu's D
     traced = dens_id == DENSITY_IDS['traced']
     unit = traced or D > _LIB_D
     if traced:
         lib = load_traced(_spec_entry(density, q0)[2]['program'].source(dt))
+    elif unit and plan is not None:
+        lib = load_traced(poly_unit_source(D, dt, plan.get('stream', False)))
     elif unit:
         lib = load_traced(wide_unit_source(dens_id, D, dt))
     else:
         lib = load_library('nuts')
     adapt = adapt or (0., 0., 0., 0., False, False)
     adapt_step, adapt_metric = adapt[4:]
-    plan = _spec_plan(dens_id, dscal, D, max_treedepth, q0.element_size())
     if plan is not None and plan.get('stream'):
         ptrs[4] = _stream_params(density, q0, plan)
     fargs = (ctypes.c_double * (8 + _N_EXTRA))(

@@ -8,7 +8,7 @@ card, drives the port's paths and checks what comes out:
   rotated banana with 1024 chains, float32, through warmup and post-warmup
   chunks on the two NUTS chunk kernels ([3]);
 * evidence: ``bayesfast_tpu_torch.evidence.GBS`` on that run's post-warmup
-  draws under ten generator seeds (the SIT flow fit runs its KDE sums on
+  draws under six generator seeds (the SIT flow fit runs its KDE sums on
   the KDE-cdf kernel), held against the banana's exact logz ([6]);
 * pooled-metric sampling: the same configuration with
   ``pooled_metric=True``, every warmup transition one launch of the NUTS
@@ -110,6 +110,23 @@ card, drives the port's paths and checks what comes out:
   copied twice (a variant of its float32 unit), timed at 1024 chains and
   on one block beside the unit as built: what the copies cost. Their
   seven units are built in [2] beside the others.
+* a ``Density`` plan past D = 64 ([17]; ``bayesfast_tpu_torch/examples/
+  wide_recipe.py``): the DES-like Recipe at D = 100 (9 parameters with a
+  quadratic response, 91 linear, 457 outputs, 1024 chains, float32)
+  through ``Recipe.run`` under ``nuts_kernel='cuda'``: every SampleStep on
+  the chunk kernels with the compiled-in ``PolyGaussian`` at NE = 4 (a
+  unit of its own, its Hessians read from device memory, its coefficients
+  streamed through shared tiles), the last one's warmup pooled, one block
+  launch a transition; n_call, the walls of each phase and part, the
+  kernels' device s by kind, each launch's shared-memory plan; 0 tree-loop
+  transitions, block launches in the pooled step and every IS-weighted
+  mean within 1 analytic sigma gated. Then [17a]: the frozen chunk, warmup
+  chunk and block launch bitwise against their plain versions in float32
+  and float64 with ``PolyGaussian`` at NE = 4 (on [17]'s last state) and
+  NE = 8 (a D = 250 surrogate on a seeded state), and with MVN-250 written
+  as a traced ``Density`` plan (on [16c]'s state), each timed at 1024
+  chains with its slowest chain, bound, registers and spills. The four
+  ``PolyGaussian`` units build beside [3]-[9] and are loaded in [2c].
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
@@ -189,7 +206,7 @@ TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 200, 150, 0.
 # GBS as benchmarks/suite.py:197 runs it, and the banana's exact logz
 # (benchmarks/results.jsonl, "fiducial")
 F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
-GBS_SEEDS = 10     # [6]'s generator seeds
+GBS_SEEDS = 6      # [6]'s generator seeds (10 until [17] came)
 KDE_M = 512        # queries per column in the KDE kernel-vs-plain checks
 KDE_F32_TOL = 2e-6  # the float32 kernel against the float64 plain version
 # [10]: the DES-like Recipe (examples/des_like_pipeline.py) at full width
@@ -250,6 +267,18 @@ MVN_WARMUP, MVN_POST, MVN_POOLED_WARMUP, MVN_POOLED_POST = 200, 100, 100, 20
 # chunk (its plain version runs a 256 x 256 matvec per leaf and chain) and
 # of every float64 check
 WIDE_K, MVN_CMP_CHAINS, WIDE_F64_CHAINS = 2, 64, 64
+# [17]: the DES-like Recipe at D = 100 (bayesfast_tpu_torch/examples/
+# wide_recipe.py: 457 outputs, 1024 chains, float32, its own iterations)
+# under 'cuda', its generator seed; [17a]: the PolyGaussian units at NE = 4
+# (D = 100) and NE = 8 (D = 250), float32 and float64, built in [2]; the
+# chains of their bitwise checks and of the MVN plan's, and the trees'
+# depth limit of the checks at D = 250 (a leaf of the plain version is
+# some 4 D + F torch calls, and a launch lasts as long as its deepest
+# tree; the kernels are timed at depth 10), the D = 250 surrogate's fit
+# points
+WIDE_RECIPE_SEED, WIDE_POLY_DIMS = 27, (100, 250)
+WIDE_POLY_CHAINS, WIDE_NE8_CHAINS, MVN_PLAN_CHAINS = 64, 32, 16
+WIDE_CHECK_DEPTH, WIDE_POLY_FIT = 6, 600
 # --ab: MVN-250's saved state, from a per-chain sample() at 1024 chains,
 # float32, seed 32 of this many warmup + post iterations (the first process)
 MVN_AB_WARMUP, MVN_AB_POST = 100, 10
@@ -1632,13 +1661,15 @@ def _poly_leapfrog_ops(dim, spec):
 
 
 def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
-                     block=False, warmup=True, k=K_CMP):
+                     block=False, warmup=True, k=K_CMP, depth=MAX_TREEDEPTH):
     """Both chunk kernels (the frozen one alone without ``warmup``; with
     ``block`` one block launch too) with the density ``den`` (``name`` in
     the printed lines) against their plain versions at K = 4 (``k``) on a
     path's final state cast to ``dtype``: [10b]'s PolyGaussian, [12]'s
-    anchors, [14]'s traced densities, [16]'s wide ones. Returns the max abs errors and the plain
-    versions' ms (each the one call compared), keyed by kernel + suffix."""
+    anchors, [14]'s traced densities, [16]'s and [17a]'s wide ones (at
+    ``depth``, the trees' depth limit). Returns the max abs errors and the
+    plain versions' ms (each the one call compared), keyed by kernel +
+    suffix."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
     from bayesfast_tpu_torch.samplers.step_size import init_step_size
@@ -1651,11 +1682,10 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
     tag = label + str(dtype).replace('torch.', '')
     metric = init_diag_metric(q, var)
     errs, plain_ms = {}, {}
-    ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, k,
-                                          MAX_TREEDEPTH, MAX_CHANGE,
-                                          density=den, i0=i0))
+    ker = _as_dict(*nc.nuts_chunk_batched(seed, q, metric, eps, k, depth,
+                                          MAX_CHANGE, density=den, i0=i0))
     ms, o = _plain_once(torch, lambda: nc.nuts_chunk_plain(
-        seed, q, var, eps, k, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg, i0))
+        seed, q, var, eps, k, depth, MAX_CHANGE, plain_lpg, i0))
     ref = _as_dict(o['q'], o['q_final'], nc._chunk_stats(o, dtype))
     print(f'  {name} frozen {tag}: mean tree depth '
           f'{ref["tree_depth"].float().mean().item():.3f}, divergent '
@@ -1666,8 +1696,8 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
     if warmup:
         wsched, _ = nc._window_schedule(4, 0, 5, k, 1, True)
         step = init_step_size(eps)
-        args = (k, MAX_TREEDEPTH, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True,
-                True, wsched)
+        args = (k, depth, MAX_CHANGE, 0.8, 0.05, 0.75, 10., True, True,
+                wsched)
         ker = nc.nuts_warmup_chunk_batched(seed, q, step, metric, *args,
                                            density=den, i0=i0)
         steps, mets = nc._warmup_leaves(q, step, metric)
@@ -1683,9 +1713,9 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
             return d
 
         ker = rows(*nc.nuts_transition_batched(
-            seed, q, metric, eps, MAX_TREEDEPTH, MAX_CHANGE, density=den))
+            seed, q, metric, eps, depth, MAX_CHANGE, density=den))
         ms, o = _plain_once(torch, lambda: nc.nuts_block_plain(
-            seed, q, var, eps, MAX_TREEDEPTH, MAX_CHANGE, plain_lpg))
+            seed, q, var, eps, depth, MAX_CHANGE, plain_lpg))
         errs['nuts_block' + suffix] = _compare(
             f'nuts_block {name} {tag}', ker,
             rows(o['q'], nc._chunk_stats(o, dtype)), C)
@@ -1722,8 +1752,9 @@ def _cubic_kernels(torch, bt, rec):
     PolyGaussian density (F = 238 features, M = 457 outputs) against their
     plain versions at C = DES_CHAINS, K = 4, on [13]'s last sample step's
     state, float64 and float32, without and with the surrogate's own input
-    scales; each dtype's shared-memory plan printed; the unscaled density's
-    K = 4 chunks and one block launch timed in both dtypes, and its chunks
+    scales (on its first TRACED_CHAINS chains); each dtype's shared-memory
+    plan printed; the unscaled density's K = 4 chunks and one block launch
+    timed in both dtypes, and its chunks
     under the other tile widths (``_stream_plans``). Returns (max abs
     errors by kernel, {dtype: times by kernel + '_cubic'})."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -1751,8 +1782,11 @@ def _cubic_kernels(torch, bt, rec):
                                  c.q.element_size())
             print(f'  plan {str(dt)[6:]}: '
                   f'{_plan_text(plan, dscal, c.q.element_size())}')
+            # the scaled density on the first TRACED_CHAINS chains: it is
+            # held, not timed
             e, plain_ms = _chunks_vs_plain(
-                torch, den, c, dt, 'cubic PolyGaussian', '_cubic',
+                torch, den, _first_chains(c, TRACED_CHAINS) if scaled else c,
+                dt, 'cubic PolyGaussian', '_cubic',
                 label='scaled ' if scaled else '', block=True)
             for k, v in e.items():
                 errs[k] = max(errs.get(k, 0.0), v)
@@ -2420,8 +2454,8 @@ def _wide(torch, bt, dens, srcs, ptxas, builds, smi):
     column tiles, an odd count) bitwise at 64 chains; the MVN's frozen and
     warmup chunks with its tiles copied twice (``srcs[COPIES_TWICE]``)
     against its unit as built, at 1024 chains and on one block, bitwise.
-    Returns {kernel row: (launches, max abs error, (ms, plain ms, bound
-    ms, bound by))}."""
+    Returns ({kernel row: (launches, max abs error, (ms, plain ms, bound
+    ms, bound by))}, the MVN's per-chain run's final carry)."""
     from bayesfast_tpu_torch import config
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
     from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
@@ -2514,7 +2548,7 @@ def _wide(torch, bt, dens, srcs, ptxas, builds, smi):
             rows[k] = (launches.get(kind, 0), errs[k], times[k])
 
     _stream_checks(torch, dens, srcs, tm.trace._carry, ptxas, builds)
-    return rows
+    return rows, tm.trace._carry
 
 
 def _stream_checks(torch, dens, srcs, carry, ptxas, builds):
@@ -2580,9 +2614,11 @@ def _stream_checks(torch, dens, srcs, carry, ptxas, builds):
 def _ptxas_sweep(torch):
     """Registers and spills of the three kernels past D = 64 at every lane
     width NE = 3..8, float32 and float64: the compiled-in Gaussian's unit
-    (the transition with the lightest density) and a traced -0.5 x'Px at
+    (the transition with the lightest density), a traced -0.5 x'Px at
     D = 32 NE (P a Wishart(D, I) draw: staged in shared memory while it
-    fits, else streamed through shared tiles), all built in parallel.
+    fits, else streamed through shared tiles) and the PolyGaussian unit of
+    the wide Recipe's surrogate at D = 32 NE on its plan's path
+    (``_wide_poly_sources``), all built in parallel.
     Prints each kernel's registers, stack frame and spill bytes and each
     build's nvcc seconds."""
     from scipy.stats import wishart
@@ -2609,6 +2645,11 @@ def _ptxas_sweep(torch):
             staged = [m[7] for m in _Layout(prog, dt.itemsize).mats]
             srcs[f'traced x\'Px NE={ne} {tag} staged {staged}'] = \
                 prog.source(dt)
+            plan = nc.poly_smem_plan(D, *_wide_poly_shape(D), False,
+                                     MAX_TREEDEPTH, dt.itemsize)
+            stream = plan.get('stream', False)
+            srcs[f'PolyGaussian NE={ne} {tag} streamed {stream}'] = \
+                nc.poly_unit_source(D, dt, stream)
     _build.build_library([], sources=list(srcs.values()))
     for label, src in srcs.items():
         stem = os.path.basename(_build.traced_path(src))[6:-3]
@@ -2707,6 +2748,311 @@ def _mvn_timed(torch, carry):
                for k, v in {**outs, 'nuts_block': block}.items()}
     table = _ptxas_table(_build.build_log(source=prog.source(torch.float32)))
     return chains, digests, table, _traced_l2_bytes(prog, 4)
+
+
+def _wide_poly_shape(dim):
+    """(M, F, NNZ) of the wide Recipe's sample-step surrogate at ``dim``
+    parameters (``examples/wide_recipe.py``): dim + 1 linear features and
+    n (n + 1) / 2 quadratic ones on the n nonlinear parameters; a
+    sparse-row entry a linear feature and two a quadratic one."""
+    from bayesfast_tpu_torch.examples import wide_recipe as wr
+    n = len(wr.NONLINEAR)
+    return wr.N_DATA, dim + 1 + n * (n + 1) // 2, dim + n * (n + 1)
+
+
+def _wide_poly_sources(torch):
+    """[2] The PolyGaussian units of [17] and [17a]: NE = 4 (D = 100) and
+    NE = 8 (D = 250), float32 and float64, each on the path its plan
+    takes (``poly_smem_plan``: the streamed tiles where two fit). Returns
+    {'poly D=.. dtype': source}."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    srcs = {}
+    for dim in WIDE_POLY_DIMS:
+        for dt in ('float32', 'float64'):
+            dtype = getattr(torch, dt)
+            plan = nc.poly_smem_plan(dim, *_wide_poly_shape(dim), False,
+                                     MAX_TREEDEPTH, dtype.itemsize)
+            srcs[f'poly D={dim} {dt}'] = nc.poly_unit_source(
+                dim, dtype, plan.get('stream', False))
+    return srcs
+
+
+class _Background:
+    """``fn()`` in a thread of its own, started at once; ``join()`` waits
+    for it and returns its result, or raises its exception."""
+
+    def __init__(self, fn):
+        import threading
+        self._out = self._exc = None
+
+        def run():
+            try:
+                self._out = fn()
+            except BaseException as exc:  # raised again in join()
+                self._exc = exc
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+        return self._out
+
+
+def _build_walls(srcs):
+    """Build the generated units ``srcs`` ({label: source}) together;
+    returns each nvcc's wall by stem, and the build's as 'total'."""
+    from bayesfast_tpu_torch import _build
+    _build.build_library([], sources=list(srcs.values()))
+    return dict(_build.last_build_walls, total=_build.last_build_seconds)
+
+
+def _poly_units(walls, srcs, ptxas, builds):
+    """[2c] The PolyGaussian units of [17] (``_wide_poly_sources``), built
+    in the background since [2] (``walls``: each nvcc's wall and the
+    build's, from its start): loads them, records each one's nvcc wall in
+    ``builds`` and its kernels' registers and spills in ``ptxas``."""
+    from bayesfast_tpu_torch import _build
+    print(f'[2c] PolyGaussian units past D = 64, built beside [3]-[9] in '
+          f'{walls.pop("total"):.1f} s')
+    for label, src in srcs.items():
+        stem = os.path.basename(_build.traced_path(src))[6:-3]
+        w = walls.get(stem)
+        builds[label] = 'reused, not built' if w is None else f'{w:.1f} s'
+        print(f'    {label}: {stem}, nvcc {builds[label]}')
+        _build.load_traced(src)
+    ptxas.update(_unit_registers(srcs, '[2c]'))
+
+
+def _wide_recipe(torch, bt, smi):
+    """[17] The DES-like Recipe at D = 100 (``examples/wide_recipe.py``:
+    457 outputs, 1024 chains, float32) through ``Recipe.run()`` under
+    ``nuts_kernel='cuda'`` (``_run_recipe``): every SampleStep on the chunk
+    kernels with the compiled-in PolyGaussian at NE = 4 (its unit built in
+    [2]), the last one's warmup pooled, one block launch a transition.
+    Prints n_call, the walls of each phase and part, each sample() call's
+    launches, tree-loop transitions and metric, the kernels' device s by
+    kind and K, each distinct launch plan with its launches, and the
+    IS-weighted means in analytic sigma. Gates: 0 tree-loop transitions;
+    the per-chain calls' warmup on the warmup chunk kernel and no block
+    launch; the pooled call's block launches > 0, no warmup chunk and a
+    (D,) metric; no unit built during the run; every IS-weighted mean
+    finite and within 1 sigma of the truth. Returns (the Recipe, the run's
+    launch counts)."""
+    from bayesfast_tpu_torch import config
+    from bayesfast_tpu_torch.examples import wide_recipe as wr
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    config.set_dtype(torch.float32)
+    config.set_nuts_kernel('cuda')
+    bt.utils.set_generator(WIDE_RECIPE_SEED)
+    rec = wr.build()
+    sigma = wr.analytic_sigma()
+    plans, plan_fn = {}, nc._spec_plan
+
+    def recorded(dens_id, dscal, dim, depth, itemsize):
+        # each launch's plan (``_launch`` asks for it once a launch)
+        plan = plan_fn(dens_id, dscal, dim, depth, itemsize)
+        if plan is not None:
+            key = (dim, itemsize, _plan_text(plan, dscal, itemsize))
+            plans[key] = plans.get(key, 0) + 1
+        return plan
+
+    def per_call(out):
+        st = out.trace._stats_arrays
+        n_w = out.trace.n_warmup
+        return (float(st['tree_depth'][:, n_w:].mean()),
+                float(st['mean_tree_accept'][:, n_w:].mean()),
+                tuple(out.trace._carry.metric.var.shape))
+
+    nc._spec_plan = recorded
+    try:
+        run = _run_recipe(torch, rec, per_call)
+    finally:
+        nc._spec_plan = plan_fn
+    phases, parts, calls = run['phases'], run['parts'], run['calls']
+    res = rec.get()
+    w = res.weights_trunc
+    mean = np.sum(res.samples * w[:, None], axis=0) / np.sum(w)
+    z = np.abs(mean - wr.TRUTH) / sigma
+    print(f'[17] wide DES-like Recipe (examples/wide_recipe.py): D={wr.D}, '
+          f'N_DATA={wr.N_DATA}, {wr.N_CHAIN} chains, float32, '
+          f'nuts_kernel=cuda, Recipe.run() {run["run_s"]:.2f} s: '
+          + ', '.join(f'{k} {v:.2f} s' for k, v in phases.items()))
+    print('    parts (s): ' + ', '.join(f'{k} {v:.3f}'
+                                        for k, v in parts.items()))
+    for i, (dt, ln, nt, _, depth, acc, shape) in enumerate(calls):
+        step = 'optimize' if i == 0 else f'sample #{i - 1}'
+        print(f'    {step}: sample() {dt:.2f} s, launches '
+              f'{ {k: v for k, v in ln.items() if v} }, tree-loop '
+              f'transitions {nt}, metric variance {shape}; post-warmup tree '
+              f'depth {depth:.3f}, accept {acc:.3f}')
+    print('    launches (kind, K: launches, device s, ms a transition): '
+          + _mix_text(run['mix']))
+    for (dim, isz, text), n in plans.items():
+        print(f'    plan D={dim} float{8 * isz}, {n} launches: {text}')
+    print(f'    n_call {res.n_call}; tree-loop transitions {run["n_tree"]}; '
+          f'units built during the run: {sorted(run["built"]) or "none"}')
+    print(f'    IS-weighted posterior means - {wr.TRUTH}, in analytic sigma:'
+          f' max {z.max():.3f} (gate 1), mean {z.mean():.3f}; sigma '
+          f'{sigma.min():.4f}-{sigma.max():.4f}; {smi}')
+    x_q = rec.recipe_trace.results.sample[-1].samples
+    z_q = np.abs(x_q.mean(0) - wr.TRUTH) / sigma
+    ess = np.sum(res.weights) ** 2 / np.sum(res.weights ** 2)
+    print(f'    the last step\'s {x_q.shape[0]} draws, unweighted: max '
+          f'{z_q.max():.3f} sigma, mean {z_q.mean():.3f}; IS weights: ESS '
+          f'{ess:.1f} of {res.weights.size}, max / mean '
+          f'{res.weights.max() / res.weights.mean():.3f}, '
+          f'{int(np.sum(res.weights_trunc < res.weights))} truncated')
+    per_chain_ok = all(ln['nuts_warmup'] > 0 and ln['nuts_multi'] > 0
+                       and ln['nuts_block'] == 0 for _, ln, *_ in calls[:-1])
+    pooled = calls[-1][1] if calls else {}
+    if not (len(calls) == 3 and per_chain_ok and run['n_tree'] == 0
+            and all(c[2] == 0 for c in calls)
+            and pooled['nuts_block'] > 0 and pooled['nuts_multi'] > 0
+            and pooled['nuts_warmup'] == 0 and calls[-1][-1] == (wr.D,)):
+        raise AssertionError('[17]: a sample step did not run on the kernels '
+                             'as its trace asks (per chain: the chunk '
+                             'kernels; pooled: the block kernel, then the '
+                             'frozen chunks)')
+    if run['built']:
+        raise AssertionError(f'[17]: the run built {run["built"]}')
+    if not (np.isfinite(mean).all() and z.max() < 1.0):
+        raise AssertionError(f'[17]: posterior means off: {z.max()} sigma')
+    return rec, run['launches']
+
+
+def _poly_250(torch, bt, n_chain, seed):
+    """[17a] A PolyGaussian density at D = 250 (NE = 8): the wide Recipe's
+    Density and sample-step surrogate at 250 parameters (F = 296), fitted
+    on WIDE_POLY_FIT points around the truth spread by the analytic
+    sigma, the surrogate on; and a seeded float32 state of ``n_chain``
+    chains within half a sigma of the truth: the metric the posterior's
+    variances in the sampling space (the bound transform's slope at the
+    truth), steps of about 0.45 (trees of depth ~4). Returns (density,
+    carry)."""
+    from types import SimpleNamespace as NS
+    from bayesfast_tpu_torch.examples import wide_recipe as wr
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    from bayesfast_tpu_torch.samplers.step_size import init_step_size
+    dim = WIDE_POLY_DIMS[1]
+    forward, data, _ = wr.make_model(dim)
+    den = wr.make_density(forward, data, dim)
+    den.surrogate_list = [wr.make_surrogate(dim)]
+    sigma = wr.analytic_sigma(dim)
+    rng = np.random.default_rng(17)
+    x = wr.TRUTH + rng.normal(size=(WIDE_POLY_FIT, dim)) * sigma
+    den.fit(den.fun(x, original_space=True, use_surrogate=False))
+    den.use_surrogate = True
+    rng = np.random.default_rng(seed)
+    dev, f32 = torch.device('cuda'), torch.float32
+    xo = wr.TRUTH + rng.normal(size=(n_chain, dim)) * sigma * 0.5
+    q = torch.as_tensor(den.from_original(xo), dtype=f32, device=dev)
+    u = (wr.TRUTH + 5.0) / 10.0     # x = -5 + 10 s(t): dx/dt = 10 u (1 - u)
+    var = torch.as_tensor(np.tile((sigma / (10 * u * (1 - u))) ** 2,
+                                  (n_chain, 1)), dtype=f32, device=dev)
+    eps = torch.as_tensor(np.exp(rng.normal(size=n_chain) * 0.2) * 0.45,
+                          dtype=f32, device=dev)
+    return den, NS(q=q.contiguous(), metric=init_diag_metric(q, var),
+                   step=init_step_size(eps, f32, dev))
+
+
+def _mvn_plan(torch, bt):
+    """[17a] Hoffman & Gelman's MVN-250 written as a Density plan: its
+    logp the one module of the plan, traced (``Density._program``)."""
+    from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250
+    P = torch.as_tensor(mvn_250()[1]['P'])
+    return bt.Density(density_name='logp', module_list=[bt.Module(
+        fun=lambda x: -0.5 * torch.sum((x @ P.to(x)) * x, dim=-1),
+        input_vars='x', output_vars='logp')], input_vars='x',
+        input_shapes=[250])
+
+
+def _wide_plan_kernels(torch, bt, rec, launches, mvn_carry, ptxas, builds,
+                       smi):
+    """[17a] Each new instantiation's frozen chunk, warmup chunk (K =
+    WIDE_K) and block launch against its plain version, bitwise, float32
+    and float64: PolyGaussian at NE = 4 on [17]'s last state
+    (WIDE_POLY_CHAINS chains), at NE = 8 on a seeded state of a D = 250
+    surrogate (``_poly_250``, WIDE_NE8_CHAINS), and MVN-250 as a traced
+    Density plan at NE = 8 on [16c]'s final state (MVN_PLAN_CHAINS), these
+    two at depth WIDE_CHECK_DEPTH; each
+    one's plan, registers and spills; then each timed at 1024 chains in
+    float32, device only, with its slowest chain and bound. Returns
+    {kernel row: (launches on [17]'s path, max abs error, (ms, plain ms,
+    bound ms, bound by))}."""
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    carry_r = rec.recipe_trace.results.sample[-1].sample_trace.trace._carry
+    den_8, carry_8 = _poly_250(torch, bt, WIDE_CHAINS, 18)
+    small_8 = _poly_250(torch, bt, WIDE_NE8_CHAINS, 19)[1]
+    den_m = _mvn_plan(torch, bt)
+    prog = den_m.kernel_spec()['program']
+    cases = (('wide_recipe', 'PolyGaussian NE=4', rec.density, carry_r,
+              _first_chains(carry_r, WIDE_POLY_CHAINS), launches),
+             ('poly_ne8', 'PolyGaussian NE=8', den_8, carry_8, small_8, {}),
+             ('wide_plan', 'MVN-250 Density plan', den_m, mvn_carry,
+              _first_chains(mvn_carry, MVN_PLAN_CHAINS), {}))
+    rows = {}
+    for key, name, den, carry, small, ln in cases:
+        dim = carry.q.shape[1]
+        depth = MAX_TREEDEPTH if key == 'wide_recipe' else WIDE_CHECK_DEPTH
+        if key == 'wide_plan':
+            ops = _traced_leapfrog_ops(prog)
+            print(f'[17a] {name}: {len(prog.nodes)} nodes '
+                  f'({prog.describe()}), the source of [16]\'s MVN unit: '
+                  f'{prog.source(torch.float32) == _mvn_source(torch)}')
+        else:
+            spec = nc._spec_entry(den, carry.q)[2]
+            ops = _poly_leapfrog_ops(dim, spec)
+            print(f'[17a] {name}: D={dim}, M={int(spec["scalars"][2])}, '
+                  f'F={int(spec["scalars"][3])}, NNZ='
+                  f'{int(spec["scalars"][4])}; {ops} operations a leapfrog '
+                  f'(_poly_leapfrog_ops)')
+        errs, plain32 = {}, {}
+        for dt in (torch.float32, torch.float64):
+            tag = str(dt)[6:]
+            n_c = small.q.shape[0]
+            if key == 'wide_plan':
+                plan, label = _tile_plan(prog, dt.itemsize), f'mvn_250 {tag}'
+            else:
+                dens_id, _, _, _, dscal = nc._spec_for(den, small.q.to(dt))
+                plan = _plan_text(nc._spec_plan(
+                    dens_id, dscal, dim, MAX_TREEDEPTH, dt.itemsize), dscal,
+                    dt.itemsize)
+                label = f'poly D={dim} {tag}'
+            print(f'[17a] {name} {tag}: plan: {plan}; kernels '
+                  f'{_ptxas_text(ptxas, label)}; built in {builds[label]}')
+            print(f'[17a] {name} kernels vs plain, C={n_c}, K={WIDE_K}, '
+                  f'depth {depth}, {tag}')
+            e, plain_ms = _chunks_vs_plain(torch, den, small, dt, name,
+                                           f'_{key}', block=True, k=WIDE_K,
+                                           depth=depth)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            if dt == torch.float32:
+                plain32 = plain_ms
+        C = carry.q.shape[0]
+        times = _time_chunks(torch, den, carry, plain32, ops, f'_{key}',
+                             k=WIDE_K, timer=_device_ms)[0]
+        metric = init_diag_metric(carry.q,
+                                  nc._mat(carry.metric.var, C, dim, carry.q))
+        times[f'nuts_block_{key}'] = _time_block(
+            torch, den, carry.q, metric, torch.exp(carry.step.log_bar),
+            plain32[f'nuts_block_{key}'], ops, tag=f'  nuts_block_{key}',
+            timer=_device_ms)[0]
+        print(f'  {name}: timed at C={C} float32, plain ms at '
+              f'C={small.q.shape[0]}; {smi}')
+        for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
+            k = f'{kind}_{key}'
+            rows[k] = (ln.get(kind, 0), errs[k], times[k])
+    return rows
+
+
+def _mvn_source(torch):
+    """The float32 source of [16]'s MVN-250 unit (the DensityLite's)."""
+    from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250
+    return mvn_250()[0].kernel_spec()['program'].source(torch.float32)
 
 
 def _wall(walls, tag, t0):
@@ -3194,6 +3540,10 @@ def main():
         _build.load_traced(src)
     ptxas = _check_registers(traced_srcs)
     ptxas.update(_unit_registers(wide_srcs))
+    # [17]'s PolyGaussian units build beside [3]-[9], whose host-bound
+    # phases leave the cores to nvcc
+    poly_srcs = _wide_poly_sources(torch)
+    poly_build = _Background(lambda: _build_walls(poly_srcs))
     t_phase = _wall(walls, '[2]', t_phase)
 
     # ---- [3] the sampling path at bench.py's configuration (the port's
@@ -3273,6 +3623,10 @@ def main():
     # ---- [9] the full metric on the torch tree loop ----
     _tree_loop(torch, bt)
     t_phase = _wall(walls, '[9]', t_phase)
+
+    # ---- [2c] the PolyGaussian units past D = 64, built since [2] ----
+    _poly_units(poly_build.join(), poly_srcs, ptxas, builds)
+    t_phase = _wall(walls, '[2c]', t_phase)
 
     # ---- [10] the DES-like Recipe at full width, every sample step on the
     # chunk kernels with the compiled-in PolyGaussian density ----
@@ -3365,8 +3719,20 @@ def main():
     # ---- [16] past D = 64: Neal-100 compiled in (NE = 4) and MVN-250
     # traced (NE = 8) through sample() under 'auto', the MVN also pooled;
     # the new instantiations bitwise against their plain versions ----
-    wide_rows = _wide(torch, bt, wide_dens, wide_srcs, ptxas, builds, smi)
+    wide_rows, mvn_carry = _wide(torch, bt, wide_dens, wide_srcs, ptxas,
+                                 builds, smi)
     t_phase = _wall(walls, '[16]', t_phase)
+
+    # ---- [17] a Density plan past D = 64: the DES-like Recipe at D = 100
+    # under 'cuda', every SampleStep on the chunk kernels with the
+    # compiled-in PolyGaussian at NE = 4, the last one's warmup pooled on
+    # the block kernel; [17a] the new instantiations bitwise against their
+    # plain versions, and timed ----
+    rec_w, wide_launches = _wide_recipe(torch, bt, smi)
+    t_phase = _wall(walls, '[17]', t_phase)
+    wide_rows.update(_wide_plan_kernels(torch, bt, rec_w, wide_launches,
+                                        mvn_carry, ptxas, builds, smi))
+    t_phase = _wall(walls, '[17a]', t_phase)
 
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',
@@ -3429,15 +3795,20 @@ def main():
                      'launches': n, 'max_abs_err': err, 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': None})
-    # [16]'s instantiations: launches on the two targets' paths (Neal's
-    # per-chain run has no block launch; the MVN's pooled warmup is its
-    # block launches), float32 times at 1024 chains
+    # [16]'s and [17]'s instantiations: launches on the targets' paths
+    # (Neal's per-chain run has no block launch; the MVN's pooled warmup is
+    # its block launches; the wide Recipe's are [17]'s, its pooled step's
+    # warmup its block launches; PolyGaussian at NE = 8 and the traced MVN
+    # plan run on no path: [17a] launches them), float32 times at 1024
+    # chains
+    srcs = {'neal': 'nuts_densities.cuh', 'wide_recipe': 'nuts_poly.cuh',
+            'poly_ne8': 'nuts_poly.cuh'}
     for k, (n, err, (ms, plain_ms, bound_ms, bound_by)) in wide_rows.items():
         line = pallas[next(p for p in pallas if k.startswith(p))]
         rows.append({'name': k, 'route': 'cuda',
-                     'source': 'bayesfast_tpu_torch/csrc/' + (
-                         'nuts_densities.cuh' if k.endswith('neal')
-                         else 'nuts_kernels.cuh'),
+                     'source': 'bayesfast_tpu_torch/csrc/' + next(
+                         (v for t, v in srcs.items() if k.endswith(t)),
+                         'nuts_kernels.cuh'),
                      'replaces': f'bayesfast_tpu/samplers/nuts_pallas.py:'
                                  f'{line}',
                      'launches': n, 'max_abs_err': err, 'ms': ms,

@@ -265,7 +265,13 @@ def test_kernel_spec_key_follows_the_surrogate_scales():
 
 
 def test_no_spec_beyond_64_dimensions():
-    with pytest.raises(NotImplementedError, match='D <= 64'):
-        poly_gaussian_spec(65, [('linear', np.arange(65), np.arange(2),
-                                 np.zeros((2, 66)))], 2, np.zeros(2),
+    # past D = 64 the spec holds up to the kernels' D = 256 (its units at
+    # NE = 3..8, csrc/nuts_poly.cuh), and raises past that
+    spec = poly_gaussian_spec(65, [('linear', np.arange(65), np.arange(2),
+                                    np.zeros((2, 66)))], 2, np.zeros(2),
+                              np.ones(2), 0.0)
+    assert spec['dim'] == 65 and spec['density'] == 'poly_gaussian'
+    with pytest.raises(NotImplementedError, match='D <= 256'):
+        poly_gaussian_spec(257, [('linear', np.arange(257), np.arange(2),
+                                  np.zeros((2, 258)))], 2, np.zeros(2),
                            np.ones(2), 0.0)

@@ -16,8 +16,8 @@ streams its matrices from device memory) and their routing, on the CPU.
   both sides (what is left is the order of the sums: XLA's dot against
   the warp's order).
 * Routing: ``kernel_refusal`` is None at D = 256 and names the limit at
-  257; a ``Density`` plan (the compiled-in PolyGaussian or a traced one)
-  and the compiled-in banana past its shared memory name their own.
+  257; the compiled-in banana past its shared memory names its own (a
+  ``Density`` plan's: ``tests/test_torch_wide_plan.py``).
 * The generated source of an NE = 8 program whose matrices do not fit a
   block's shared memory streams them from device memory through shared
   tiles (``tests/test_torch_stream.py`` holds the schedule and the loop
@@ -42,7 +42,6 @@ import bayesfast_tpu_torch as bt
 from bayesfast_tpu_torch import config as tconfig
 from bayesfast_tpu_torch.examples.wide_gaussians import mvn_250, neal_100
 from bayesfast_tpu_torch.interop import banana_density
-from bayesfast_tpu_torch.modules import Gaussian, PolyConfig, PolyModel
 from bayesfast_tpu_torch.ops.codegen import (_Layout, check_limits,
                                              launch_params)
 from bayesfast_tpu_torch.ops.densities import DENSITY_IDS
@@ -201,40 +200,6 @@ def test_refusal_names_the_limit_past_256(make):
     assert tnc.kernel_refusal(den, den.input_size) is None
     why = tnc.kernel_refusal(den, 257)
     assert 'D <= 256' in why and '257' in why
-
-
-def _poly_plan(D):
-    """A Density whose plan is a linear PolyModel then a Gaussian at D."""
-    M = 3
-    su = PolyModel([PolyConfig('linear')], input_size=D, output_size=M,
-                   input_vars='x', output_vars='m')
-    su.configs[0]._a = np.random.default_rng(0).normal(
-        size=(M, su.configs[0].n_features))
-    like = Gaussian(mean=np.zeros(M), cov=np.ones(M), input_vars='m',
-                    output_vars='logp')
-    model = bt.Module(fun=lambda x: x[..., :M], input_vars='x',
-                      output_vars='m')
-    return bt.Density(density_name='logp', module_list=[model, like],
-                      surrogate_list=[su], input_vars='x',
-                      input_shapes=[D], use_surrogate=True)
-
-
-def _traced_plan(D):
-    """A Density whose plan is one traced module at D."""
-    return bt.Density(density_name='logp', module_list=[bt.Module(
-        fun=lambda x: -0.5 * torch.sum(x * x, -1), input_vars='x',
-        output_vars='logp')], input_vars='x', input_shapes=[D])
-
-
-@pytest.mark.parametrize('make', [_poly_plan, _traced_plan],
-                         ids=['poly_gaussian', 'traced_plan'])
-def test_a_density_plan_keeps_64(make):
-    """A Density plan takes the kernels at D <= 64 (the compiled-in
-    PolyGaussian and a traced plan alike), and says so past it."""
-    assert tnc.kernel_refusal(make(64), 64) is None
-    den = make(65)
-    why = tnc.kernel_refusal(den, 65)
-    assert 'Density plan' in why and 'D <= 64' in why and '65' in why
 
 
 def test_the_banana_past_its_shared_memory():
