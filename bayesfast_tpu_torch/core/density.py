@@ -125,7 +125,10 @@ class DensityLite(_PipelineBase, _DensityBase):
         ``(..., D)``, written in torch (an ``nn.Module`` from
         ``ops.densities`` gives the CUDA kernels its ``kernel_spec``; any
         other logp is traced into one when its ops are in the kernels' op
-        set, ``ops/trace.py``).
+        set, ``ops/trace.py``). Every host and device evaluation raises
+        ``ValueError`` when it returns another shape than ``(...)``: a
+        logp written for one point (``logp(x) -> scalar``, the JAX
+        package's form, which it vmaps) would sum the batch.
     input_size : int or None
         Dimensionality; used to draw default starting points.
     input_scales, hard_bounds : see ``_PipelineBase``.
@@ -145,14 +148,28 @@ class DensityLite(_PipelineBase, _DensityBase):
         self.hard_bounds = hard_bounds
         self.original_space = original_space
 
+    def _logp_x(self, x):
+        """The user's logp on the batch ``x`` (..., D); ``ValueError`` when
+        it returns another shape than the batch's (...,): a logp written
+        for one point, as the JAX package takes it, sums the batch."""
+        lp = self._logp(x)
+        if tuple(lp.shape) != tuple(x.shape[:-1]):
+            raise ValueError(
+                f'logp returned shape {tuple(lp.shape)} for a batch of '
+                f'shape {tuple(x.shape)}: the port calls logp(x) on a batch '
+                f'(..., D) and takes one value a point, (...,) = '
+                f'{tuple(x.shape[:-1])}; a logp written for one point (the '
+                f'JAX package vmaps those) sums the batch instead.')
+        return lp
+
     def _logp_trans(self, x_t):
         """Batched logp in transformed space, with the log-Jacobian."""
         x_o, logdet = _con.to_original_with_logdet(
             x_t, self._input_scales, self._hard_bounds)
-        return self._logp(x_o) + logdet
+        return self._logp_x(x_o) + logdet
 
     def _logp_b(self, x, original_space):
-        return self._logp(x) if original_space else self._logp_trans(x)
+        return self._logp_x(x) if original_space else self._logp_trans(x)
 
     def _logp_and_grad_b(self, x, original_space):
         with torch.enable_grad():

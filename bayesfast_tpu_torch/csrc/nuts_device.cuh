@@ -199,6 +199,11 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+// this thread's stores to shared memory, ordered before the bulk copies
+// that a barrier later lets overwrite them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // this thread's arrival at `bar`, then its wait until the phase it arrived
 // in completes (every arrival made, every expected byte landed); a wait
 // that does not end is a fault of the caller's schedule, which traps

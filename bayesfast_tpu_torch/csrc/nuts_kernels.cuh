@@ -558,10 +558,10 @@ __device__ __forceinline__ T* stage_block(const Args<T>& a, Dens& dens,
 }
 
 // A density whose evaluations meet the block's other warps at barriers
-// (PolyGaussian's streamed path, a generated density whose matrices stream
-// through shared tiles) keeps a warp in idle ticks after its last
-// evaluation until every warp of the block is done (`drain`); for the
-// others this is nothing.
+// (PolyGaussian's streamed path, PolyBlock past D = 64, a generated density
+// whose matrices stream through shared tiles) keeps a warp in idle ticks
+// after its last evaluation until every warp of the block is done
+// (`drain`); for the others this is nothing.
 template <class Dens>
 __device__ __forceinline__ auto drain(const Dens& d, int)
     -> decltype(d.drain()) {

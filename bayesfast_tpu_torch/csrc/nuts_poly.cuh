@@ -9,6 +9,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "nuts_densities.cuh"
 
 namespace {
@@ -22,6 +24,64 @@ __host__ __device__ constexpr int coef_stride(int R) {
   constexpr int n = 16 / (int)sizeof(T);
   const int v = (R + n - 1) / n;
   return R <= 0 ? 0 : (v % 2 == 0 ? v + 1 : v) * n;
+}
+
+// ---- what both functors share (PolyGaussian at NE <= 2, PolyBlock past) --
+// the integer tables' length: three indices a feature, the sparse rows'
+// pointers, three a sparse-row entry
+template <class Poly>
+__host__ __device__ int poly_n_ints(const Poly& p) {
+  return 3 * p.F + p.D + 1 + 3 * p.NNZ;
+}
+
+// offsets of the packed vector: WT, dat, vinv, fmu, mup, Hp, mud, Hd, lo,
+// diff, P (full precision only), then the integer tables i1, i2, i3,
+// rowptr, cf, c1, c2 (as T values); the tiles
+// (samplers/nuts_cuda.py::_stream_tiles) at the next multiple of 32
+// elements after them
+template <class Poly>
+__host__ void poly_locate(Poly& p) {
+  p.WT = p.par;
+  p.dat = p.WT + (size_t)p.F * p.M;
+  p.vinv = p.dat + p.M;
+  p.fmu = p.vinv + p.M;
+  p.mup = p.fmu + p.M;
+  p.Hp = p.mup + p.D;
+  p.mud = p.Hp + p.D * p.D;
+  p.Hd = p.mud + p.D;
+  p.slo = p.Hd + p.D * p.D;
+  p.sdf = p.slo + p.D;
+  p.Pm = p.sdf + p.D;
+  p.ints = p.Pm + (p.full ? (size_t)p.M * p.M : 0);
+  p.tiles = p.par + (((size_t)(p.ints - p.par) + poly_n_ints(p) + 31) / 32 *
+                     32);
+}
+
+// every thread's part of staging the input scales (lo, then diff; 0 and 1
+// past D) at `sc`, the integer tables at `ip`, WT's first R features at
+// `sw` (transposed, zero-padded to whole vectors), and on the streamed path
+// tiles 0 and 1 in buffers 0 and 1 after them, where every evaluation finds
+// them
+template <typename T, class Poly>
+__device__ void poly_stage(const Poly& p, T* sc, T* ip_, T* sw) {
+  constexpr int P = Poly::P;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    sc[i] = i < p.D ? p.slo[i] : T(0);
+    sc[P + i] = i < p.D ? p.sdf[i] : T(1);
+  }
+  int* const ip = reinterpret_cast<int*>(ip_);
+  for (int i = threadIdx.x; i < poly_n_ints(p); i += blockDim.x)
+    ip[i] = (int)p.ints[i];
+  const int Rp = (p.R + Vec16<T>::n - 1) / Vec16<T>::n * Vec16<T>::n;
+  for (int i = threadIdx.x; i < Rp * p.M; i += blockDim.x) {
+    const int f = i / p.M, j = i - f * p.M;
+    sw[j * p.RS + f] = f < p.R ? p.WT[(size_t)f * p.M + j] : T(0);
+  }
+  if (p.tile_elems() > 0) {
+    T* tb = sw + (size_t)p.M * p.RS;
+    const int n = (p.NT > 1 ? 2 : 1) * p.tile_elems();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) tb[i] = p.tiles[i];
+  }
 }
 
 // The surrogate density of a Recipe (ops/densities.py::poly_gaussian_spec):
@@ -89,24 +149,19 @@ __host__ __device__ constexpr int coef_stride(int R) {
 // its two integer divides made tiles of fewer than 8 vectors a row 2-3x
 // slower. Tiles of 8 / 16 / 32 features take 63.5 / 58.6-59.4 / 56.6 us in
 // f32, 166-169 / 137-138 us for 8 / 16 in f64: fewer tiles, fewer barriers.
-// Beside WT: the two D x D Hessians at NE <= 2 (kHessSmem), staged for
+// Beside WT: the two D x D Hessians, staged for
 // `matvec`, the input scales, each warp's exchange buffers (x, xa, phi
 // with zeros to whole vectors, its gradient, the outputs' gradients; with
 // a full precision also r and m0 - f_mu) and the integer tables. P (M x M,
 // 835 KB in f32 at M = 457) is read from device memory, one row of it for
 // each k, as each lane's outputs sum over k in order.
-// Past D = 64 (NE = 3..8) the Hessians stay in device memory (L2; 40 KB
-// each in f32 at D = 100) and `hess_matvec` reads them in `matvec`'s order
-// of products and sums: staged, they would take 2 P S values (135 KB in
-// f32 at NE = 4, 266 KB in f64), the room WT's tiles need. The plan
-// (samplers/nuts_cuda.py::poly_smem_plan, `hess_smem`) lays the block out
-// the same way, and a launch whose plan's bytes differ fails.
+// This functor is csrc/nuts.cu's, at NE = 1 and 2 (D <= 64); past that the
+// block evaluates its chains together (`PolyBlock`, below).
 template <typename T, int NE, bool STREAM>
 struct PolyGaussian {
+  static_assert(NE <= 2, "PolyBlock evaluates the density past D = 64");
   static constexpr int P = 32 * NE, S = row_stride<T, NE>();
-  // the Hessians staged in shared memory (else read from device memory)
-  static constexpr bool kHessSmem = NE <= 2;
-  static constexpr int kHess = kHessSmem ? 2 * P * S : 0;
+  static constexpr int kHess = 2 * P * S;  // the Hessians, staged
   // outputs a forward pass (8 in f32 at D <= 32, 4 at D > 32; 1 in f64,
   // where two or four spill at D <= 32 and one is the fastest that does
   // not, PERF.md), features a back-pass group (`reduce8`) and the back
@@ -137,7 +192,7 @@ struct PolyGaussian {
   mutable T dec;     // the decay penalty of the last evaluation
 
   __host__ __device__ static int up4(int n) { return (n + 3) & ~3; }
-  __host__ __device__ int n_ints() const { return 3 * F + D + 1 + 3 * NNZ; }
+  __host__ __device__ int n_ints() const { return poly_n_ints(*this); }
   // phi's length: the streamed tiles read features up to R + NT TW
   __host__ __device__ int n_phi() const {
     return up4(STREAM ? R + NT * TW : F);
@@ -149,7 +204,7 @@ struct PolyGaussian {
   __host__ __device__ int int_elems() const {
     return up4((n_ints() * 4 + (int)sizeof(T) - 1) / (int)sizeof(T));
   }
-  // layout: Hp and Hd when kHessSmem, the scales (lo, then diff; 0 and 1
+  // layout: Hp and Hd, the scales (lo, then diff; 0 and 1
   // past D), the warps' buffers, the integer tables, staged WT, and when
   // STREAM the two tile buffers (M rows of TW each)
   __host__ __device__ int coef_offset() const {
@@ -173,8 +228,8 @@ struct PolyGaussian {
     extern __shared__ __align__(16) unsigned char g_smem[];
     T* const sm = reinterpret_cast<T*>(g_smem);
     Bufs b;
-    b.Hp = kHessSmem ? sm : nullptr;
-    b.Hd = kHessSmem ? sm + P * S : nullptr;
+    b.Hp = sm;
+    b.Hd = sm + P * S;
     b.lo = sm + kHess;
     b.dv = b.lo + P;
     b.x = sm + kHess + 2 * P + (threadIdx.x >> 5) * warp_elems();
@@ -197,57 +252,18 @@ struct PolyGaussian {
     return b;
   }
 
-  // offsets of the packed vector: WT, dat, vinv, fmu, mup, Hp, mud, Hd,
-  // lo, diff, P (full precision only), then the integer tables i1, i2,
-  // i3, rowptr, cf, c1, c2 (as T values)
-  __host__ void locate() {
-    WT = par;
-    dat = WT + (size_t)F * M;
-    vinv = dat + M;
-    fmu = vinv + M;
-    mup = fmu + M;
-    Hp = mup + D;
-    mud = Hp + D * D;
-    Hd = mud + D;
-    slo = Hd + D * D;
-    sdf = slo + D;
-    Pm = sdf + D;
-    ints = Pm + (full ? (size_t)M * M : 0);
-    // the tiles (samplers/nuts_cuda.py::_stream_tiles) start at the next
-    // multiple of 32 elements after the integer tables
-    tiles = par + (((size_t)(ints - par) + n_ints() + 31) / 32 * 32);
-  }
+  __host__ void locate() { poly_locate(*this); }
 
   __device__ void stage(T* smem) const {
-    if constexpr (kHessSmem) {
-      for (int i = threadIdx.x; i < P * P; i += blockDim.x) {
-        const int r = i / P, c = i % P;
-        const bool in = r < D && c < D;
-        smem[r * S + c] = in ? Hp[r * D + c] : T(0);
-        smem[P * S + r * S + c] = in ? Hd[r * D + c] : T(0);
-      }
+    for (int i = threadIdx.x; i < P * P; i += blockDim.x) {
+      const int r = i / P, c = i % P;
+      const bool in = r < D && c < D;
+      smem[r * S + c] = in ? Hp[r * D + c] : T(0);
+      smem[P * S + r * S + c] = in ? Hd[r * D + c] : T(0);
     }
-    for (int i = threadIdx.x; i < P; i += blockDim.x) {
-      smem[kHess + i] = i < D ? slo[i] : T(0);
-      smem[kHess + P + i] = i < D ? sdf[i] : T(1);
-    }
-    int* ip = reinterpret_cast<int*>(smem + kHess + 2 * P +
-                                     kWarps * warp_elems());
-    for (int i = threadIdx.x; i < n_ints(); i += blockDim.x)
-      ip[i] = (int)ints[i];
-    // WT's first R features, transposed, zero-padded to whole vectors
-    T* sw = smem + coef_offset();
-    const int Rp = (R + Vec16<T>::n - 1) / Vec16<T>::n * Vec16<T>::n;
-    for (int i = threadIdx.x; i < Rp * M; i += blockDim.x) {
-      const int f = i / M, j = i - f * M;
-      sw[j * RS + f] = f < R ? WT[(size_t)f * M + j] : T(0);
-    }
-    if constexpr (STREAM) {
-      // tiles 0 and 1 in buffers 0 and 1, where every evaluation finds them
-      T* tb = sw + (size_t)M * RS;
-      const int n = (NT > 1 ? 2 : 1) * tile_elems();
-      for (int i = threadIdx.x; i < n; i += blockDim.x) tb[i] = tiles[i];
-    }
+    poly_stage(*this, smem + kHess, smem + kHess + 2 * P +
+                                        kWarps * warp_elems(),
+               smem + coef_offset());
   }
 
   __device__ void bind(T*) {
@@ -295,48 +311,6 @@ struct PolyGaussian {
   // idle ticks, until no warp of the block has work (nuts_kernels.cuh)
   __device__ void drain() const {
     if constexpr (STREAM) tile_drain(*this);
-  }
-
-  // y_j = sum_k H[j, k] x_k for this lane's j, H (D x D) in device memory
-  // (NE > 2), summed over k in order as `matvec` sums the staged rows
-  // (ops/densities.py::_matvec_seq): its padded products past D are signed
-  // zeros, which change no bit of a sum that started at +0, so the bits are
-  // matvec's. H is symmetric (poly_gaussian_spec symmetrizes it, exactly),
-  // so row j's k-th value is H[k, j]: at each k the warp reads one row of
-  // H, coalesced, through L2 where every chain of the card finds it. x goes
-  // through the warp's buffer, four (two in f64) of it a 16-byte broadcast;
-  // a lane past D reads column D - 1 and ends with +0, as a padded row.
-  __device__ __forceinline__ void hess_matvec(const T* __restrict__ H,
-                                              T* __restrict__ xbuf,
-                                              const T (&x)[NE],
-                                              T (&y)[NE]) const {
-    using V = Vec16<T>;
-    const int lane = threadIdx.x & 31;
-    __syncwarp();  // every lane is done reading the buffer's last vector
-    int col[NE];
-#pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      xbuf[lane + 32 * e] = x[e];
-      col[e] = min(lane + 32 * e, D - 1);
-      y[e] = T(0);
-    }
-    __syncwarp();
-#pragma unroll 2
-    for (int k0 = 0; k0 < D; k0 += V::n) {
-      const typename V::type xv =
-          *reinterpret_cast<const typename V::type*>(xbuf + k0);
-#pragma unroll
-      for (int i = 0; i < V::n; ++i) {
-        const int k = min(k0 + i, D - 1);
-        const T xk = k0 + i < D ? V::at(xv, i) : T(0);
-        const T* const h = H + (size_t)k * D;
-#pragma unroll
-        for (int e = 0; e < NE; ++e) y[e] += __ldg(h + col[e]) * xk;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < NE; ++e)
-      if (lane + 32 * e >= D) y[e] = T(0);
   }
 
   // gphi[f0 + f] (f < 8, f0 + f < lim) from each lane's partials s of
@@ -394,10 +368,7 @@ struct PolyGaussian {
       T del[NE];
 #pragma unroll
       for (int e = 0; e < NE; ++e) del[e] = x0[e] - mp[e];
-      if constexpr (kHessSmem)
-        matvec<T, NE>(sHp, xbuf, del, hdel);
-      else
-        hess_matvec(Hp, xbuf, del, hdel);
+      matvec<T, NE>(sHp, xbuf, del, hdel);
       T s = T(0);
 #pragma unroll
       for (int e = 0; e < NE; ++e) s += del[e] * hdel[e];
@@ -676,10 +647,7 @@ struct PolyGaussian {
       T dd[NE], hdd[NE];
 #pragma unroll
       for (int e = 0; e < NE; ++e) dd[e] = xm[e] - md[e];
-      if constexpr (kHessSmem)
-        matvec<T, NE>(sHd, xbuf, dd, hdd);
-      else
-        hess_matvec(Hd, xbuf, dd, hdd);
+      matvec<T, NE>(sHd, xbuf, dd, hdd);
       T s = T(0);
 #pragma unroll
       for (int e = 0; e < NE; ++e) s += dd[e] * hdd[e];
@@ -696,16 +664,747 @@ struct PolyGaussian {
   __device__ T finish(T sum) const { return (T(-0.5) * sum + nrm) - dec; }
 };
 
+// ---- past D = 64: the block evaluates its eight chains together ----------
+// The sums over a warp's 32 lanes of the NV values a lane holds (NV a power
+// of two, <= 32), each in warp_sum's halving tree (x_l + x_{l+16}, then
+// + 8, + 4, + 2, + 1: every node adds the butterfly's two operands, and a
+// sum of two floats does not depend on their order), scattered over the
+// lanes: while a lane holds more than one value, the level of offset O
+// keeps half of them (the upper half where lane bit O is set) and adds the
+// partner's copy of that half; then it adds the partner's one value. Lane
+// l ends with the sum of value l / (32 / NV): 31 shuffles for 32 values,
+// where PolyGaussian's tree through shared memory (`reduce8`) takes two
+// barriers of the warp and 16 shared-memory accesses for 8.
+template <typename T, int O, int NV, int M = NV>
+__device__ __forceinline__ T reduce_scatter(T (&x)[NV]) {
+  if constexpr (M > 1) {
+    constexpr int H = M / 2;
+    const bool up = (threadIdx.x & O) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const T send = up ? x[i] : x[i + H];
+      const T keep = up ? x[i + H] : x[i];
+      x[i] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+  } else {
+    x[0] += __shfl_xor_sync(kFull, x[0], O);
+  }
+  if constexpr (O > 1)
+    return reduce_scatter<T, O / 2, NV, (M > 1 ? M / 2 : 1)>(x);
+  else
+    return x[0];
+}
+
+// PolyGaussian at NE = 3..8 (D 65..256; a unit a NE, dtype and path,
+// `launch_poly_unit`). The arithmetic is PolyGaussian's and the plain
+// version's, operation for operation; what changes is who does it. Per
+// chain, an evaluation reads both Hessians (2 D^2 values, 80 KB in f32 at D
+// = 100) and WT twice (2 F M: 534 KB at F = 146, M = 457), and does a few
+// thousand other operations. PolyGaussian gives each chain's warp all of
+// it: eight warps of a block read each Hessian row from L2 eight times and
+// each WT vector from shared memory sixteen times, and the slowest chain's
+// warp waits on every one of its loads and sums (82-86 us a leapfrog in f32
+// at D = 100, PERF.md). Here every evaluation is one tick of the block, and
+// every product over the Hessians and WT is split over the block's 256
+// threads for all the chains that have work in that tick:
+// - the Hessians (`hess`): thread j, output j of the tick's chains (of
+//   half of them at NE <= 4, where two threads a j fit the block): each
+//   Hessian value read from L2 once a block and evaluation (twice at NE <=
+//   4), each (chain, j) sum over k in order, as `matvec` sums (bitwise: a
+//   padded product is +-0, which changes no bit of a sum that started at
+//   +0);
+// - WT forward (`fwd`): thread t, outputs t + 256 o of every chain: one
+//   16-byte vector of a WT row feeds kVec features of every chain, each
+//   (chain, j) sum over the features in order (the staged ones, then the
+//   tiles or device memory), kept in the chain's g buffer between tiles;
+// - WT back (`back`): items of 8 features x kCB chains, round robin over
+//   the warps: lane l sums its outputs l + 32 t in order for each, then
+//   warp_sum's tree across lanes for all 8 kCB sums at once, scattered
+//   over the lanes by shuffles (`reduce_scatter`: PolyGaussian's
+//   `reduce8` takes each group of 8 through shared memory);
+// and a tick with fewer chains runs an instantiation for fewer (1, 2, 4 or
+// 8, the same in every thread: `group`), so that a chain left alone in a
+// launch's tail has the whole block. Each chain's own sums stay with its
+// own warp, its lanes over the same j and d in the same order as before
+// (the bound's and decay's quadratic forms, the likelihood's part and the
+// bound's sb over the outputs, the sparse-row gradient), so the bits are
+// PolyGaussian's and the plain version's. An evaluation meets the block's
+// warps at six barriers (A..F below) and the tiles' steps; a warp whose
+// chain is done, or that has none, runs idle evaluations (`drain`) that do
+// their share of the work until no warp of the block has any. The streamed
+// tiles are one TMA bulk copy of thread 0 each, on its buffer's mbarrier,
+// where PolyGaussian's go by every thread's cp.async.
+// Shared memory: the scales (2 P), the control words (`kCtl`: the chains'
+// work flags, the tile buffers' mbarriers), each chain's buffers (its
+// warp's: x, xa, phi, gphi, red (the Hessians' products), g; r and m with
+// a full precision), the integer tables, staged WT and the two tile
+// buffers (samplers/nuts_cuda.py::_poly_layout, which the launch checks).
+template <typename T, int NE, bool STREAM>
+struct PolyBlock {
+  static_assert(NE > 2, "PolyGaussian evaluates the density at D <= 64");
+  static constexpr int P = 32 * NE;
+  static constexpr int kVec = Vec16<T>::n;
+  static constexpr int kBack = 8;  // features a back-pass group
+  static constexpr int kJo = 2;    // outputs of a thread a forward pass
+  // chains of a back-pass item: 8 x kCB partial sums a lane
+  static constexpr int kCB = sizeof(T) == 4 ? 4 : 2;
+  static constexpr int kBackUnroll = sizeof(T) == 4 ? 4 : 1;
+  static constexpr int kCtl = 64 / (int)sizeof(T);
+  // a chain's red buffer: the Hessians' products (2 P) from the block
+  static constexpr int kRed = 2 * P;
+  const T* par;  // packed parameters, device memory (`poly_locate`)
+  int D, M, F, NNZ;
+  int R, RS;  // features staged in shared memory, their row stride
+  // STREAM: features a tile, tiles of the features R.., 16-byte vectors a
+  // tile row, and the lane's swizzle of its rows (PolyGaussian's)
+  int TW, NT, NVT, swl;
+  bool bound_on, decay_on, full;
+  T nrm, gamma, alpha, alpha2;
+  const T *WT, *dat, *vinv, *fmu, *mup, *Hp, *mud, *Hd, *slo, *sdf, *Pm,
+      *ints, *tiles;
+  T mp[NE], md[NE];  // this lane's bound and decay centres
+  mutable T dec;     // the decay penalty of the last evaluation
+
+  __host__ __device__ static int up4(int n) { return (n + 3) & ~3; }
+  __host__ __device__ int n_phi() const {
+    return up4(STREAM ? R + NT * TW : F);
+  }
+  // a chain's buffers, from its start: x (the bound's delta), xa (the
+  // decay's delta until the bound is done, then [x0, 1]), phi, gphi, red
+  // (hdel, hdd), g (m0 from the block, then d logp / d m0), and r, m
+  __host__ __device__ int o_phi() const { return P + up4(P + 1); }
+  __host__ __device__ int o_gphi() const { return o_phi() + n_phi(); }
+  __host__ __device__ int o_red() const { return o_gphi() + up4(F); }
+  __host__ __device__ int o_g() const { return o_red() + kRed; }
+  __host__ __device__ int warp_elems() const {
+    return o_g() + (full ? 3 : 1) * up4(M);
+  }
+  __host__ __device__ int chain_base(int c) const {
+    return 2 * P + kCtl + c * warp_elems();
+  }
+  __host__ __device__ int int_elems() const {
+    return up4((poly_n_ints(*this) * 4 + (int)sizeof(T) - 1) /
+               (int)sizeof(T));
+  }
+  __host__ __device__ int coef_offset() const {
+    return chain_base(kWarps) + int_elems();
+  }
+  __host__ __device__ int tile_elems() const { return STREAM ? M * TW : 0; }
+  __host__ __device__ size_t smem_elems() const {
+    return coef_offset() + (size_t)M * RS + 2 * (size_t)tile_elems();
+  }
+  __host__ void locate() { poly_locate(*this); }
+
+  // the block's shared memory, addressed from its symbol where it is used
+  __device__ __forceinline__ static T* sm() {
+    extern __shared__ __align__(16) unsigned char g_smem[];
+    return reinterpret_cast<T*>(g_smem);
+  }
+  __device__ __forceinline__ static int* flags() {
+    return reinterpret_cast<int*>(sm() + 2 * P);
+  }
+  __device__ __forceinline__ static uint64_t* tile_bar(int b) {
+    return reinterpret_cast<uint64_t*>(flags() + kWarps) + b;
+  }
+  __device__ __forceinline__ T* tile_buf(int t) const {
+    return sm() + coef_offset() + (size_t)M * RS + (t & 1) * tile_elems();
+  }
+  // chain i of a tick's list (three bits a chain, the first again past the
+  // chains with work) and the instantiation a tick of n chains runs
+  __device__ __forceinline__ static int chain(unsigned list, int i) {
+    return (list >> (3 * i)) & 7;
+  }
+  __device__ __forceinline__ static int group(int n) {
+    return n > 4 ? 8 : n > 2 ? 4 : n;
+  }
+
+  __device__ void stage(T* smem) const {
+    poly_stage(*this, smem, smem + chain_base(kWarps), smem + coef_offset());
+    if constexpr (STREAM) {
+      if (threadIdx.x == 0) {
+        mbar_init(tile_bar(0), kWarps * 32 + 1);
+        mbar_init(tile_bar(1), kWarps * 32 + 1);
+      }
+      // the staged tiles' stores before the bulk copies that overwrite them
+      fence_proxy_async();
+    }
+  }
+
+  __device__ void bind(T*) {
+    const int lane = threadIdx.x & 31;
+    // phi past F: zeros, which meet the staged padding's and the last
+    // tile's zeros
+    T* const phi = sm() + chain_base(threadIdx.x >> 5) + o_phi();
+    for (int f = F + lane; f < n_phi(); f += 32) phi[f] = T(0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int d = lane + 32 * e;
+      mp[e] = d < D ? mup[d] : T(0);
+      md[e] = d < D ? mud[d] : T(0);
+    }
+    if (STREAM) swl = NVT >= 8 ? (lane & 7) : (lane / (8 / NVT)) & (NVT - 1);
+  }
+
+  // ---- the streamed tiles (STREAM) ----
+  // Tile t holds features R + t TW .. of every output, transposed like the
+  // staged rows, in buffer t & 1. An evaluation's forward pass reads tiles
+  // 0 .. NT - 1 (steps 1 .. NT - 1), its back pass NT - 1 .. 0 (steps NT ..
+  // 2 NT - 2); step s copies the next tile of its pass into the buffer that
+  // the step before read (`step_tile`), so that every evaluation starts
+  // with tiles 0 and 1 in their buffers, none in flight. A step waits for
+  // its tile (every thread at the buffer's mbarrier) when a copy brought
+  // it: steps 2 .. NT - 1 and NT + 1 .. 2 NT - 2.
+  __device__ __forceinline__ void load_tile(int t) const {
+    if (threadIdx.x != 0) return;
+    const unsigned bytes = (unsigned)(tile_elems() * sizeof(T));
+    mbar_expect(tile_bar(t & 1), bytes);
+    bulk_copy(tile_buf(t), tiles + (size_t)t * tile_elems(), bytes,
+              tile_bar(t & 1));
+  }
+  __device__ __forceinline__ void await_step(int s) const {
+    if (s >= 2 && s != NT)
+      mbar_arrive_wait(tile_bar((s < NT ? s : 2 * NT - 2 - s) & 1));
+  }
+  __device__ __forceinline__ int step_tile(int s) const {
+    return s < NT ? (s + 1 < NT ? s + 1 : -1) : 2 * NT - 3 - s;
+  }
+
+  // ---- the block's products, for the tick's chains ----
+  // hdel = Hp del and hdd = Hd dd of each chain (its x and xa buffers, zero
+  // past D) into its red buffer: thread t, output j = t mod P for the chains
+  // of its group t / P (two groups of the tick's chains at NE <= 4, where a
+  // chain's outputs take half the block), each sum over k in order, as
+  // `matvec` sums. The Hessians are symmetric (poly_gaussian_spec
+  // symmetrizes them, exactly), so output j's k-th product reads H[k, j]:
+  // at each k a warp reads one row of H, coalesced, from L2, KC values of
+  // k at a time, the next KC's loads in flight while these are summed (a
+  // thread reading its own row j, contiguous, was slower: each load of a
+  // warp touched 32 lines).
+  template <int NC>
+  __device__ __forceinline__ void hess(unsigned list, int n) const {
+    using V = Vec16<T>;
+    using VT = typename V::type;
+    constexpr int G = NC > 1 && 2 * P <= kWarps * 32 ? 2 : 1;
+    constexpr int NH = NC / G, KC = 8;
+    const int Dn = D, j = threadIdx.x % P, h = threadIdx.x / P;
+    if (j >= Dn || h >= G) return;
+    const bool bon = bound_on, don = decay_on;
+    const T *const hp = Hp + j, *const hd = Hd + j;
+    T* const s = sm();
+    int cb[NH];
+    T ap[NH], ad[NH];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      cb[i] = chain_base(chain(list, h * NH + i));
+      ap[i] = T(0);
+      ad[i] = T(0);
+    }
+    // H[k, j] for k = k0 + u, u < KC; past D row D - 1, times a zero delta:
+    // +-0, which changes no bit of a sum that started at +0
+    auto load = [&](int k0, T (&a)[KC], T (&b)[KC]) {
+#pragma unroll
+      for (int u = 0; u < KC; ++u) {
+        const int k = min(k0 + u, Dn - 1) * Dn;
+        a[u] = bon ? __ldg(hp + k) : T(0);
+        b[u] = don ? __ldg(hd + k) : T(0);
+      }
+    };
+    auto use = [&](int k0, const T (&a)[KC], const T (&b)[KC]) {
+#pragma unroll
+      for (int i = 0; i < NH; ++i) {
+#pragma unroll
+        for (int v = 0; v < KC / kVec; ++v) {
+          const VT dv =
+              *reinterpret_cast<const VT*>(s + cb[i] + k0 + v * kVec);
+          const VT ev =
+              *reinterpret_cast<const VT*>(s + cb[i] + P + k0 + v * kVec);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            ap[i] += a[v * kVec + e] * V::at(dv, e);
+            ad[i] += b[v * kVec + e] * V::at(ev, e);
+          }
+        }
+      }
+    };
+    T a0[KC], b0[KC], a1[KC], b1[KC];
+    load(0, a0, b0);
+    for (int k0 = 0; k0 < Dn; k0 += 2 * KC) {
+      load(k0 + KC, a1, b1);
+      use(k0, a0, b0);
+      load(k0 + 2 * KC, a0, b0);
+      use(k0 + KC, a1, b1);
+    }
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      if (h * NH + i < n) {
+        s[cb[i] + o_red() + j] = ap[i];
+        s[cb[i] + o_red() + P + j] = ad[i];
+      }
+    }
+  }
+
+  // m0 = phi WT of each chain into its g buffer
+  template <int NC>
+  __device__ __forceinline__ void fwd(unsigned list, int n) const {
+    // the fields, as values (a tile step's barrier clobbers memory)
+    const int Mn = M, Fn = F, Rn = R, RSn = RS, TWn = TW, NTn = NT,
+              NVTn = NVT, swn = swl;
+    const T* const wt = WT;
+    const T* const tb = sm() + coef_offset() + (size_t)Mn * RSn;  // tiles
+    using V = Vec16<T>;
+    using VT = typename V::type;
+    T* const s = sm();
+    const int tid = threadIdx.x;
+    int cb[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) cb[i] = chain_base(chain(list, i));
+    const int ph = o_phi(), go = o_g();
+    const int Rp = (Rn + kVec - 1) / kVec * kVec;
+    const T* const W = s + coef_offset();
+    constexpr int kPass = kWarps * 32 * kJo;
+    auto store = [&](int p0, T (&acc)[kJo][NC]) {
+#pragma unroll
+      for (int o = 0; o < kJo; ++o) {
+        const int j = p0 + tid + kWarps * 32 * o;
+#pragma unroll
+        for (int i = 0; i < NC; ++i)
+          if (j < Mn && i < n) s[cb[i] + go + j] = acc[o][i];
+      }
+    };
+    for (int p0 = 0; p0 < Mn; p0 += kPass) {
+      int jc[kJo];
+      T acc[kJo][NC];
+#pragma unroll
+      for (int o = 0; o < kJo; ++o) {
+        jc[o] = min(p0 + tid + kWarps * 32 * o, Mn - 1);
+#pragma unroll
+        for (int i = 0; i < NC; ++i) acc[o][i] = T(0);
+      }
+#pragma unroll 2
+      for (int f0 = 0; f0 < Rp; f0 += kVec) {
+        VT wv[kJo];
+#pragma unroll
+        for (int o = 0; o < kJo; ++o)
+          wv[o] = *reinterpret_cast<const VT*>(W + jc[o] * RSn + f0);
+#pragma unroll
+        for (int i = 0; i < NC; ++i) {
+          const VT pv = *reinterpret_cast<const VT*>(s + cb[i] + ph + f0);
+#pragma unroll
+          for (int o = 0; o < kJo; ++o)
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+              acc[o][i] += V::at(wv[o], e) * V::at(pv, e);
+        }
+      }
+      if constexpr (!STREAM) {
+        // the features past the staged ones, from device memory (L2)
+#pragma unroll 4
+        for (int f = Rn; f < Fn; ++f) {
+          T wl[kJo];
+#pragma unroll
+          for (int o = 0; o < kJo; ++o)
+            wl[o] = __ldg(wt + (size_t)f * Mn + jc[o]);
+#pragma unroll
+          for (int i = 0; i < NC; ++i) {
+            const T p = s[cb[i] + ph + f];
+#pragma unroll
+            for (int o = 0; o < kJo; ++o) acc[o][i] += wl[o] * p;
+          }
+        }
+      }
+      store(p0, acc);
+    }
+    if constexpr (STREAM) {
+      for (int k = 0; k < NTn; ++k) {
+        if (k) tile_step(*this, k);
+        const T* const tw = tb + (k & 1) * (Mn * TWn);
+        const int fo = ph + Rn + k * TWn;
+        for (int p0 = 0; p0 < Mn; p0 += kPass) {
+          int jc[kJo];
+          T acc[kJo][NC];
+#pragma unroll
+          for (int o = 0; o < kJo; ++o) {
+            jc[o] = min(p0 + tid + kWarps * 32 * o, Mn - 1);
+#pragma unroll
+            for (int i = 0; i < NC; ++i) acc[o][i] = s[cb[i] + go + jc[o]];
+          }
+#pragma unroll 2
+          for (int v = 0; v < NVTn; ++v) {
+            VT wv[kJo];
+#pragma unroll
+            for (int o = 0; o < kJo; ++o)
+              wv[o] = *reinterpret_cast<const VT*>(tw + jc[o] * TWn +
+                                                   (v ^ swn) * kVec);
+#pragma unroll
+            for (int i = 0; i < NC; ++i) {
+              const VT pv =
+                  *reinterpret_cast<const VT*>(s + cb[i] + fo + v * kVec);
+#pragma unroll
+              for (int o = 0; o < kJo; ++o)
+#pragma unroll
+                for (int e = 0; e < kVec; ++e)
+                  acc[o][i] += V::at(wv[o], e) * V::at(pv, e);
+            }
+          }
+          store(p0, acc);
+        }
+      }
+    }
+  }
+
+  // gphi = WT gm0 of each chain (its g buffer) into its gphi buffer: items
+  // of 8 features and NCB chains, round robin over the warps (the tiles
+  // first, down from the last; then the staged features; then the rest
+  // from device memory); each chain's partials over the lane's outputs in
+  // order, then the tree across lanes of all of them at once
+  // (`reduce_scatter`)
+  template <int NCB>
+  __device__ __forceinline__ void back(unsigned list, int n) const {
+    // the fields, as values (a tile step's barrier clobbers memory)
+    const int Mn = M, Fn = F, Rn = R, RSn = RS, TWn = TW, NTn = NT,
+              NVTn = NVT, swn = swl;
+    const T* const wt = WT;
+    const T* const tb = sm() + coef_offset() + (size_t)Mn * RSn;  // tiles
+    using V = Vec16<T>;
+    using VT = typename V::type;
+    constexpr int NV = kBack / kVec;
+    T* const s = sm();
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int ncb = (n + NCB - 1) / NCB, nj = (Mn + 31) / 32;
+    const int go = o_g(), gp = o_gphi();
+    // one item: chains cbk NCB .. of the list, the 8 weights of output jr
+    // from `load`, the sums to gphi[f0 ..] below lim
+    auto item = [&](int cbk, int f0, int lim, auto&& load) {
+      int cb[NCB];
+#pragma unroll
+      for (int i = 0; i < NCB; ++i)
+        cb[i] = chain_base(chain(list, cbk * NCB + i));
+      T acc[NCB * kBack];
+#pragma unroll
+      for (int v = 0; v < NCB * kBack; ++v) acc[v] = T(0);
+#pragma unroll(kBackUnroll)
+      for (int t = 0; t < nj; ++t) {
+        const int j = lane + 32 * t, jr = min(j, Mn - 1);
+        T wl[kBack], gj[NCB];
+        load(jr, wl);
+#pragma unroll
+        for (int i = 0; i < NCB; ++i)
+          gj[i] = j < Mn ? s[cb[i] + go + jr] : T(0);
+#pragma unroll
+        for (int i = 0; i < NCB; ++i)
+#pragma unroll
+          for (int b = 0; b < kBack; ++b)
+            acc[i * kBack + b] += wl[b] * gj[i];
+      }
+      // lane l ends with value l / (32 / (8 NCB)): chain c, feature f
+      constexpr int kLanes = 32 / (NCB * kBack);
+      const T r = reduce_scatter<T, 16, NCB * kBack>(acc);
+      const int v = lane / kLanes, c = v / kBack, f = v % kBack;
+      int base = cb[0];
+#pragma unroll
+      for (int i = 1; i < NCB; ++i)
+        if (c == i) base = cb[i];
+      if (lane % kLanes == 0 && cbk * NCB + c < n && f0 + f < lim)
+        s[base + gp + f0 + f] = r;
+    };
+    if constexpr (STREAM) {
+      const int items = TWn / kBack * ncb;
+      for (int k = 0; k < NTn; ++k) {
+        const int t = NTn - 1 - k;
+        if (k) tile_step(*this, NTn - 1 + k);
+        const T* const tw = tb + (t & 1) * (Mn * TWn);
+        for (int it = w; it < items; it += kWarps) {
+          const int g0 = it / ncb * kBack;
+          item(it % ncb, Rn + t * TWn + g0, Fn, [&](int jr, T (&wl)[kBack]) {
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              const VT wv = *reinterpret_cast<const VT*>(
+                  tw + jr * TWn + ((g0 / kVec + v) ^ swn) * kVec);
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) wl[v * kVec + e] = V::at(wv, e);
+            }
+          });
+        }
+      }
+    }
+    const int Rp = (Rn + kVec - 1) / kVec * kVec;
+    const T* const W = s + coef_offset();
+    const int items = (Rp + kBack - 1) / kBack * ncb;
+    for (int it = w; it < items; it += kWarps) {
+      const int f0 = it / ncb * kBack;
+      item(it % ncb, f0, Rn, [&](int jr, T (&wl)[kBack]) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const VT wv = *reinterpret_cast<const VT*>(
+              W + jr * RSn + min(f0 + v * kVec, Rp - kVec));
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) wl[v * kVec + e] = V::at(wv, e);
+        }
+      });
+    }
+    if constexpr (!STREAM) {
+      const int items = (Fn - Rn + kBack - 1) / kBack * ncb;
+      for (int it = w; it < items; it += kWarps) {
+        const int f0 = Rn + it / ncb * kBack;
+        item(it % ncb, f0, Fn, [&](int jr, T (&wl)[kBack]) {
+#pragma unroll
+          for (int b = 0; b < kBack; ++b)
+            wl[b] = __ldg(wt + (size_t)min(f0 + b, Fn - 1) * Mn + jr);
+        });
+      }
+    }
+  }
+
+  // One evaluation: the block's tick, with this warp's chain at x (`work`)
+  // or idle. Returns false, having done nothing, when no warp of the block
+  // has work. With work: d logp / dx into g, this lane's part of the
+  // likelihood's sum into part, the decay penalty into `dec`.
+  __device__ __forceinline__ bool eval(bool work, const T (&x)[NE],
+                                       T (&g)[NE], T& part_out) const {
+    T* const s = sm();
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    T* const own = s + chain_base(w);
+    T *const xa = own + P, *const phi = own + o_phi();
+    T *const gphi = own + o_gphi(), *const gbuf = own + o_g();
+    T *const rbuf = gbuf + up4(M), *const mbuf = rbuf + up4(M);
+    // the fields this warp's own parts read, as values (a barrier's memory
+    // clobber would have them read from the functor again)
+    const int Dn = D, Mn = M, Fn = F, nnz = NNZ;
+    const bool bon = bound_on, don = decay_on, fl = full;
+    const T al = alpha, al2 = alpha2, gam = gamma;
+    const T *const datp = dat, *const vinvp = vinv, *const fmup = fmu;
+    const T* const pm = Pm;
+    T xm[NE], x0[NE];
+    if (work) {
+      __syncwarp();  // the lanes are done with the last evaluation's xa
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int d = lane + 32 * e;
+        xm[e] = d < Dn ? x[e] : T(0);
+        // u = (x - lo) / diff; the bound's delta and the decay's, zero
+        // past D, for the block's products
+        x0[e] = (xm[e] - s[d]) / s[P + d];
+        own[d] = x0[e] - mp[e];
+        xa[d] = xm[e] - md[e];
+      }
+    }
+    if (lane == 0) flags()[w] = work ? 1 : 0;
+    bar_sync<kBarTile>();  // A: the tick
+    unsigned list = 0;
+    int n = 0;
+#pragma unroll
+    for (int c = 0; c < kWarps; ++c)
+      if (flags()[c]) list |= (unsigned)c << (3 * n++);
+    if (n == 0) return false;
+    for (int i = n; i < kWarps; ++i) list |= (list & 7u) << (3 * i);
+    if (bon || don) {
+      switch (group(n)) {
+        case 8: hess<8>(list, n); break;
+        case 4: hess<4>(list, n); break;
+        case 2: hess<2>(list, n); break;
+        default: hess<1>(list, n);
+      }
+    }
+    bar_sync<kBarTile>();  // B: the Hessians' products
+    T hdel[NE], hdd[NE];
+    bool outside = false;
+    T beta = T(1);
+    if (work) {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        const int d = lane + 32 * e;
+        hdel[e] = bon && d < Dn ? own[o_red() + d] : T(0);
+        hdd[e] = don && d < Dn ? own[o_red() + P + d] : T(0);
+      }
+      // the bound: beta^2 = delta' Hp delta, warp-uniform; x0 projected
+      if (bon) {
+        T sq = T(0);
+#pragma unroll
+        for (int e = 0; e < NE; ++e) sq += (x0[e] - mp[e]) * hdel[e];
+        T b2 = warp_sum(sq);
+        b2 = b2 < T(1e-30) ? T(1e-30) : b2;
+        beta = m_sqrt(b2);
+        outside = beta > al;
+        if (outside) {
+#pragma unroll
+          for (int e = 0; e < NE; ++e)
+            x0[e] = (al * x0[e] + (beta - al) * mp[e]) / beta;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+        if (lane + 32 * e < Dn) xa[lane + 32 * e] = x0[e];
+      if (lane == 0) xa[Dn] = T(1);
+      __syncwarp();
+      const int* const i1 = reinterpret_cast<const int*>(s + chain_base(kWarps));
+#pragma unroll 4
+      for (int f = lane; f < Fn; f += 32)
+        phi[f] = (xa[i1[f]] * xa[i1[Fn + f]]) * xa[i1[2 * Fn + f]];
+    }
+    bar_sync<kBarTile>();  // C: every chain's phi
+    switch (group(n)) {
+      case 8: fwd<8>(list, n); break;
+      case 4: fwd<4>(list, n); break;
+      case 2: fwd<2>(list, n); break;
+      default: fwd<1>(list, n);
+    }
+    bar_sync<kBarTile>();  // D: every chain's m0
+    // the likelihood and d logp / d m0, over this lane's outputs in order
+    T part = T(0), sb = T(0);
+    if (work) {
+      // every output's data, variance and f_mu loaded before the sums
+      constexpr int kU = sizeof(T) == 4 ? 16 : 8;
+      for (int p0 = 0; p0 < Mn; p0 += 32 * kU) {
+        T dv[kU], vv[kU], fv[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int jc = min(p0 + lane + 32 * u, Mn - 1);
+          dv[u] = __ldg(datp + jc);
+          vv[u] = __ldg(vinvp + jc);
+          fv[u] = __ldg(fmup + jc);  // zeros without the bound
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int j = p0 + lane + 32 * u;
+          if (j < Mn) {
+            const T m0 = gbuf[j];
+            const T fm = outside ? fv[u] : T(0);
+            const T m =
+                outside ? (beta * m0 - (beta - al) * fm) / al : m0;
+            const T r = m - dv[u];
+            if (fl) {  // the likelihood waits for every r (below)
+              rbuf[j] = r;
+              if (outside) mbuf[j] = m0 - fm;
+            } else {
+              const T rv = r * vv[u];
+              part += rv * r;
+              const T gm = -rv;
+              gbuf[j] = outside ? gm * beta / al : gm;
+              if (outside) sb += gm * (m0 - fm);
+            }
+          }
+        }
+      }
+      if (fl) {
+        // (P r)_j = sum_k P[k, j] r_k in order of k (P symmetric: row k of
+        // P is its column k, read coalesced), four of the lane's outputs at
+        // a time; then the likelihood and d logp / d m0
+        __syncwarp();
+        for (int j0 = lane; j0 < Mn; j0 += 128) {
+          T acc[4] = {T(0), T(0), T(0), T(0)};
+          for (int k = 0; k < Mn; ++k) {
+            const T rk = rbuf[k];
+            const T* p = pm + (size_t)k * Mn + j0;
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (j0 + 32 * u < Mn) acc[u] += __ldg(p + 32 * u) * rk;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + 32 * u;
+            if (j < Mn) {
+              part += rbuf[j] * acc[u];
+              const T gm = -acc[u];
+              gbuf[j] = outside ? gm * beta / al : gm;
+              if (outside) sb += gm * mbuf[j];
+            }
+          }
+        }
+      }
+    }
+    bar_sync<kBarTile>();  // E: every chain's d logp / d m0
+    const int nb = group(n) < kCB ? group(n) : kCB;
+    if (nb == kCB)
+      back<kCB>(list, n);
+    else if (nb == 2)
+      back<2>(list, n);
+    else
+      back<1>(list, n);
+    bar_sync<kBarTile>();  // F: every chain's d logp / d phi
+    if (!work) return true;
+    // d logp / d x0_d over the dimension's sparse row, in order
+    const int* const rp =
+        reinterpret_cast<const int*>(s + chain_base(kWarps)) + 3 * Fn;
+    const int *const cf = rp + Dn + 1, *const c1 = cf + nnz,
+              *const c2 = c1 + nnz;
+    T g0[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      const int d = lane + 32 * e;
+      T sg = T(0);
+      if (d < Dn)
+        for (int t = rp[d]; t < rp[d + 1]; ++t)
+          sg += gphi[cf[t]] * (xa[c1[t]] * xa[c2[t]]);
+      g0[e] = sg;
+    }
+    if (outside) {
+      // through x0(x, beta(x)) and the beta of the extrapolated output
+      T dt = T(0);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) dt += g0[e] * (mp[e] - x0[e]);
+      for (int o = 16; o > 0; o >>= 1) {
+        const T a1 = __shfl_xor_sync(kFull, sb, o);
+        const T a2 = __shfl_xor_sync(kFull, dt, o);
+        sb += a1;
+        dt += a2;
+      }
+      const T s_beta = sb / al;
+      const T dldb = s_beta + dt / beta;
+#pragma unroll
+      for (int e = 0; e < NE; ++e)
+        g[e] = g0[e] * al / beta + dldb * hdel[e] / beta;
+    } else {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) g[e] = g0[e];
+    }
+    // from u to x
+#pragma unroll
+    for (int e = 0; e < NE; ++e) g[e] = g[e] / s[P + lane + 32 * e];
+    dec = T(0);
+    if (don) {
+      T sq = T(0);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) sq += (xm[e] - md[e]) * hdd[e];
+      const T ex = warp_sum(sq) - al2;
+      if (ex > T(0)) {
+        dec = gam * ex;
+#pragma unroll
+        for (int e = 0; e < NE; ++e) g[e] = g[e] - gam * (T(2) * hdd[e]);
+      }
+    }
+    part_out = part;
+    return true;
+  }
+
+  __device__ T operator()(const T (&x)[NE], T (&g)[NE]) const {
+    T part;
+    eval(true, x, g, part);
+    return part;
+  }
+  // idle evaluations, until no warp of the block has work
+  __device__ void drain() const {
+    const T x[NE] = {};
+    T g[NE], part;
+    while (eval(false, x, g, part)) {
+    }
+  }
+
+  __device__ T finish(T sum) const { return (T(-0.5) * sum + nrm) - dec; }
+};
+
 
 // f[8..15]: M, F, NNZ, bound on, decay on, alpha, alpha^2, full
 // precision; f[16..21]: the plan's features staged, bytes, stacks in
 // shared memory, path (1: streamed tiles), features a tile and a tile's
-// bytes (0 and 0 on the other path). The bytes also say where the
-// Hessians live (kHessSmem): a plan that lays the block out otherwise
+// bytes (0 and 0 on the other path). The bytes also say which functor
+// lays the block out (PolyGaussian's staged Hessians at NE <= 2,
+// PolyBlock's chain buffers past): a plan that lays it out otherwise
 // fails the launch.
 template <typename T, int NE, int KIND, bool STREAM>
 cudaError_t launch_poly(const Args<T>& a, const double* f, cudaStream_t s) {
-  PolyGaussian<T, NE, STREAM> p = {};
+  std::conditional_t<(NE <= 2), PolyGaussian<T, NE, STREAM>,
+                     PolyBlock<T, NE, STREAM>>
+      p = {};
   p.par = a.dpar;
   p.D = a.D;
   p.nrm = a.d0;
@@ -729,7 +1428,8 @@ cudaError_t launch_poly(const Args<T>& a, const double* f, cudaStream_t s) {
     // tile, in a power of two or a multiple of 8 vectors (`swl`)
     const bool swizzled = (p.NVT & (p.NVT - 1)) == 0 || p.NVT % 8 == 0;
     if (p.R >= p.F || p.R % Vec16<T>::n != 0 || p.TW < 8 || p.TW % 8 != 0 ||
-        !swizzled || f[21] != (double)p.M * p.TW * sizeof(T))
+        !swizzled || f[21] != (double)p.M * p.TW * sizeof(T) ||
+        (NE > 2 && f[21] >= (double)(1 << 20)))  // an mbarrier's bytes
       return cudaErrorInvalidValue;
     p.NT = (p.F - p.R + p.TW - 1) / p.TW;
   } else if (f[20] != 0.0 || f[21] != 0.0) {
@@ -739,7 +1439,7 @@ cudaError_t launch_poly(const Args<T>& a, const double* f, cudaStream_t s) {
   return launch_kernel<T, NE, KIND>(a, p, s, (long long)f[17], f[18] != 0.0);
 }
 
-// The entry point of a unit of PolyGaussian at one lane width NE (3..8),
+// The entry point of a unit of PolyBlock at one lane width NE (3..8),
 // dtype T and path STREAM: the arguments of nuts_traced_launch (ops/
 // codegen.py; kind 0 frozen, 1 warmup, 2 block). cudaErrorInvalidValue for
 // another dtype, a D whose lane width is not NE, a plan of the other path,

@@ -537,38 +537,45 @@ def _poly_layout(D, M, F, NNZ, full, max_treedepth, itemsize, rows,
                  tile=0):
     """A block of a launch with the PolyGaussian density that stages the
     first ``rows`` features of the coefficients WT, as
-    ``csrc/nuts_poly.cuh`` lays it out: at D <= 64 (NE <= 2) the two
-    staged D x D Hessians (past that they stay in device memory:
-    ``hess_smem`` False), the input scales, each warp's
-    exchange buffers and the integer tables (three indices a feature, the
-    row pointers, three a sparse-row entry); then those features,
-    transposed (output j's features as row j, ``row_stride`` elements);
-    with ``tile`` > 0 (the streamed path) two buffers of a tile, ``tile``
-    of the other features for every output, and phi long enough for the
-    last tile's padding; then every warp's checkpoint stack if it still
-    fits in a block, else the stacks stay in global scratch. Returns a
-    dict (rows, row_stride, stacks_smem, bytes), on the streamed path also
-    stream (True), tile and tile_bytes (one buffer's), and past D = 64
-    hess_smem (False)."""
+    ``csrc/nuts_poly.cuh`` lays it out: at D <= 64 (NE <= 2,
+    ``PolyGaussian``) the two staged D x D Hessians, the input scales,
+    each warp's exchange buffers and the integer tables (three indices a
+    feature, the row pointers, three a sparse-row entry); past D = 64
+    (``PolyBlock``, ``block``: the block evaluates its chains together;
+    the Hessians stay in device memory: ``hess_smem`` False) the scales,
+    64 bytes of control words (the chains' work flags, the tile buffers'
+    mbarriers), each chain's buffers, whose red buffer holds the
+    Hessians' products (2 P) and its warp's back-pass scratch, and the
+    integer tables; then those features, transposed (output j's features
+    as row j, ``row_stride`` elements); with ``tile`` > 0 (the streamed
+    path) two buffers of a tile, ``tile`` of the other features for every
+    output, and phi long enough for the last tile's padding; then every
+    warp's checkpoint stack if it still fits in a block, else the stacks
+    stay in global scratch. Returns a dict (rows, row_stride, stacks_smem,
+    bytes), on the streamed path also stream (True), tile and tile_bytes
+    (one buffer's), and past D = 64 hess_smem (False) and block (True)."""
     n = 16 // itemsize
     P = 32 * max(1, -(-int(D) // 32))
-    # PolyGaussian::kHessSmem
+    # PolyGaussian stages the Hessians; PolyBlock past 64
     hess = P <= _LIB_D
     n_phi = rows + -(-(F - rows) // tile) * tile if tile else F
-    # xbuf, xa, phi, gphi, the back pass's scratch (32 lanes x 8 features),
-    # the outputs' gradients, with a full precision r and m0 - f_mu
-    warp = (P + _up(P + 1, 4) + _up(n_phi, 4) + _up(F, 4) + 32 * 8
+    # xbuf, xa, phi, gphi, the back pass's scratch (32 lanes x 8 features;
+    # PolyBlock: and the Hessians' products), the outputs' gradients, with
+    # a full precision r and m0 - f_mu
+    red = 32 * 8 if hess else 2 * P
+    warp = (P + _up(P + 1, 4) + _up(n_phi, 4) + _up(F, 4) + red
             + (3 if full else 1) * _up(M, 4))
     ints = _up(-(-(3 * F + D + 1 + 3 * NNZ) * 4 // itemsize), 4)
     stride = _coef_stride(rows, itemsize)
-    own = (2 * P * (P + n) * hess + 2 * P + _WARPS * warp + ints
+    ctl = 0 if hess else 64 // itemsize
+    own = (2 * P * (P + n) * hess + 2 * P + ctl + _WARPS * warp + ints
            + M * stride + 2 * M * tile) * itemsize
     stacks = _WARPS * max(int(max_treedepth) - 1, 1) * (4 * D + 3) * itemsize
     stk = own + stacks <= _MAX_SMEM
     plan = dict(rows=int(rows), row_stride=stride, stacks_smem=stk,
                 bytes=own + stk * stacks)
     if not hess:
-        plan['hess_smem'] = False
+        plan.update(hess_smem=False, block=True)
     if tile:
         plan.update(stream=True, tile=int(tile),
                     tile_bytes=int(M) * int(tile) * itemsize)
@@ -804,15 +811,18 @@ def wide_unit_source(dens_id, dim, dtype):
 def poly_unit_source(dim, dtype, stream):
     """The translation unit of the PolyGaussian surrogate at D = ``dim``
     (65..256) in ``dtype`` on the streamed path or not (``stream``, the
-    plan's): the three kernels at lane width NE = ceil(D / 32)
-    (``csrc/nuts_poly.cuh::launch_poly_unit``), built and called as
-    ``wide_unit_source``'s are. ``ValueError`` for another D."""
+    plan's): the three kernels at lane width NE = ceil(D / 32) with the
+    block-wide functor ``PolyBlock`` (``csrc/nuts_poly.cuh::
+    launch_poly_unit``), built and called as ``wide_unit_source``'s are.
+    ``ValueError`` for another D."""
     if not _LIB_D < int(dim) <= _MAX_D:
         raise ValueError(f'no PolyGaussian unit at D = {dim}: D '
                          f'{_LIB_D + 1}..{_MAX_D} (csrc/nuts.cu holds D <= '
                          f'{_LIB_D}).')
-    return _unit_source('The PolyGaussian surrogate', 'nuts_poly.cuh',
-                        'launch_poly_unit', 'poly_unit_source', dim, dtype,
+    return _unit_source('The PolyGaussian surrogate, evaluated by the whole '
+                        'block for its\n// chains (PolyBlock),',
+                        'nuts_poly.cuh', 'launch_poly_unit',
+                        'poly_unit_source', dim, dtype,
                         'true' if stream else 'false')
 
 

@@ -8,7 +8,7 @@ card, drives the port's paths and checks what comes out:
   rotated banana with 1024 chains, float32, through warmup and post-warmup
   chunks on the two NUTS chunk kernels ([3]);
 * evidence: ``bayesfast_tpu_torch.evidence.GBS`` on that run's post-warmup
-  draws under six generator seeds (the SIT flow fit runs its KDE sums on
+  draws under four generator seeds (the SIT flow fit runs its KDE sums on
   the KDE-cdf kernel), held against the banana's exact logz ([6]);
 * pooled-metric sampling: the same configuration with
   ``pooled_metric=True``, every warmup transition one launch of the NUTS
@@ -34,10 +34,13 @@ card, drives the port's paths and checks what comes out:
   pair at D = 32 in float64 (the importance-weighted moments), the
   ensemble on the banana (rates and acceptance) and on [3b]'s Gaussian
   ([3b]'s gates); each prints its rates, and a profiled HMC warmup call
-  its device busy share. Then [11e]: the NUTS run of [3] and the ChEES
-  run, each checkpointed at the end of warmup, loaded and continued, must
-  give the post-warmup draws and logp of the uninterrupted runs bit for
-  bit.
+  its device busy share. HMC, TNUTS, THMC and the ensemble launch no
+  kernel: they run first, beside [2]'s nvcc (niced), HMC in this
+  process and the others in one of their own (``--free-samplers``); the
+  profiled call and ChEES (warm-started from [3]) after [10b]. Then
+  [11e]: the NUTS run of [3] and the ChEES run, each checkpointed at the
+  end of warmup, loaded and continued, must give the post-warmup draws
+  and logp of the uninterrupted runs bit for bit.
 * the GBS evidence anchors ([12]): the funnel-16, ring-64 and cauchy-48
   twins of ``examples/{funnel,ring,cauchy}_gbs.py``
   (``bayesfast_tpu_torch/examples``), each ``main()`` at the example's
@@ -46,8 +49,9 @@ card, drives the port's paths and checks what comes out:
   chunk kernels with the density compiled in, GBS with its SIT fit on the
   KDE kernel; rhat and logz against the fiducial gated, n_call printed
   beside the JAX package's. Then each density's chunk and block kernels
-  against their plain versions at 64 chains, K = 4, float64 and float32,
-  and timed.
+  against their plain versions at 64 chains, K = 2, float64 and float32
+  (the cauchy's at depth 8: its trees reach 1023 leapfrogs), and timed
+  at depth 10.
 * the cubic surrogate ([13]): [10]'s Recipe with both sample steps on a
   linear + quadratic + cubic-2 + cubic-3 PolyModel (the reference's
   'cubic-3' order on the nine nonlinear parameters, 238 features), every
@@ -102,7 +106,8 @@ card, drives the port's paths and checks what comes out:
   MVN's mean x'Px within 5 % of 250), the MVN also with a pooled metric
   on the block kernel; then [16a]: each new instantiation's frozen and
   warmup chunks (K = 2) and block launch bitwise against their plain
-  versions in float32 and float64 on the runs' final states, and timed,
+  versions in float32 and float64 on the runs' final states (the MVN's
+  at depth 6), and timed at depth 10,
   with the MVN's tile plan and L2 bytes a leapfrog and block; the same
   for column tiles and an odd count of tiles (a D = 4 density with a 4 x
   990 matrix: its adjoint's rows in column tiles, 35 tiles an evaluation
@@ -124,9 +129,14 @@ card, drives the port's paths and checks what comes out:
   chunk and block launch bitwise against their plain versions in float32
   and float64 with ``PolyGaussian`` at NE = 4 (on [17]'s last state) and
   NE = 8 (a D = 250 surrogate on a seeded state), and with MVN-250 written
-  as a traced ``Density`` plan (on [16c]'s state), each timed at 1024
-  chains with its slowest chain, bound, registers and spills. The four
-  ``PolyGaussian`` units build beside [3]-[9] and are loaded in [2c].
+  as a traced ``Density`` plan (on [16c]'s state); at NE = 4 also on a
+  partial last block of 60 chains and on a state whose trees differ widely
+  in size (a block's chains finish early, one runs on alone: the block
+  evaluates the density for its chains together past D = 64,
+  ``PolyBlock``); each plan with WT's shared-memory and the Hessians' L2
+  bytes a block and leapfrog; each timed at 1024 chains with its slowest
+  chain, bound, registers and spills. The four ``PolyGaussian`` units
+  build beside [3]-[9] and are loaded in [2c].
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
@@ -198,7 +208,10 @@ _REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the bench configuration (bench.py)
 N_CHAIN, D, Q, N_WARMUP, N_POST = 1024, 32, 0.01, 400, 300
-K_CMP = 4          # transitions per chunk in the kernel-vs-plain checks
+# transitions per chunk in the kernel-vs-plain checks: the plain versions'
+# eager calls are most of the smoke's wall; 2 keeps a warmup chunk's
+# window switch inside the chunk
+K_CMP = 2
 MAX_TREEDEPTH, MAX_CHANGE = 10, 1000.
 # [9]: the tree loop on a correlated Gaussian (200 + 150 iterations since
 # [15] came: the covariance's error read 0.01 at 300 + 300, the gate 0.2)
@@ -206,7 +219,9 @@ TREE_D, TREE_CHAINS, TREE_WARMUP, TREE_POST, TREE_COV_TOL = 8, 256, 200, 150, 0.
 # GBS as benchmarks/suite.py:197 runs it, and the banana's exact logz
 # (benchmarks/results.jsonl, "fiducial")
 F_CALL, N_Q_MAX, LOGZ_EXACT, LOGZ_TOL = 0.05, 100_000, -127.364, 0.25
-GBS_SEEDS = 6      # [6]'s generator seeds (10 until [17] came)
+# [6]'s generator seeds: a seed's logz spreads by sd 0.007-0.009, well
+# inside the gate on the mean (its quoted error, ~0.021)
+GBS_SEEDS = 4
 KDE_M = 512        # queries per column in the KDE kernel-vs-plain checks
 KDE_F32_TOL = 2e-6  # the float32 kernel against the float64 plain version
 # [10]: the DES-like Recipe (examples/des_like_pipeline.py) at full width
@@ -235,6 +250,10 @@ N_PROFILE = 20                     # HMC warmup transitions profiled
 ANCHORS = (('funnel', 16, '3.06 M'), ('ring', 64, '10.2 M'),
            ('cauchy', 48, '32.4-33.8 M'))
 ANCHOR_RHAT, ANCHOR_SIGMAS = 1.02, 4.0
+# the trees' depth limit of the cauchy's bitwise checks ([12], and its
+# user form's in [14]): its trees reach 1023 leapfrogs, each leaf of the
+# plain version a few dozen eager torch calls; timed at depth 10
+ANCHOR_CHECK_DEPTH = {'cauchy': 8}
 # [14]: a user's own torch densities (bayesfast_tpu_torch/examples/
 # user_densities.py) traced into the kernels: the generated units built in
 # [2] (the bench banana in both dtypes, the anchors' user forms in
@@ -279,9 +298,15 @@ WIDE_K, MVN_CMP_CHAINS, WIDE_F64_CHAINS = 2, 64, 64
 WIDE_RECIPE_SEED, WIDE_POLY_DIMS = 27, (100, 250)
 WIDE_POLY_CHAINS, WIDE_NE8_CHAINS, MVN_PLAN_CHAINS = 64, 32, 16
 WIDE_CHECK_DEPTH, WIDE_POLY_FIT = 6, 600
+# [17a]'s further NE = 4 checks, at depth WIDE_CHECK_DEPTH: a partial last
+# block of [17]'s last state, and a state of mixed tree sizes
+# (``_mixed_state``)
+WIDE_PARTIAL_CHAINS, WIDE_MIXED_CHAINS = 60, 24
 # --ab: MVN-250's saved state, from a per-chain sample() at 1024 chains,
 # float32, seed 32 of this many warmup + post iterations (the first process)
 MVN_AB_WARMUP, MVN_AB_POST = 100, 10
+# the niceness of the background builds' nvcc (``_Background``)
+NVCC_NICE = 10
 # one NVIDIA H100 SXM: fp32 and fp64 outside the tensor cores (NVIDIA's
 # data sheet), device memory
 PEAK_FP32, PEAK_FP64, PEAK_BYTES = 67e12, 34e12, 3.35e12
@@ -599,7 +624,7 @@ def _sample_path(torch, bt, den, A, tag, expect, checkpoint=None,
 
 
 def _kernel_vs_plain(torch, den, carry, dtype):
-    """Both kernels against their plain versions at C=1024, D=32, K=4 on
+    """Both kernels against their plain versions at C=1024, D=32, K=2 on
     the main path's final state (positions, adapted metric and step size)
     cast to ``dtype``, plus the chain_start split. Returns the max abs
     errors and the plain versions' ms (each the one call compared)."""
@@ -665,7 +690,7 @@ def _kernel_vs_plain(torch, den, carry, dtype):
 
 def _time_chunks(torch, den, carry, plain_ms=None, ops=None, suffix='',
                  peak=PEAK_FP32, timer=_time_ms, k=K_CMP):
-    """One K=4 (``k``) chunk of each kernel at a path's shapes and final
+    """One K=2 (``k``) chunk of each kernel at a path's shapes and final
     state
     (CUDA events; the kernel warmed up first), beside the plain version's
     ms that its comparison measured (``plain_ms``, by name + suffix; None:
@@ -740,7 +765,7 @@ def _block_inputs(torch, carry, dtype):
 def _block_vs_plain(torch, den, carry, dtype):
     """[8b] The block kernel against its plain version at C=1024, D=32 on
     the pooled path's final state, and 4 block launches under
-    ``_transition_seed`` seeds against one K=4 chunk launch (bitwise).
+    ``_transition_seed`` seeds against one K=2 chunk launch (bitwise).
     Returns the max abs error and the plain version's ms (the call
     compared)."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -1036,58 +1061,39 @@ def _tempered_pair(torch, bt):
             0.5 * T_D * np.log(T_VAR / T_BASE_VAR))
 
 
-def _other_samplers(torch, bt, den, A, nuts_tt, nuts_path):
-    """[11] HMC, ChEES, TNUTS, THMC and the ensemble through ``sample`` at
-    1024 chains, then the checkpoint resume of [11e] against the
-    uninterrupted NUTS run of [3] (``nuts_tt``, saved at the end of its
-    warmup to ``nuts_path``) and the ChEES run of [11b]. Returns the rates
-    by sampler."""
-    out = {}
-    work = _smoke_dir()
+def _hmc(torch, bt, den, A):
+    """[11a] HMC through ``sample`` at 1024 chains; it launches no kernel,
+    so it runs beside [2]'s nvcc (niced). Checkpoints HMC ``N_PROFILE``
+    transitions before the end of its warmup for ``_other_samplers``'
+    profiled call; returns its rates."""
     # ---- [11a] HMC on banana-32, from the Sobol starts (the descent and
     # the step probe as for NUTS). With 32 leapfrogs its chains need ~1000
     # warmup iterations before the banana's moments settle (700 leave
     # E[z_odd] 6 standard errors high, in the JAX package too) ----
     bt.utils.set_generator(32)
-    prof_path = os.path.join(work, 'hmc_warmup.pkl')
-    tt, out['HMC'] = _run_sampler(
+    prof_path = os.path.join(_smoke_dir(), 'hmc_warmup.pkl')
+    tt, rates = _run_sampler(
         torch, bt, den, bt.HTrace(n_chain=N_CHAIN, n_iter=H_WARMUP + H_POST,
                                   n_warmup=H_WARMUP, n_int_step=HMC_STEPS),
         '[11a] HMC, banana-32', H_WARMUP, H_POST,
         saves=[(H_WARMUP - N_PROFILE, prof_path)])
     _banana_moments(tt, A, '[11a]')
-    # one warmup call of N_PROFILE transitions, resumed from its checkpoint
-    tp = bt.utils.checkpoint.load(prof_path)
-    out['HMC']['busy'] = _device_share(
-        torch, f'[11a] profiled HMC warmup call ({N_PROFILE} transitions)',
-        lambda: bt.sample(den, tp, n_run=N_PROFILE, verbose=False))
-    # ---- [11b] ChEES on banana-32, warm-started as a Recipe step is: from
-    # [3]'s last draws with the diag metric of its draws, held fixed. From
-    # the Sobol starts its shared trajectory locks short (the clip at eps
-    # x max_leapfrogs meets the step's early dip) and 1000 warmup
-    # iterations leave E[z_odd] 10-20 standard errors low, in the JAX
-    # package too ----
-    bt.utils.set_generator(32)
-    chees_path = os.path.join(work, 'chees_warmup.pkl')
-    tc, out['CHEES'] = _run_sampler(
-        torch, bt, den, bt.CTrace(
-            n_chain=N_CHAIN, n_iter=C_WARMUP + C_POST, n_warmup=C_WARMUP,
-            x_0=nuts_tt.get(flatten=False)[:, -1],
-            metric=bt.samplers._get_metric(nuts_tt, 'diag'),
-            adapt_metric=False),
-        '[11b] ChEES, banana-32, warm-started', C_WARMUP, C_POST,
-        saves=[(C_WARMUP, chees_path)])
-    _banana_moments(tc, A, '[11b]')
-    tl = tc.trace._stats_arrays['traj_len'][0]
-    # the stats record the length each transition used: post-warmup
-    # transitions all use the last warmup update's
-    print(f'    trajectory length {tl[0]:.4f} at the start, '
-          f'{tl[C_WARMUP]:.4f} after warmup; mean leapfrogs an iteration '
-          f'{tc.trace._stats_arrays["n_int_step"][0].mean():.2f}')
-    if not (abs(np.log(tl[C_WARMUP])) > 0.01
-            and np.all(tl[C_WARMUP:] == tl[C_WARMUP])):
-        raise AssertionError('[11b]: the trajectory length did not adapt in '
-                             'warmup, or moved after it')
+    return rates
+
+
+def _tempered_and_ensemble():
+    """``--free-samplers``: [11c] TNUTS and THMC on the tempered Gaussian
+    pair and [11d] the ensemble through ``sample`` at 1024 chains, in a
+    process of their own that ``main`` starts beside [2]'s build and
+    [11a] (none of them launches a kernel). Returns 0; a gate that fails
+    raises."""
+    import torch
+    sys.path.insert(0, _REPO)
+    import bayesfast_tpu_torch as bt
+    warnings.filterwarnings('ignore', message='for chain #')
+    bt.config.set_nuts_kernel('cuda')
+    den = _bench_density(torch.float32)[1]
+    out = {}
     # ---- [11c] TNUTS and THMC on the tempered Gaussian pair, in float64:
     # in float32 the base phase's weights (delta up to ~130 at D = 32)
     # underflow to 0 ----
@@ -1125,6 +1131,77 @@ def _other_samplers(torch, bt, den, A, nuts_tt, nuts_path):
                                     n_warmup=EG_WARMUP),
         "[11d] ensemble, [3b]'s Gaussian", EG_WARMUP, EG_POST)
     _gaussian_gate(tg.get(), mean, var_g, '[11d]')
+    return 0
+
+
+class _Process:
+    """``chip_smoke.py *args`` in a process of its own, started at once,
+    its output kept in a temporary file; ``join()`` waits for it, prints
+    its output and raises if it failed. A process not joined is killed at
+    exit."""
+
+    def __init__(self, *args):
+        import atexit
+        import tempfile
+        self._args = args
+        self._out = tempfile.TemporaryFile('w+')
+        self._proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), *args],
+            stdout=self._out, stderr=subprocess.STDOUT, text=True)
+        atexit.register(self._proc.kill)
+
+    def join(self):
+        rc = self._proc.wait()
+        self._out.seek(0)
+        sys.stdout.write(self._out.read())
+        self._out.close()
+        if rc != 0:
+            raise RuntimeError(f'chip_smoke.py {" ".join(self._args)} '
+                               f'failed (exit code {rc})')
+
+
+def _other_samplers(torch, bt, den, A, nuts_tt, nuts_path):
+    """[11] the samplers that need [3] or the card to themselves: [11a]'s
+    profiled HMC warmup call (from ``_hmc``'s checkpoint), ChEES
+    warm-started from [3]'s last draws, then the checkpoint resume of
+    [11e] against the uninterrupted NUTS run of [3] (``nuts_tt``, saved at
+    the end of its warmup to ``nuts_path``) and the ChEES run of [11b].
+    Returns the rates by sampler."""
+    out = {}
+    work = _smoke_dir()
+    # one HMC warmup call of N_PROFILE transitions, resumed from its
+    # checkpoint
+    tp = bt.utils.checkpoint.load(os.path.join(work, 'hmc_warmup.pkl'))
+    out['HMC_busy'] = _device_share(
+        torch, f'[11a] profiled HMC warmup call ({N_PROFILE} transitions)',
+        lambda: bt.sample(den, tp, n_run=N_PROFILE, verbose=False))
+    # ---- [11b] ChEES on banana-32, warm-started as a Recipe step is: from
+    # [3]'s last draws with the diag metric of its draws, held fixed. From
+    # the Sobol starts its shared trajectory locks short (the clip at eps
+    # x max_leapfrogs meets the step's early dip) and 1000 warmup
+    # iterations leave E[z_odd] 10-20 standard errors low, in the JAX
+    # package too ----
+    bt.utils.set_generator(32)
+    chees_path = os.path.join(work, 'chees_warmup.pkl')
+    tc, out['CHEES'] = _run_sampler(
+        torch, bt, den, bt.CTrace(
+            n_chain=N_CHAIN, n_iter=C_WARMUP + C_POST, n_warmup=C_WARMUP,
+            x_0=nuts_tt.get(flatten=False)[:, -1],
+            metric=bt.samplers._get_metric(nuts_tt, 'diag'),
+            adapt_metric=False),
+        '[11b] ChEES, banana-32, warm-started', C_WARMUP, C_POST,
+        saves=[(C_WARMUP, chees_path)])
+    _banana_moments(tc, A, '[11b]')
+    tl = tc.trace._stats_arrays['traj_len'][0]
+    # the stats record the length each transition used: post-warmup
+    # transitions all use the last warmup update's
+    print(f'    trajectory length {tl[0]:.4f} at the start, '
+          f'{tl[C_WARMUP]:.4f} after warmup; mean leapfrogs an iteration '
+          f'{tc.trace._stats_arrays["n_int_step"][0].mean():.2f}')
+    if not (abs(np.log(tl[C_WARMUP])) > 0.01
+            and np.all(tl[C_WARMUP:] == tl[C_WARMUP])):
+        raise AssertionError('[11b]: the trajectory length did not adapt in '
+                             'warmup, or moved after it')
     # ---- [11e] checkpoint resume on the card ----
     for name, path, ref, n_w in (('NUTS', nuts_path, nuts_tt, N_WARMUP),
                                  ('ChEES', chees_path, tc, C_WARMUP)):
@@ -1221,26 +1298,30 @@ def _device_share(torch, tag, fn):
     the most of it; returns the busy share (None if not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone, read from the raw events: with the
+    # host's every operator recorded, or the events parsed into
+    # key_averages(), reading them took 15-30 s a call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    by_name = {}  # each device event's name: (ns, count)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    busy = sum(ns for ns, _ in by_name.values()) / 1e9
     if busy == 0:
         print(f'{tag}: the profiler recorded no device time; device busy '
               'share not measured')
         return None
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     print(f'{tag}: wall {wall:.3f} s, device busy {busy:.3f} s '
           f'({100 * busy / wall:.1f} %), idle {100 * (1 - busy / wall):.1f} '
           '%; top device kernels:')
-    for e in top:
-        print(f'    {e.self_device_time_total / 1e3:9.2f} ms  '
-              f'{e.count:6d} x  {e.key[:90]}')
+    for key, (ns, n) in top:
+        print(f'    {ns / 1e6:9.2f} ms  {n:6d} x  {key[:90]}')
     return busy / wall
 
 
@@ -1664,7 +1745,7 @@ def _chunks_vs_plain(torch, den, carry, dtype, name, suffix, label='',
                      block=False, warmup=True, k=K_CMP, depth=MAX_TREEDEPTH):
     """Both chunk kernels (the frozen one alone without ``warmup``; with
     ``block`` one block launch too) with the density ``den`` (``name`` in
-    the printed lines) against their plain versions at K = 4 (``k``) on a
+    the printed lines) against their plain versions at K = 2 (``k``) on a
     path's final state cast to ``dtype``: [10b]'s PolyGaussian, [12]'s
     anchors, [14]'s traced densities, [16]'s and [17a]'s wide ones (at
     ``depth``, the trees' depth limit). Returns the max abs errors and the
@@ -1750,10 +1831,10 @@ def _cubic_density(bt, rec, scaled):
 def _cubic_kernels(torch, bt, rec):
     """[13b] The frozen chunk, warmup chunk and block kernels with the cubic
     PolyGaussian density (F = 238 features, M = 457 outputs) against their
-    plain versions at C = DES_CHAINS, K = 4, on [13]'s last sample step's
+    plain versions at C = DES_CHAINS, K = 2, on [13]'s last sample step's
     state, float64 and float32, without and with the surrogate's own input
     scales (on its first TRACED_CHAINS chains); each dtype's shared-memory
-    plan printed; the unscaled density's K = 4 chunks and one block launch
+    plan printed; the unscaled density's K = 2 chunks and one block launch
     timed in both dtypes, and its chunks
     under the other tile widths (``_stream_plans``). Returns (max abs
     errors by kernel, {dtype: times by kernel + '_cubic'})."""
@@ -1806,18 +1887,30 @@ def _cubic_kernels(torch, bt, rec):
     return errs, times
 
 
-def _plan_text(plan, dscal, itemsize):
+def _plan_text(plan, dscal, itemsize, dim=None):
     """A PolyGaussian launch's shared-memory plan (``poly_smem_plan``) in
     words, with the L2 bytes a block reads per leapfrog for the features
-    it does not stage (``_l2_bytes``)."""
+    it does not stage (``_l2_bytes``); past D = 64 (``dim``, the plan's
+    ``block``: PolyBlock) also the shared-memory bytes of WT and the
+    Hessians' L2 bytes a block and leapfrog (``_block_bytes``), beside
+    what a warp a chain read (PolyGaussian's design at NE <= 2)."""
     F = int(dscal[3])
+    reads = 'the block reads them' if plan.get('block') else \
+        'each chain reads them'
     path = (f'streamed tiles of {plan["tile"]} features '
             f'({plan["tile_bytes"]} bytes a buffer)' if plan.get('stream')
-            else 'each chain reads them' if plan['rows'] < F else 'all staged')
-    return (f'{plan["rows"]} of {F} features staged, {path}; stacks in '
+            else reads if plan['rows'] < F else 'all staged')
+    text = (f'{plan["rows"]} of {F} features staged, {path}; stacks in '
             f'shared memory: {plan["stacks_smem"]}; {plan["bytes"]} bytes a '
-            f'block; {_l2_bytes(plan, dscal, itemsize)} L2 bytes a '
+            f'block; {_l2_bytes(plan, dscal, itemsize)} L2 bytes of WT a '
             f'leapfrog and block')
+    if plan.get('block') and dim is not None:
+        b = _block_bytes(plan, dscal, itemsize, dim)
+        text += (f'; block-wide: WT read from shared memory {b["wt_smem"]} '
+                 f'B a leapfrog and block (a warp a chain: '
+                 f'{b["wt_smem_per_chain"]}), the Hessians from L2 '
+                 f'{b["hess_l2"]} B ({b["hess_l2_per_chain"]})')
+    return text
 
 
 def _l2_bytes(plan, dscal, itemsize):
@@ -1826,16 +1919,51 @@ def _l2_bytes(plan, dscal, itemsize):
     the tiles' copies (a tick's forward pass copies tiles 2 .. NT - 1, its
     back pass NT - 3 .. 0: each starts on the two tiles the last pass ended
     on); else each of the 8 chains reads every such feature's M
-    coefficients twice, forward and back."""
+    coefficients twice, forward and back, or, the block together past D =
+    64 (PolyBlock), once forward and once a group of chains back
+    (``_block_bytes``)."""
     M, F = int(dscal[2]), int(dscal[3])
     if plan.get('stream'):
         n_tiles = -(-(F - plan['rows']) // plan['tile'])
         return 2 * max(n_tiles - 2, 0) * plan['tile_bytes']
-    return 2 * 8 * (F - plan['rows']) * M * itemsize
+    reads = 1 + _block_groups(itemsize) if plan.get('block') else 2 * 8
+    return reads * (F - plan['rows']) * M * itemsize
+
+
+def _block_groups(itemsize):
+    """The back pass's chain groups a block of 8 chains at work
+    (``csrc/nuts_poly.cuh::PolyBlock::kCB``: 4 chains a group in float32,
+    2 in float64)."""
+    return 8 // (4 if itemsize == 4 else 2)
+
+
+def _block_bytes(plan, dscal, itemsize, dim):
+    """PolyBlock's reads a block and leapfrog with its 8 chains at work,
+    from its plan: WT from shared memory (the forward pass reads each
+    staged and streamed feature's row vectors once; the back pass reads
+    each group of 8 once for each group of chains, `_block_groups`), and
+    the two Hessians from L2 (each value once, or once for each half of
+    the chains where two threads a output fit the block, NE <= 4:
+    ``PolyBlock::hess``); beside PolyGaussian's, where each of the 8 warps
+    read WT forward and back and both Hessians itself."""
+    M, F = int(dscal[2]), int(dscal[3])
+    n, rows = 16 // itemsize, plan['rows']
+    staged = -(-rows // n) * n
+    streamed = (-(-(F - rows) // plan['tile']) * plan['tile']
+                if plan.get('stream') else 0)
+    back = -(-staged // 8) * 8 + streamed
+    row = M * itemsize
+    P = 32 * -(-dim // 32)
+    hess = 2 * dim * dim * itemsize
+    return dict(wt_smem=row * (staged + streamed
+                               + _block_groups(itemsize) * back),
+                wt_smem_per_chain=8 * row * (staged + streamed + back),
+                hess_l2=(2 if 2 * P <= 256 else 1) * hess,
+                hess_l2_per_chain=8 * hess)
 
 
 def _stream_plans(torch, den, carry, ops):
-    """[13b] The cubic density's K = 4 chunks on ``carry`` under the
+    """[13b] The cubic density's K = 2 chunks on ``carry`` under the
     streamed path's other tile widths, and under the path that reads the
     unstaged features in each chain (tile 0, the parent's), timed beside
     the plan's and held bitwise to its outputs: the measurement that
@@ -2005,7 +2133,7 @@ def _anchor_kde(torch, draws):
 
 def _anchor_kernels(torch, name, den, carry):
     """[12] The chunk and block kernels with an anchor density against
-    their plain versions (bitwise), then timed, at K = 4 on the anchor's
+    their plain versions (bitwise), then timed, at K = 2 on the anchor's
     final state, float64 then float32. Returns {dtype: (max abs errors,
     times)}, keyed by kernel + '_' + name."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -2014,8 +2142,9 @@ def _anchor_kernels(torch, name, den, carry):
     out = {}
     for dt, peak in ((torch.float64, PEAK_FP64), (torch.float32, PEAK_FP32)):
         c = _cast(carry, dt)
-        errs, plain_ms = _chunks_vs_plain(torch, den, c, dt, name,
-                                          f'_{name}', block=True)
+        errs, plain_ms = _chunks_vs_plain(
+            torch, den, c, dt, name, f'_{name}', block=True,
+            depth=ANCHOR_CHECK_DEPTH.get(name, MAX_TREEDEPTH))
         times = _time_chunks(torch, den, c, plain_ms, ops, f'_{name}',
                              peak)[0]
         key = f'nuts_block_{name}'
@@ -2055,11 +2184,11 @@ def _traced(torch, bt, dens, rates3, anchor_carries, ptxas, builds,
     written in torch (``examples/user_densities.py``) through ``sample``
     at [3]'s configuration under ``nuts_kernel='auto'``: every transition on
     the traced chunk kernels (0 tree-loop transitions), [3]'s gates, its
-    rates beside [3]'s. Then the traced frozen and warmup chunks (K = 4)
+    rates beside [3]'s. Then the traced frozen and warmup chunks (K = 2)
     and a block launch held bitwise against the program's interpreter at
     TRACED_CHAINS chains of the path's final state, float32 and float64,
     and timed there and at the path's 1024 chains; the funnel, ring and
-    cauchy user forms' frozen chunk (K = 4, float64) on [12]'s final
+    cauchy user forms' frozen chunk (K = 2, float64) on [12]'s final
     states. Prints each instantiation's kernel ms, ns a leapfrog on the
     slowest chain, registers and spills (``ptxas``) and its nvcc seconds
     (``builds``, by label). Returns {kernel row: (launches, max abs error,
@@ -2127,10 +2256,12 @@ def _traced(torch, bt, dens, rates3, anchor_carries, ptxas, builds,
         c = _cast(carry_a, torch.float64)
         print(f'[14] traced {name} (the user form): {len(prog_a.nodes)} '
               f'nodes, {ops_a} operations a leapfrog; frozen K={K_CMP} at '
-              f'C={c.q.shape[0]}, float64')
-        e, plain_ms = _chunks_vs_plain(torch, den_a, c, torch.float64,
-                                       f'traced {name}', f'_traced_{name}',
-                                       warmup=False)
+              f'C={c.q.shape[0]}, depth '
+              f'{ANCHOR_CHECK_DEPTH.get(name, MAX_TREEDEPTH)}, float64')
+        e, plain_ms = _chunks_vs_plain(
+            torch, den_a, c, torch.float64, f'traced {name}',
+            f'_traced_{name}', warmup=False,
+            depth=ANCHOR_CHECK_DEPTH.get(name, MAX_TREEDEPTH))
         times = _time_chunks(torch, den_a, c, plain_ms, ops_a,
                              f'_traced_{name}', PEAK_FP64)[0]
         print(f'  traced {name} float64: kernels '
@@ -2173,7 +2304,7 @@ def _donut(torch, bt, ptxas, builds, srcs, smi):
     the chunk kernels with the plan's traced functor (0 tree-loop
     transitions), each plan's unit the one [2] built before any fit. Gates
     n_call <= DONUT_NCALL, finite weights and |E[r] - DONUT_R| <=
-    DONUT_R_TOL. Then the quadratic plan's frozen and warmup K = 4 chunks
+    DONUT_R_TOL. Then the quadratic plan's frozen and warmup K = 2 chunks
     and a block launch bitwise against the program's interpreter at the
     Recipe's 8 chains on its final state, float64 and float32, and timed.
     Returns {kernel row: (launches, max abs error, (ms, plain ms, bound
@@ -2335,9 +2466,9 @@ def _unit_registers(srcs, tag='[2b]'):
         print(f'{tag} {label}:')
         for k in sorted(tables[label]):
             print(f'    {k:52s} {tables[label][k]}')
-        if len(tables[label]) != 3:
-            raise AssertionError(f'{label}: {len(tables[label])} kernels, '
-                                 'not 3')
+        n_kern = sum(k.startswith('nuts_') for k in tables[label])
+        if n_kern != 3:
+            raise AssertionError(f'{label}: {n_kern} kernels, not 3')
     return tables
 
 
@@ -2514,14 +2645,18 @@ def _wide(torch, bt, dens, srcs, ptxas, builds, smi):
             for dt in (torch.float32, torch.float64):
                 print(f'[16a] MVN-250 {str(dt)[6:]} plan: '
                       f'{_tile_plan(prog, dt.itemsize)}')
+        # the MVN's trees reach depth 10 (1023 leapfrogs of a 256 x 256
+        # matvec each in its plain version): its checks at depth 6, as
+        # [17a]'s
+        depth = WIDE_CHECK_DEPTH if key == 'mvn' else MAX_TREEDEPTH
         for dt, n_c in ((torch.float32, c32),
                         (torch.float64, WIDE_F64_CHAINS)):
             c = _cast(_first_chains(carry, n_c), dt)
             print(f'[16a] {name} kernels vs plain, C={n_c}, K={WIDE_K}, '
-                  f'{str(dt)[6:]}, the run\'s final state')
+                  f'depth {depth}, {str(dt)[6:]}, the run\'s final state')
             e, plain_ms = _chunks_vs_plain(torch, den, c, dt, name,
                                            f'_wide_{key}', block=True,
-                                           k=WIDE_K)
+                                           k=WIDE_K, depth=depth)
             for k, val in e.items():
                 errs[k] = max(errs.get(k, 0.0), val)
             if dt == torch.float32:
@@ -2542,7 +2677,7 @@ def _wide(torch, bt, dens, srcs, ptxas, builds, smi):
             torch, den, carry.q, metric, torch.exp(carry.step.log_bar),
             plain32[f'nuts_block_wide_{key}'], ops,
             tag=f'  nuts_block_wide_{key}', timer=_device_ms)[0]
-        print(f'  {name}: plain ms at C={c32}; {smi}')
+        print(f'  {name}: plain ms at C={c32}, depth {depth}; {smi}')
         for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
             k = f'{kind}_wide_{key}'
             rows[k] = (launches.get(kind, 0), errs[k], times[k])
@@ -2779,7 +2914,10 @@ def _wide_poly_sources(torch):
 
 class _Background:
     """``fn()`` in a thread of its own, started at once; ``join()`` waits
-    for it and returns its result, or raises its exception."""
+    for it and returns its result, or raises its exception. The thread
+    runs at nice ``NVCC_NICE`` (Linux's nice is a thread's, and the
+    processes it starts inherit it): its nvcc then leaves the cores that
+    the host-bound phases beside it need to them."""
 
     def __init__(self, fn):
         import threading
@@ -2787,6 +2925,8 @@ class _Background:
 
         def run():
             try:
+                os.setpriority(os.PRIO_PROCESS, threading.get_native_id(),
+                               NVCC_NICE)
                 self._out = fn()
             except BaseException as exc:  # raised again in join()
                 self._exc = exc
@@ -2976,9 +3116,14 @@ def _wide_plan_kernels(torch, bt, rec, launches, mvn_carry, ptxas, builds,
     (WIDE_POLY_CHAINS chains), at NE = 8 on a seeded state of a D = 250
     surrogate (``_poly_250``, WIDE_NE8_CHAINS), and MVN-250 as a traced
     Density plan at NE = 8 on [16c]'s final state (MVN_PLAN_CHAINS), these
-    two at depth WIDE_CHECK_DEPTH; each
-    one's plan, registers and spills; then each timed at 1024 chains in
-    float32, device only, with its slowest chain and bound. Returns
+    two at depth WIDE_CHECK_DEPTH; at NE = 4 also a partial last block
+    (WIDE_PARTIAL_CHAINS of [17]'s last state) and a state of mixed tree
+    sizes (``_mixed_state``, WIDE_MIXED_CHAINS), both at depth
+    WIDE_CHECK_DEPTH;
+    each one's plan (past D = 64 with the block-wide bytes of
+    ``_block_bytes``), registers and spills; then each timed at 1024
+    chains in float32, device only, with its slowest chain and bound, and
+    the mixed state's block launch. Returns
     {kernel row: (launches on [17]'s path, max abs error, (ms, plain ms,
     bound ms, bound by))}."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -3019,7 +3164,7 @@ def _wide_plan_kernels(torch, bt, rec, launches, mvn_carry, ptxas, builds,
                 dens_id, _, _, _, dscal = nc._spec_for(den, small.q.to(dt))
                 plan = _plan_text(nc._spec_plan(
                     dens_id, dscal, dim, MAX_TREEDEPTH, dt.itemsize), dscal,
-                    dt.itemsize)
+                    dt.itemsize, dim)
                 label = f'poly D={dim} {tag}'
             print(f'[17a] {name} {tag}: plan: {plan}; kernels '
                   f'{_ptxas_text(ptxas, label)}; built in {builds[label]}')
@@ -3032,6 +3177,26 @@ def _wide_plan_kernels(torch, bt, rec, launches, mvn_carry, ptxas, builds,
                 errs[k] = max(errs.get(k, 0.0), v)
             if dt == torch.float32:
                 plain32 = plain_ms
+        extra = ()
+        if key == 'wide_recipe':
+            # a partial last block (warps with no chain), and a state whose
+            # trees differ widely in size (warps idle early, one chain of a
+            # block on alone), each kernel bitwise in both dtypes
+            mixed = _mixed_state(torch, carry_r, WIDE_MIXED_CHAINS)
+            extra = (('partial last block',
+                      _first_chains(carry_r, WIDE_PARTIAL_CHAINS),
+                      WIDE_CHECK_DEPTH),
+                     ('mixed tree sizes', mixed, WIDE_CHECK_DEPTH))
+        for what, st, dep in extra:
+            for dt in (torch.float32, torch.float64):
+                print(f'[17a] {name}, {what}: kernels vs plain, '
+                      f'C={st.q.shape[0]}, K={WIDE_K}, depth {dep}, '
+                      f'{str(dt)[6:]}')
+                e, _ = _chunks_vs_plain(torch, den, st, dt, f'{name} {what}',
+                                        f'_{key}', block=True, k=WIDE_K,
+                                        depth=dep)
+                for k, v in e.items():
+                    errs[k] = max(errs.get(k, 0.0), v)
         C = carry.q.shape[0]
         times = _time_chunks(torch, den, carry, plain32, ops, f'_{key}',
                              k=WIDE_K, timer=_device_ms)[0]
@@ -3041,12 +3206,43 @@ def _wide_plan_kernels(torch, bt, rec, launches, mvn_carry, ptxas, builds,
             torch, den, carry.q, metric, torch.exp(carry.step.log_bar),
             plain32[f'nuts_block_{key}'], ops, tag=f'  nuts_block_{key}',
             timer=_device_ms)[0]
+        if extra:
+            # the mixed state's block launch: its slowest chain runs on
+            # alone, with the whole block
+            Cm = mixed.q.shape[0]
+            _time_block(torch, den, mixed.q, init_diag_metric(
+                mixed.q, nc._mat(mixed.metric.var, Cm, dim, mixed.q)),
+                torch.exp(mixed.step.log_bar), None, ops,
+                tag=f'  nuts_block_{key}, mixed tree sizes, C={Cm}',
+                timer=_device_ms)
         print(f'  {name}: timed at C={C} float32, plain ms at '
               f'C={small.q.shape[0]}; {smi}')
         for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
             k = f'{kind}_{key}'
             rows[k] = (ln.get(kind, 0), errs[k], times[k])
     return rows
+
+
+def _mixed_state(torch, carry, n):
+    """[17a] A state of ``n`` chains whose trees differ widely in size:
+    [17]'s last draws (``carry``), and in every block of eight one chain
+    at a tenth of its step (a long tree, which a block's other chains
+    leave to run on alone) and two moved beyond the surrogate's bound
+    (+-2 in every transformed coordinate)."""
+    from types import SimpleNamespace as NS
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    from bayesfast_tpu_torch.samplers.step_size import init_step_size
+    c = _first_chains(carry, n)
+    q = c.q.clone()
+    C, dim = q.shape
+    var = nc._mat(c.metric.var, C, dim, q)
+    eps = nc._row(torch.exp(c.step.log_bar), C, q).clone()
+    q[1::8] += 2.0
+    q[2::8] -= 2.0
+    eps[0::8] *= 0.1
+    return NS(q=q.contiguous(), metric=init_diag_metric(q, var),
+              step=init_step_size(eps, q.dtype, q.device))
 
 
 def _mvn_source(torch):
@@ -3070,16 +3266,25 @@ def _ptxas_table(log):
     (registers, stack frame bytes, spill store bytes, spill load
     bytes)}."""
     import re
-    out, cur = {}, None
+    out, cur, entry = {}, None, None
     for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        pb = m and re.search(r'PolyBlockI([fd])Li(\d)ELb([01])EE4eval',
+                             m.group(1))
+        if pb and m.group(1) != entry:
+            # PolyBlock's evaluation, a function of its own (__noinline__)
+            cur = (f'PolyBlock::eval {"f32" if pb.group(1) == "f" else "f64"}'
+                   f' NE={pb.group(2)}' + (' streamed' if pb.group(3) == '1'
+                                            else ''))
+            out[cur] = [None, None, None, None]
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            mn = m.group(1)
+            mn = entry = m.group(1)
             kern = re.search(r'nuts_chunk_kernel|nuts_block_kernel', mn)
             name = kern.group(0) if kern else mn
-            dens = re.search(
-                r'(PolyGaussian|Banana|Gaussian|Funnel|Ring|Cauchy|Traced)',
-                mn)
+            dens = re.search(r'(PolyBlock|PolyGaussian|Banana|Gaussian|Funnel|'
+                             r'Ring|Cauchy|Traced)', mn)
             dt = re.search(r'kernelI([fd])Li(\d)E', mn)
             parts = [name]
             if dt:
@@ -3087,7 +3292,7 @@ def _ptxas_table(log):
                           f'NE={dt.group(2)}']
             if dens:
                 parts.append(dens.group(1))
-            if re.search(r'PolyGaussianI[fd]Li\dELb1E', mn):
+            if re.search(r'Poly(?:Gaussian|Block)I[fd]Li\dELb1E', mn):
                 parts.append('streamed')
             if name == 'nuts_chunk_kernel':
                 # the kernel's own flag: the last template argument
@@ -3223,7 +3428,7 @@ def _digest(obj):
 def _poly_plans(torch, den, carry):
     """[10b] The shared-memory plan of each PolyGaussian launch (the
     launch fails if the kernel library lays a block out otherwise), and
-    one K = 4 chunk of each kernel under it on the last sample step's
+    one K = 2 chunk of each kernel under it on the last sample step's
     state: float32 under its plan (all of WT and the stacks), with half of
     WT (36 of 73 features), each chain reading the rest or streamed in
     tiles of 16, and with no feature staged; float64 under its plan
@@ -3371,7 +3576,7 @@ def _ab_one(tree, state, out_path, n_seeds):
 
 
 def _anchor_chunks(torch, name):
-    """A frozen and a warmup K = 4 chunk (float64, 64 chains) with the
+    """A frozen and a warmup K = 2 chunk (float64, 64 chains) with the
     compiled-in anchor density ``name`` on a state drawn from a seeded
     generator: the A/B's check that [12]'s instantiations keep their
     draws. Returns the two chunks' outputs."""
@@ -3380,7 +3585,7 @@ def _anchor_chunks(torch, name):
 
 
 def _seeded_chunks(torch, den):
-    """A frozen and a warmup K = 4 chunk (float64, 64 chains) with ``den``
+    """A frozen and a warmup K = 2 chunk (float64, 64 chains) with ``den``
     on a state drawn from a generator seeded by its dimension; returns the
     two chunks' outputs."""
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -3515,18 +3720,34 @@ def main():
 
     t_run = t_phase = time.time()
     walls = {}  # each phase's wall, in the order run
+    # [11c] and [11d] launch no kernel: a process of their own beside [2]
+    # and [11a]
+    samplers = _Process('--free-samplers')
 
     # ---- [2] build: one nvcc per source, in parallel, the units that
-    # [14]'s traced densities and [15]'s donut plans generate too ----
+    # [14]'s traced densities and [15]'s donut plans generate too; in the
+    # background, beside the samplers of [11] that launch no kernel ----
     traced_dens, traced_srcs = _traced_sources(torch)
     donut_srcs = _donut_sources(torch)
     traced_srcs.update(donut_srcs)
     wide_dens, wide_srcs = _wide_sources(torch)
-    paths = _build.build_library(verbose=True,
-                                 sources=list(traced_srcs.values())
-                                 + list(wide_srcs.values()))
+    build = _Background(lambda: _build.build_library(
+        sources=list(traced_srcs.values()) + list(wide_srcs.values())))
+    t_phase = _wall(walls, '[2] sources', t_phase)
+
+    # ---- [11a] HMC (plain torch on the card) beside the build and the
+    # process of [11c] and [11d] ----
+    config.set_dtype(torch.float32)
+    config.set_nuts_kernel('cuda')
+    A, den = _bench_density(torch.float32)
+    _hmc(torch, bt, den, A)
+    samplers.join()
+    t_phase = _wall(walls, '[11a, c, d]', t_phase)
+
+    paths = build.join()
     print(f'[2] built {[os.path.relpath(p, _REPO) for p in paths.values()]}'
-          f' in {_build.last_build_seconds:.1f} s; each nvcc (s): '
+          f' in {_build.last_build_seconds:.1f} s, beside [11a, c, d]; '
+          f'each nvcc (s): '
           f'{ {k: round(v, 1) for k, v in _build.last_build_walls.items()} }')
     builds = {}  # each generated unit's nvcc wall, by its label
     for label, src in {**traced_srcs, **wide_srcs}.items():
@@ -3544,13 +3765,10 @@ def main():
     # phases leave the cores to nvcc
     poly_srcs = _wide_poly_sources(torch)
     poly_build = _Background(lambda: _build_walls(poly_srcs))
-    t_phase = _wall(walls, '[2]', t_phase)
+    t_phase = _wall(walls, '[2] after [11a, c, d]', t_phase)
 
     # ---- [3] the sampling path at bench.py's configuration (the port's
     # default device is the card) ----
-    config.set_dtype(torch.float32)
-    config.set_nuts_kernel('cuda')
-    A, den = _bench_density(torch.float32)
     nuts_path = os.path.join(_smoke_dir(), 'nuts_warmup.pkl')
     tt, launches, rates3 = _sample_path(torch, bt, den, A, '[3] main path',
                                         {'nuts_warmup': 1 + 4 * 2,
@@ -3568,7 +3786,8 @@ def main():
 
     # ---- [4] each kernel against its plain version, on the main path's
     # final state ----
-    print('[4] kernel vs plain, C=1024, D=32, K=4, bench banana with bounds')
+    print(f'[4] kernel vs plain, C=1024, D=32, K={K_CMP}, bench banana '
+          'with bounds')
     carry = tt.trace._carry
     errs64 = _kernel_vs_plain(torch, den, carry, torch.float64)[0]
     errs32, plain32 = _kernel_vs_plain(torch, den, carry, torch.float32)
@@ -3661,8 +3880,8 @@ def main():
                          label='full cov ')
     t_phase = _wall(walls, '[10b]', t_phase)
 
-    # ---- [11] the other samplers (plain torch on the card) and the
-    # checkpoint resume of NUTS and ChEES ----
+    # ---- [11] the other samplers that need [3] (plain torch on the
+    # card) and the checkpoint resume of NUTS and ChEES ----
     config.set_dtype(torch.float32)
     _other_samplers(torch, bt, den, A, tt, nuts_path)
     t_phase = _wall(walls, '[11]', t_phase)
@@ -3677,7 +3896,9 @@ def main():
     anchor_rows = {}
     for anchor, den_a, carry_a, launches_a in anchor_runs:
         print(f'[12] {anchor} kernels vs plain, C={carry_a.q.shape[0]}, '
-              f'D={carry_a.q.shape[1]}, K={K_CMP}, final state')
+              f'D={carry_a.q.shape[1]}, K={K_CMP}, depth '
+              f'{ANCHOR_CHECK_DEPTH.get(anchor, MAX_TREEDEPTH)}, final '
+              'state')
         by_dt = _anchor_kernels(torch, anchor, den_a, carry_a)
         for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
             k = f'{kind}_{anchor}'
@@ -3832,6 +4053,8 @@ def _args():
     ap.add_argument('--ab-one', nargs=3, metavar=('TREE', 'STATE', 'OUT'),
                     help='one process of the A/B')
     ap.add_argument('--gbs-seeds', type=int, default=5)
+    ap.add_argument('--free-samplers', action='store_true',
+                    help='[11c] and [11d] alone (main starts this)')
     ap.add_argument('--ptxas-sweep', action='store_true',
                     help='build the kernels past D = 64 at NE = 3..8 and '
                          'print their registers and spills')
@@ -3848,6 +4071,8 @@ if __name__ == '__main__':
                          a.gbs_seeds) or 0
         elif a.ab:
             rc = _ab(os.path.abspath(a.ab), a.work, a.gbs_seeds)
+        elif a.free_samplers:
+            rc = _tempered_and_ensemble()
         elif a.ptxas_sweep:
             import torch
             sys.path.insert(0, _REPO)

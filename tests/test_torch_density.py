@@ -134,3 +134,106 @@ def test_plain_logp_has_no_kernel_spec():
                       input_size=2)
     with pytest.raises(NotImplementedError):
         den.kernel_spec()
+
+
+# ---------------------------------------------------------------------------
+# The batch convention: logp(x (..., D)) -> (...)
+
+def _quad_point(x):
+    """-0.5 |x|^2 of one point, the JAX package's form of a logp."""
+    return -0.5 * (x * x).sum()
+
+
+def _quad_batch(x):
+    """The same logp in the port's batched form."""
+    return -0.5 * torch.sum(x * x, dim=-1)
+
+
+@pytest.mark.parametrize('original_space', [True, False],
+                         ids=['original', 'transformed'])
+def test_single_point_logp_raises(original_space):
+    """A logp written for one point sums the batch: every host and device
+    evaluation of it raises, naming the port's batched convention, where
+    the port used to return the sum (-2.75 on [[1, 2], [0.5, -0.5]],
+    where the JAX package returns [-2.5, -0.25])."""
+    bounds = np.array([[-4., 4.], [-3., 5.]])
+    den = DensityLite(logp=_quad_point, input_size=2, input_scales=bounds,
+                      hard_bounds=True)
+    x = np.array([[1., 2.], [0.5, -0.5]])
+    if not original_space:
+        x = den.from_original(x)
+    for call in (den.logp, den.logp_and_grad, den.grad):
+        with pytest.raises(ValueError, match=r'batch \(\.\.\., D\)'):
+            call(x, original_space=original_space)
+    xt = torch.as_tensor(x)
+    with pytest.raises(ValueError, match='one value a point'):
+        den.device_logp(original_space)(xt)
+    with pytest.raises(ValueError, match='one value a point'):
+        den.device_logp_and_grad(original_space)((), xt)
+    # one point of a batch of shape (D,): a scalar is its batch shape
+    lp = den.device_logp(True)(torch.tensor([1., 2.], dtype=torch.float64))
+    assert lp.shape == () and float(lp) == -2.5
+
+
+def test_batched_logp_matches_jax_row_by_row():
+    """The batched torch form of a logp against the JAX DensityLite over
+    its one-point form, row by row, in both spaces (float64)."""
+    rng = np.random.default_rng(11)
+    D = 5
+    bounds = np.stack([np.full(D, -3.), np.full(D, 4.)]).T
+    cen = rng.normal(size=D)
+    scale = np.exp(rng.normal(size=D) * 0.3)
+
+    def point_j(x):
+        return -0.5 * jnp.sum(((x - cen) / scale) ** 2) + jnp.sum(
+            jnp.sin(x))
+
+    def batch_t(x):
+        c, s = torch.as_tensor(cen).to(x), torch.as_tensor(scale).to(x)
+        return -0.5 * torch.sum(((x - c) / s) ** 2, dim=-1) + torch.sum(
+            torch.sin(x), dim=-1)
+
+    den_j = bf.DensityLite(logp=point_j, input_size=D, input_scales=bounds,
+                           hard_bounds=True)
+    den_t = DensityLite(logp=batch_t, input_size=D, input_scales=bounds,
+                        hard_bounds=True)
+    xo = rng.uniform(-2.5, 3.5, size=(16, D))
+    for x, os_ in ((xo, True), (den_t.from_original(xo), False)):
+        lp_j = np.asarray(den_j.logp(x, original_space=os_))
+        lp_t = den_t.logp(x, original_space=os_)
+        assert lp_t.shape == (16,)
+        np.testing.assert_allclose(lp_t, lp_j, rtol=1e-12)
+        lj, gj = den_j.logp_and_grad(x, original_space=os_)
+        lt, gt = den_t.logp_and_grad(x, original_space=os_)
+        np.testing.assert_allclose(lt, np.asarray(lj), rtol=1e-12)
+        np.testing.assert_allclose(gt, np.asarray(gj), rtol=1e-12,
+                                   atol=1e-12 * np.abs(np.asarray(gj)).max())
+        for i in range(len(x)):  # each row as its own batch of one
+            np.testing.assert_allclose(
+                den_t.logp(x[i:i + 1], original_space=os_)[0], lp_j[i],
+                rtol=1e-12)
+
+
+def test_sample_with_batched_logp_unchanged(monkeypatch):
+    """sample() on a batched logp draws what it drew without the check:
+    the check is a shape comparison that changes no evaluation."""
+    import warnings
+    import bayesfast_tpu_torch as bt
+    from bayesfast_tpu_torch.core import density as tdensity
+
+    def run():
+        den = DensityLite(logp=_quad_batch, input_size=3)
+        bt.utils.set_generator(5)
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore', RuntimeWarning)
+            return bt.sample(den, {'n_chain': 4, 'n_iter': 40,
+                                   'n_warmup': 20}, verbose=False)
+
+    checked = run()
+    monkeypatch.setattr(tdensity.DensityLite, '_logp_x',
+                        lambda self, x: self._logp(x))
+    unchecked = run()
+    assert checked.samples.shape[0] == 4 and checked.samples.shape[-1] == 3
+    assert np.isfinite(checked.samples).all()
+    assert np.array_equal(checked.samples, unchecked.samples)
+    assert np.array_equal(checked.logp, unchecked.logp)
