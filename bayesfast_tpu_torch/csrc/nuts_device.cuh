@@ -13,11 +13,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "nuts_launch.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;  // chains (warps) per block
 constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kMaxSmem = 232448;  // shared memory a block may use, sm_90
 constexpr size_t kDefaultSmem = 48 * 1024;  // without an opt-in attribute
 
 // ---- math overloads ------------------------------------------------------

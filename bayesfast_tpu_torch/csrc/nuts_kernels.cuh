@@ -59,14 +59,30 @@
 // bits, so every branch stays warp-uniform), and each chain retires on its
 // own when its tree ends. Tensor-core matvecs are later work.
 //
+// Not taken, each bitwise right and slower on the f64 anchors (PERF.md):
+// - the next leaf's leapfrog issued ahead of this leaf's tail. Its start
+//   is known before the tail (this leaf's state while the doubling goes
+//   on, at a doubling's end the edge that a uniform keyed by (seed, leaf,
+//   chain) picks), but ptxas schedules within basic blocks, and an f64
+//   leaf is some 80 of them (a BSSY / BSYNC pair around every IEEE
+//   divide's slow path and the math library's range checks): the two
+//   leaves ran one after the other whatever the source order, and the
+//   extra leapfrog and the copies of the start and of the functor made
+//   the f64 chunks 5-15 % slower;
+// - the energy's three sums and the level-0 merge's two dots in one
+//   butterfly, a deeper merge's six in one.
+//
 // Registers and occupancy: the kernels are declared for one block of 8
 // warps an SM (`__launch_bounds__(256, 1)`), so ptxas may give a thread up
-// to 255 registers and has no reason to spill to reach a second block. A
-// second block would not help: at C chains a launch has C / 8 blocks, one
-// wave on 132 SMs up to C = 1056, and a block of the surrogate density
-// (PolyGaussian) takes most of the SM's shared memory anyway. Above 1056
-// chains a second wave of blocks starts only as blocks of the first
-// finish.
+// to 255 registers and has no reason to spill to reach a second block. At
+// C chains a collective density's launch has C / 8 blocks, one wave on 132
+// SMs up to C = 1056 (a block of the surrogate takes most of an SM's
+// shared memory anyway). A density that its warp evaluates alone takes the
+// fewest warps a block that keep the blocks within one wave (1, 2 or 4,
+// else 8; csrc/nuts_launch.cuh::launch_shape): at 64 chains a block a
+// chain, so that the few chains of a launch spread over 64 SMs instead of
+// sharing the issue slots and the FP64 pipes of 8. Above 1056 chains a
+// second wave of blocks starts only as blocks of the first finish.
 //
 // Lane width: a lane holds NE = ceil(D / 32) dimensions, NE = 1..8 (D <=
 // 256, `check_launch`). Past NE = 2 a lane's state (three `State`s of 5
@@ -186,17 +202,12 @@ struct Args {
   T *ss, *ssb, *ls_f, *lb_f, *hb_f, *ct_f, *var_f, *fgm_f, *fgr_f, *fgw_f,
       *bgm_f, *bgr_f, *bgw_f;
   int C, D, K, maxdepth, L;
+  int warps;     // chains (warps) a block
   int stk_smem;  // 1: the checkpoint stacks are in shared memory
   uint32_t seed, i0, chain_start;
   T max_change, logw, d0, d1, target, gamma, kexp, t0;
   int adapt_step, adapt_metric;
 };
-
-// frames per chain: a frame is stored at level `pending` of a leaf that does
-// not finish its subtree, at most maxdepth - 2
-__host__ __device__ __forceinline__ int n_levels(int maxdepth) {
-  return maxdepth - 1 > 1 ? maxdepth - 1 : 1;
-}
 
 // lane-distributed checkpoint frame:
 // [left_p | right_p | p_sum | log_size | q | energy | logp]
@@ -570,11 +581,38 @@ __device__ __forceinline__ auto drain(const Dens& d, int)
 template <class Dens>
 __device__ __forceinline__ void drain(const Dens&, long) {}
 
+// Whether a density's evaluation is its warp's alone (no `drain`: the
+// banana, the Gaussian, the anchors, a generated density that streams
+// nothing): such a density takes any warps a block (`launch_shape`), a
+// collective one kWarps.
+template <class Dens>
+constexpr auto collective(int) -> decltype(((const Dens*)0)->drain(), true) {
+  return true;
+}
+template <class Dens>
+constexpr bool collective(long) {
+  return false;
+}
+template <class Dens>
+constexpr bool kPerWarp = !collective<Dens>(0);
+
+// this warp's chain: with the launch's warps a block for a density that its
+// warp evaluates alone, as the block's first thread plus this thread over
+// 32 (of the forms tried, the one with which ptxas keeps the traced bench
+// banana's f64 warmup chunk in 254 registers, unspilled, as at 8 warps),
+// kWarps for a collective one
+template <class Dens, typename T>
+__device__ __forceinline__ int chain_index(const Args<T>& a) {
+  if constexpr (kPerWarp<Dens>)
+    return (int)((blockIdx.x * (unsigned)a.warps * 32u + threadIdx.x) >> 5);
+  return blockIdx.x * kWarps + (threadIdx.x >> 5);
+}
+
 template <typename T, int NE, class Dens, bool WARM>
 __global__ void __launch_bounds__(kWarps * 32, 1)
     nuts_chunk_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int c = chain_index<Dens>(a);
   T* stk = stage_block(a, dens, c);
   if (c >= a.C) {  // the whole warp leaves together
     drain(dens, 0);
@@ -727,7 +765,7 @@ template <typename T, int NE, class Dens>
 __global__ void __launch_bounds__(kWarps * 32, 1)
     nuts_block_kernel(Args<T> a, Dens dens) {
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int c = chain_index<Dens>(a);
   T* stk = stage_block(a, dens, c);
   if (c >= a.C) {  // the whole warp leaves together
     drain(dens, 0);
@@ -840,41 +878,49 @@ Args<T> make_args(int C, int D, int K, int maxdepth, uint32_t seed,
   return a;
 }
 
-// Shared memory of a launch: the density's parameters, plus every warp's
-// checkpoint stack when all of it fits in a block's shared memory (at depth
-// 10 it does for the banana and the Gaussian at every dtype and D <= 64);
-// else the stacks stay in global scratch. Above 48 KB the kernel must opt
-// in first. `plan` is the layout that the caller computed (bytes, stacks in
-// shared memory; samplers/nuts_cuda.py::poly_smem_plan for PolyGaussian),
-// or bytes < 0 for none: a launch whose layout differs from its plan, or
-// that is over a block's shared memory, is cudaErrorInvalidValue.
+// A launch in the shape `launch_shape` gives it (csrc/nuts_launch.cuh):
+// warps a block by the density's kind (`kPerWarp`) and the SMs of the
+// current device, which is the stream's (a launch on another device's
+// stream fails), and shared memory for the density's parameters and, where
+// they fit, every warp's checkpoint stack (at depth 10 they do for the
+// banana and the Gaussian at every dtype and D <= 64). Above 48 KB the
+// kernel must opt in first. `plan` is the layout that the caller computed
+// (bytes, stacks in shared memory; samplers/nuts_cuda.py::poly_smem_plan
+// for PolyGaussian), or bytes < 0 for none: a launch whose layout differs
+// from its plan, or that is over a block's shared memory, is
+// cudaErrorInvalidValue.
 template <typename T, int NE, int KIND, class Dens>
 cudaError_t launch_kernel(Args<T> a, const Dens& d, cudaStream_t s,
                           long long plan_bytes = -1, int plan_stk = 0) {
-  const size_t frames = (size_t)n_levels(a.maxdepth) * (4 * a.D + 3);
-  size_t bytes = (d.smem_elems() + kWarps * frames) * sizeof(T);
-  a.stk_smem = bytes <= kMaxSmem ? 1 : 0;
-  if (!a.stk_smem) bytes = d.smem_elems() * sizeof(T);
-  if (bytes > kMaxSmem ||
+  int dev, n_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const LaunchShape sh = launch_shape(a.C, a.D, a.maxdepth, d.smem_elems(),
+                                      sizeof(T), kPerWarp<Dens>, n_sm);
+  a.warps = sh.warps;
+  a.stk_smem = sh.stk_smem;
+  if (sh.bytes > kMaxSmem ||
       (plan_bytes >= 0 &&
-       ((long long)bytes != plan_bytes || a.stk_smem != plan_stk)))
+       ((long long)sh.bytes != plan_bytes || a.stk_smem != plan_stk)))
     return cudaErrorInvalidValue;
   const void* fn;
   if constexpr (KIND == kBlock)
     fn = (const void*)nuts_block_kernel<T, NE, Dens>;
   else
     fn = (const void*)nuts_chunk_kernel<T, NE, Dens, KIND == kWarmup>;
-  if (bytes > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (sh.bytes > kDefaultSmem) {
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.bytes);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((a.C + kWarps - 1) / kWarps), block(kWarps * 32);
+  const dim3 grid(sh.blocks), block(sh.warps * 32);
   if constexpr (KIND == kBlock)
-    nuts_block_kernel<T, NE, Dens><<<grid, block, bytes, s>>>(a, d);
+    nuts_block_kernel<T, NE, Dens><<<grid, block, sh.bytes, s>>>(a, d);
   else
     nuts_chunk_kernel<T, NE, Dens, KIND == kWarmup>
-        <<<grid, block, bytes, s>>>(a, d);
+        <<<grid, block, sh.bytes, s>>>(a, d);
   return cudaGetLastError();
 }
 

@@ -78,7 +78,7 @@ _CMP = {'lt': '({0} < {1})', 'le': '({0} <= {1})', 'gt': '({0} > {1})',
         'ge': '({0} >= {1})', 'eq': '({0} == {1})', 'ne': '({0} != {1})',
         'and': '({0} != Real(0) && {1} != Real(0))',
         'or': '({0} != Real(0) || {1} != Real(0))'}
-# what one block may hold (csrc/nuts_device.cuh kMaxSmem) and what one
+# what one block may hold (csrc/nuts_launch.cuh kMaxSmem) and what one
 # module's __constant__ data may take
 MAX_SMEM = 232448
 MAX_CONST = 65536

@@ -48,10 +48,12 @@ card, drives the port's paths and checks what comes out:
   example's seed) under ``nuts_kernel='cuda'``: every transition on the
   chunk kernels with the density compiled in, GBS with its SIT fit on the
   KDE kernel; rhat and logz against the fiducial gated, n_call printed
-  beside the JAX package's. Then each density's chunk and block kernels
-  against their plain versions at 64 chains, K = 2, float64 and float32
-  (the cauchy's at depth 8: its trees reach 1023 leapfrogs), and timed
-  at depth 10.
+  beside the JAX package's, the chunk kernels' device seconds beside the
+  chunk calls' host seconds. Then each density's chunk and block kernels
+  against their plain versions at 64 chains (a block a chain), K = 2,
+  float64 and float32 (the cauchy's at depth 8: its trees reach 1023
+  leapfrogs), and timed at depth 10; and the cauchy's frozen chunk at 201
+  chains (two warps a block, the last block partial).
 * the cubic surrogate ([13]): [10]'s Recipe with both sample steps on a
   linear + quadratic + cubic-2 + cubic-3 PolyModel (the reference's
   'cubic-3' order on the nine nonlinear parameters, 238 features), every
@@ -184,10 +186,15 @@ and warmup chunks and block launch (float32, device only, on a state at
 and block and the unit's registers and spills, and GBS on the per-chain
 draws under generator seeds 0 to N - 1 (default 5). Its readings go to
 ``--work`` (default ``bayesfast_tpu_torch/build/ab``), one JSON file a
-process. Last, the A/B says whether the banana draws of [3] and [8], the
-Recipes' n_call and deviation, [10b]'s and [13b]'s outputs and a frozen
-and a warmup chunk of each of [12]'s anchors and of [14]'s traced banana
-(float64, a seeded state) and MVN-250's chunks and block launch are
+process. Each process also runs [12]'s three anchor runs (n_call, logz,
+rhat_max, the draws' digest, the chunk kernels' device seconds) and times,
+on the device alone, each anchor's K = 2 chunks on its run's final state
+(float64 and float32) and its user form's (traced, float64), the traced
+banana's on [3]'s state and Neal-100's on a seeded one (float32, 1024
+chains). Last, the A/B says whether the banana draws of [3] and [8], the
+Recipes' n_call and deviation, [10b]'s and [13b]'s outputs, [12]'s runs, a
+frozen and a warmup chunk of each of [12]'s anchors and of [14]'s traced
+banana (float64, a seeded state) and MVN-250's chunks and block launch are
 bitwise equal in all four processes, and
 exits 1 if one is not, or if this checkout's build spills ([2b]). It also
 prints each library's nvcc seconds, each checkout built alone.
@@ -254,6 +261,9 @@ ANCHOR_RHAT, ANCHOR_SIGMAS = 1.02, 4.0
 # user form's in [14]): its trees reach 1023 leapfrogs, each leaf of the
 # plain version a few dozen eager torch calls; timed at depth 10
 ANCHOR_CHECK_DEPTH = {'cauchy': 8}
+# the chains of [12]'s further cauchy check: two warps a block, the last
+# block partial (csrc/nuts_launch.cuh::launch_shape)
+ANCHOR_WIDE_CHAINS = 201
 # [14]: a user's own torch densities (bayesfast_tpu_torch/examples/
 # user_densities.py) traced into the kernels: the generated units built in
 # [2] (the bench banana in both dtypes, the anchors' user forms in
@@ -2005,13 +2015,16 @@ def _anchor_run(torch, bt, name, jax_ncall):
     (``bayesfast_tpu_torch/examples/{name}_gbs.py``: the JAX example's
     configuration and seed, float64), every launch count set to 0 just
     before and read just after. Times the warmup and post-warmup chunk
-    calls (host clock around ``ChainDriver``'s, the card synchronized) and
-    the Recipe's sample and post (GBS) steps; prints the launches, the
-    tree-loop transitions, it/s, ESS/s, rhat, n_call, logz against the
-    fiducial and GBS's profile. Gates: every transition on the chunk
-    kernels (0 block launches and tree-loop transitions), KDE launches,
-    rhat_max < ANCHOR_RHAT, |logz - fiducial| <= ANCHOR_SIGMAS errors.
-    Returns (density, the trace's final carry, the launch counts)."""
+    calls (host clock around ``ChainDriver``'s, the card synchronized),
+    their launches on the device alone (``_CallEvents``) and the Recipe's
+    sample and post (GBS) steps; prints the launches, the tree-loop
+    transitions, it/s, ESS/s, rhat, n_call, logz against the fiducial and
+    GBS's profile. Gates: every transition on the chunk kernels (0 block
+    launches and tree-loop transitions), KDE launches, rhat_max <
+    ANCHOR_RHAT, |logz - fiducial| <= ANCHOR_SIGMAS errors. Returns
+    (density, the trace's final carry, the launch counts, the readings:
+    n_call, logz, rhat_max, the draws' digest, the chunk kernels' device
+    and the chunk calls' host seconds)."""
     import importlib
     from bayesfast_tpu_torch.samplers import chain as chain_mod
     from bayesfast_tpu_torch.samplers import nuts as tree
@@ -2041,12 +2054,16 @@ def _anchor_run(torch, bt, name, jax_ncall):
     tree.nuts_transition_batched.transitions = 0
     try:
         t0 = time.time()
-        rec = mod.main()
+        with _CallEvents(torch) as ev:
+            rec = mod.main()
         wall = time.time() - t0
     finally:
         for (cls, attr, _), fn in zip(patches, originals):
             setattr(cls, attr, fn)
     launches = {k: f.launches for k, f in _counters().items()}
+    torch.cuda.synchronize()
+    dev_s = {k: sum(e0.elapsed_time(e1) for kind, _, e0, e1 in ev.events
+                    if kind == k) / 1e3 for k in ('warmup', 'frozen')}
     n_tree = tree.nuts_transition_batched.transitions
     res = rec.get()
     tt = rec.recipe_trace.results.sample[-1].sample_trace
@@ -2065,6 +2082,11 @@ def _anchor_run(torch, bt, name, jax_ncall):
           f'float64, Recipe.run() {wall:.2f} s (sample step '
           f'{secs["sample"]:.2f} s, post {secs["gbs"]:.2f} s)')
     print(f'    launches {launches}; tree-loop transitions {n_tree}')
+    print(f'    chunk kernels on the device: warmup {dev_s["warmup"]:.4f} s '
+          f'({launches["nuts_warmup"]} launches), frozen '
+          f'{dev_s["frozen"]:.4f} s ({launches["nuts_multi"]}); the chunk '
+          f'calls on the host: warmup {secs["warmup"]:.4f} s, post '
+          f'{secs["post"]:.4f} s')
     print(f'    chunk calls: warmup {C * n_warm / secs["warmup"]:.1f} it/s '
           f'({secs["warmup"]:.2f} s), post {C * n_post / secs["post"]:.1f} '
           f'it/s ({secs["post"]:.2f} s), ESS/s {ess / secs["post"]:.1f}; '
@@ -2102,7 +2124,13 @@ def _anchor_run(torch, bt, name, jax_ncall):
         raise AssertionError(f'[12] {name}: logz {res.logz} +- '
                              f'{res.logz_err}, fiducial {mod.FIDUCIAL}')
     _anchor_kde(torch, s)
-    return rec.density, tt.trace._carry, launches
+    readings = {'n_call': res.n_call, 'logz': float(res.logz),
+                'rhat_max': r_max, 'draws': _digest(s),
+                'kernels_s': dev_s['warmup'] + dev_s['frozen'],
+                'warmup_kernels_s': dev_s['warmup'],
+                'frozen_kernels_s': dev_s['frozen'],
+                'warmup_host_s': secs['warmup'], 'post_host_s': secs['post']}
+    return rec.density, tt.trace._carry, launches, readings
 
 
 def _anchor_kde(torch, draws):
@@ -2155,6 +2183,22 @@ def _anchor_kernels(torch, name, den, carry):
                                  ops, peak, f'  {key}')[0]
         out[dt] = (errs, times)
     return out
+
+
+def _anchor_partial_block(torch, den, carry):
+    """[12] The cauchy's frozen chunk against its plain version (bitwise,
+    float64, K = 2, depth ANCHOR_CHECK_DEPTH) at ANCHOR_WIDE_CHAINS chains,
+    [12]'s final state tiled: two warps a block with the last block
+    partial, where a launch of 64 chains has a block a chain."""
+    n, depth = ANCHOR_WIDE_CHAINS, ANCHOR_CHECK_DEPTH['cauchy']
+    c = _tiled_chains(carry, n)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f'[12] cauchy frozen chunk vs plain, C={n} on {n_sm} SMs (two '
+          f'warps a block on 132, the last block partial: '
+          f'csrc/nuts_launch.cuh::launch_shape), K={K_CMP}, depth {depth}, '
+          'float64')
+    _chunks_vs_plain(torch, den, c, torch.float64, 'cauchy', '_cauchy',
+                     label=f'C={n} ', warmup=False, depth=depth)
 
 
 def _traced_sources(torch):
@@ -3401,6 +3445,20 @@ def _first_chains(obj, n):
     return obj
 
 
+def _tiled_chains(obj, n, chains=None):
+    """A carry of ``chains`` chains (default: its positions') with every
+    per-chain tensor (leading axis the chains) taken at chains 0, 1, ..
+    repeated to ``n`` chains."""
+    import torch
+    chains = obj.q.shape[0] if chains is None else chains
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*(_tiled_chains(v, n, chains) for v in obj))
+    if torch.is_tensor(obj) and obj.dim() and obj.shape[0] == chains:
+        idx = torch.arange(n, device=obj.device) % chains
+        return obj[idx].contiguous()
+    return obj
+
+
 def _tensors(obj):
     """Every tensor in ``obj`` (tuples, NamedTuples, dicts), in order."""
     import torch
@@ -3494,6 +3552,7 @@ def _ab_one(tree, state, out_path, n_seeds):
         raise SystemExit('chip_smoke: no CUDA device.')
     import bayesfast_tpu_torch as bt
     from bayesfast_tpu_torch import _build, config
+    from bayesfast_tpu_torch.examples.user_densities import DENSITIES
     from bayesfast_tpu_torch.ops import kde as tk
     assert os.path.dirname(os.path.dirname(bt.__file__)) == tree
     warnings.filterwarnings('ignore', message='for chain #')
@@ -3550,7 +3609,6 @@ def _ab_one(tree, state, out_path, n_seeds):
         res['digests'][f'{name} chunk outputs [12]'] = _digest(
             _anchor_chunks(torch, name))
     # [14]'s traced banana the same way: the tracer must keep its program
-    from bayesfast_tpu_torch.examples.user_densities import DENSITIES
     res['digests']['traced banana chunk outputs [14]'] = _digest(
         _seeded_chunks(torch, DENSITIES['bench_banana']()[0]))
     # [16a]'s MVN-250 kernels on the saved float32 state at 1024 chains
@@ -3571,8 +3629,57 @@ def _ab_one(tree, state, out_path, n_seeds):
         # n_q as [6] sizes it on the trace (f_call x calls, capped)
         logz, err = bt.evidence.GBS(n_q=N_Q_MAX)(st['draws'], den.logp)
         res['gbs'].append((float(logz), float(err)))
+    # the other rows of the per-warp leaf, on the device alone: the traced
+    # banana's chunks on [3]'s state and Neal-100's on a seeded one
+    # (float32, 1024 chains)
+    from bayesfast_tpu_torch.examples.wide_gaussians import neal_100
+    res.update(_time_chunks(torch, DENSITIES['bench_banana']()[0],
+                            st['carry'], suffix='_traced',
+                            timer=_device_ms)[1])
+    res.update(_time_chunks(torch, neal_100()[0], _neal_state(torch),
+                            ops=_gaussian_leapfrog_ops(100), suffix='_neal',
+                            timer=_device_ms)[1])
+    # [12]'s anchor runs (n_call, logz, rhat_max and the draws bitwise; the
+    # chunk kernels' device seconds), then each anchor's K = 2 chunks on the
+    # run's final state in float64 and float32, and its user form's
+    # (traced) in float64, on the device alone
+    res['anchors'] = {}
+    for name, dim, jax_ncall in ANCHORS:
+        den_a, carry_a, _, r = _anchor_run(torch, bt, name, jax_ncall)
+        res['anchors'][name] = r
+        res['digests'][f'{name} run [12]: n_call, logz, rhat, draws'] = \
+            '%d, %r, %r, %s' % (r['n_call'], r['logz'], r['rhat_max'],
+                                r['draws'])
+        ops = _anchor_leapfrog_ops(name, dim)
+        for dt, sfx, peak in ((torch.float64, '', PEAK_FP64),
+                              (torch.float32, '32', PEAK_FP32)):
+            res.update(_time_chunks(torch, den_a, _cast(carry_a, dt),
+                                    ops=ops, suffix=f'_{name}{sfx}',
+                                    peak=peak, timer=_device_ms)[1])
+        res.update(_time_chunks(torch, DENSITIES[name]()[0], carry_a,
+                                ops=ops, suffix=f'_{name}_traced',
+                                peak=PEAK_FP64, timer=_device_ms)[1])
     with open(out_path, 'w') as f:
         json.dump(res, f, indent=1)
+
+
+def _neal_state(torch):
+    """A carry of WIDE_CHAINS chains of Neal-100 (float32) drawn from its
+    target with a seeded generator, under its own variances (the target
+    is then a standard normal to the sampler) and a step of 0.5: the A/B's
+    state for the Gaussian's chunks."""
+    import types
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    from bayesfast_tpu_torch.samplers.step_size import init_step_size
+    sd = 0.01 * np.arange(1, 101)
+    rng = np.random.default_rng(100)
+    q = torch.as_tensor(rng.normal(size=(WIDE_CHAINS, 100)) * sd,
+                        dtype=torch.float32, device='cuda')
+    var = torch.as_tensor(np.broadcast_to(sd ** 2, (WIDE_CHAINS, 100)),
+                          dtype=torch.float32, device='cuda').contiguous()
+    eps = torch.full((WIDE_CHAINS,), 0.5, dtype=torch.float32, device='cuda')
+    return types.SimpleNamespace(q=q, metric=init_diag_metric(q, var),
+                                 step=init_step_size(eps))
 
 
 def _anchor_chunks(torch, name):
@@ -3617,13 +3724,22 @@ def _ab_readings(res):
            'kde ms [7]': res['kde_ms'],
            'ms per pooled transition [8d]': res['pooled_ms'],
            'busy share [8d]': res['busy_share']}
-    for k in ('nuts_block', 'nuts_multi', 'nuts_warmup', 'nuts_multi_poly',
-              'nuts_warmup_poly', 'nuts_multi_poly64', 'nuts_warmup_poly64',
-              'nuts_multi_cubic', 'nuts_warmup_cubic', 'nuts_multi_cubic64',
-              'nuts_warmup_cubic64', 'nuts_multi_wide_mvn',
-              'nuts_warmup_wide_mvn', 'nuts_block_wide_mvn'):
+    rows = ['nuts_block', 'nuts_multi', 'nuts_warmup', 'nuts_multi_poly',
+            'nuts_warmup_poly', 'nuts_multi_poly64', 'nuts_warmup_poly64',
+            'nuts_multi_cubic', 'nuts_warmup_cubic', 'nuts_multi_cubic64',
+            'nuts_warmup_cubic64', 'nuts_multi_wide_mvn',
+            'nuts_warmup_wide_mvn', 'nuts_block_wide_mvn']
+    rows += [f'{kind}_{sfx}' for sfx in (
+        'traced', 'neal', *[f'{a}{t}' for a, _, _ in ANCHORS
+                            for t in ('', '32', '_traced')])
+             for kind in ('nuts_multi', 'nuts_warmup')]
+    for k in rows:
         for f in ('ms', 'max_leapfrogs', 'mean_leapfrogs', 'ns_per_leapfrog'):
             out[f'{k} {f}'] = res[k][f]
+    for a, r in res['anchors'].items():
+        for f in ('warmup_kernels_s', 'frozen_kernels_s', 'kernels_s',
+                  'warmup_host_s', 'post_host_s'):
+            out[f'{a} run [12] {f}'] = r[f]
     for k, tag in (('recipe', '[10]'), ('recipe_cubic', '[13]')):
         out[f'recipe n_call {tag}'] = res[k]['n_call']
         out[f'recipe max IS dev, sigma {tag}'] = res[k]['max_dev_sigma']
@@ -3894,12 +4010,14 @@ def main():
     anchor_runs = [(anchor, *_anchor_run(torch, bt, anchor, jax_ncall))
                    for anchor, _, jax_ncall in ANCHORS]
     anchor_rows = {}
-    for anchor, den_a, carry_a, launches_a in anchor_runs:
+    for anchor, den_a, carry_a, launches_a, _ in anchor_runs:
         print(f'[12] {anchor} kernels vs plain, C={carry_a.q.shape[0]}, '
               f'D={carry_a.q.shape[1]}, K={K_CMP}, depth '
               f'{ANCHOR_CHECK_DEPTH.get(anchor, MAX_TREEDEPTH)}, final '
               'state')
         by_dt = _anchor_kernels(torch, anchor, den_a, carry_a)
+        if anchor == 'cauchy':
+            _anchor_partial_block(torch, den_a, carry_a)
         for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block'):
             k = f'{kind}_{anchor}'
             anchor_rows[k] = (
@@ -3927,7 +4045,8 @@ def main():
     # traced kernels bitwise against the program's interpreter, the
     # anchors' user forms ----
     traced_rows = _traced(torch, bt, traced_dens, rates3,
-                          {a: c for a, _, c, _ in anchor_runs}, ptxas, builds,
+                          {a: c for a, _, c, _, _ in anchor_runs}, ptxas,
+                          builds,
                           smi)
     t_phase = _wall(walls, '[14]', t_phase)
 
