@@ -25,6 +25,13 @@ as the JAX package dispatches (``core/sample.py:465-602``):
   work;
 * the ensemble: ``_run_ensemble``, gradient-free stretch moves.
 
+Before any device work ``sample`` refuses a gradient sampler on an
+external logp (``DensityLite(traceable=False)``) without a gradient of its
+own, as the JAX package cannot differentiate its host callback, and under
+``'cuda'`` a diag-metric NUTS run that the kernels cannot take
+(``_refusal``). A ``DensityLite`` with the user's gradient runs it
+everywhere: in the start-up, on the tree loop and, traced, in the kernels.
+
 A ``DensityLite`` over a compiled-in density (``ops.densities``) or over
 any torch logp that traces (``ops/trace.py``) has a kernel spec; the
 traced one runs the kernels compiled with its generated functor
@@ -353,8 +360,31 @@ def _shifted(density, logxi):
     return fn
 
 
+def _refusal(density, trace, sampler, dim, dtype):
+    """What ``sample`` refuses before any device work: a gradient sampler
+    on an external logp without a gradient of its own (as the JAX package
+    cannot differentiate its host callback), and under
+    ``nuts_kernel='cuda'`` a NUTS run with a diag metric that the kernels
+    cannot take (``nuts_cuda.kernel_refusal``)."""
+    if sampler == 'Ensemble':
+        return None
+    no_grad = getattr(density, '_no_gradient', lambda: None)()
+    if no_grad is not None:
+        return no_grad
+    if sampler != 'NUTS' or get_nuts_kernel() != 'cuda':
+        return None
+    m = trace.metric
+    if m == 'diag' if isinstance(m, str) else np.ndim(m) == 1:
+        why = nuts_cuda.kernel_refusal(density, dim, dtype)
+        if why is not None:
+            return NotImplementedError(
+                f"nuts_kernel='cuda': {why}; sample it on the tree loop "
+                "(nuts_kernel='auto' or 'torch').")
+    return None
+
+
 def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
-           verbose=True, n_update=None):
+           parallel_backend=None, verbose=True, n_update=None):
     """Sample a probability density; returns a ``TraceTuple``.
 
     ``sampler`` is 'NUTS', 'HMC', 'TNUTS', 'THMC', 'CHEES' or 'Ensemble'
@@ -363,7 +393,10 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
     of ``config.get_dtype()``; ``config.get_nuts_kernel()`` picks NUTS's
     chunk kernels ('auto': CUDA kernels for CUDA tensors, plain torch on
     the CPU). A trace that has run (or was loaded with ``load``) continues
-    from its carry, moved to the configured device.
+    from its carry, moved to the configured device. ``parallel_backend``
+    is accepted and ignored, as in the JAX package (the chains run as one
+    batch on the device; an external logp maps its rows over
+    ``utils.parallel.get_backend()``).
     """
     if not isinstance(density, (Density, DensityLite)):
         raise ValueError('density should be a Density or DensityLite.')
@@ -371,6 +404,12 @@ def sample(density, sample_trace=None, sampler='NUTS', n_run=None,
     trace, sampler = _resolve_trace(sample_trace, sampler)
     dtype = get_dtype()
     device = get_device()
+    dim = (density.input_size if trace.x_0 is None
+           else np.shape(trace.x_0)[-1])
+    if dim is not None:
+        err = _refusal(density, trace, sampler, int(dim), dtype)
+        if err is not None:
+            raise err
 
     # ------- starting points -------
     x_0_auto = trace.x_0 is None

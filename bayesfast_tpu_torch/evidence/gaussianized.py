@@ -76,13 +76,16 @@ def _split_or_recompute_logp_p(logp, x_p, logp_p, n_half):
 class _SITEstimator:
     """Common SIT-flow plumbing for the three estimators."""
 
-    def __init__(self, sit=None):
+    def __init__(self, sit=None, parallel_backend=None):
         if sit is None or isinstance(sit, dict):
             sit = SIT(**(sit or {}))
         elif not isinstance(sit, SIT):
             raise ValueError('sit should be None, an options dict, or a SIT '
                              'instance.')
         self._sit = sit
+        # the JAX package's signature: accepted and ignored, the logp
+        # batches run on the device
+        self._parallel_backend = parallel_backend
 
     @property
     def sit(self):
@@ -99,8 +102,9 @@ class _ProposalSized(_SITEstimator):
     """The proposal-count policy shared by GBS and GIS: n_q explicit, or
     f_call x the trace's true-model call count, optionally capped."""
 
-    def __init__(self, sit=None, n_q=None, f_call=0.05, n_q_max=None):
-        super().__init__(sit)
+    def __init__(self, sit=None, parallel_backend=None, n_q=None,
+                 f_call=0.05, n_q_max=None):
+        super().__init__(sit, parallel_backend)
         if n_q is not None:
             n_q = int(n_q)
             if n_q <= 0:

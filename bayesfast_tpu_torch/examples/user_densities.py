@@ -16,6 +16,7 @@ follow ``x`` with ``.to(x)``.
 """
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -23,7 +24,8 @@ from scipy.stats import special_ortho_group
 
 from ..core.density import DensityLite
 
-__all__ = ['bench_banana', 'banana', 'funnel', 'ring', 'cauchy', 'DENSITIES']
+__all__ = ['bench_banana', 'banana', 'funnel', 'ring', 'cauchy', 'DENSITIES',
+           'bench_banana_user']
 
 
 def _bounded(logp, lower, upper):
@@ -130,3 +132,76 @@ def cauchy():
 #: the five, by name
 DENSITIES = {'bench_banana': bench_banana, 'banana': banana,
              'funnel': funnel, 'ring': ring, 'cauchy': cauchy}
+
+
+def bench_banana_user(form='grad'):
+    """``bench_banana`` with the gradient written by hand, as a user of the
+    JAX package passes it: the same rotation (float32), even-pair mask e,
+    Q, bounds, constant and logp. With z = A x and r = z^2 - roll(z, -1),
+    logp = -sum((r^2 / Q + (z - 1)^2) e) - const, and the gradient is A^T
+    ((2 / Q) (roll(e r, 1) - 2 z (e r)) - 2 e (z - 1)). ``form``:
+
+    * ``'grad'``: ``DensityLite(logp=, grad=, vectorized=False)``, each a
+      function of one point (D,), in torch;
+    * ``'logp_and_grad'``: ``DensityLite(logp_and_grad=)``, batched
+      (the port's default form), one function returning the pair;
+    * ``'external'``: ``DensityLite(logp=, traceable=False)``, the logp of
+      one point in numpy (float64 arithmetic on the float32 rotation), as
+      an external likelihood; it has no gradient.
+
+    The first two trace to one program, whose functor is as fast as the
+    tracer's adjoint of ``bench_banana``'s logp; an algebraically equal
+    gradient written otherwise (the mask taken into r before the squares,
+    say) can cost some 9 % a leapfrog, or a spill in float64 (PR 19's
+    chip runs, ``PERF.md``).
+    """
+    D, Q = 32, 0.01
+    lower, upper = np.full(D, -15.), np.full(D, 15.)
+    const = _const(lower, upper)
+    A_np = special_ortho_group.rvs(D, random_state=0)
+    A = torch.as_tensor(A_np, dtype=torch.float32)
+    even = torch.as_tensor((np.arange(D) % 2) == 0, dtype=torch.float32)
+    kw = dict(input_size=D, input_scales=np.stack((lower, upper)).T,
+              hard_bounds=True)
+    info = {'A': A_np, 'Q': Q, 'const': const}
+
+    def logp_z(z, e, dim):
+        r = z * z - torch.roll(z, -1, dims=dim)
+        return -torch.sum((r ** 2 / Q + (z - 1.0) ** 2) * e, dim=dim) - const
+
+    def dlogp_dz(z, e, dim):
+        er = e * (z * z - torch.roll(z, -1, dims=dim))
+        return ((2.0 / Q) * (torch.roll(er, 1, dims=dim) - 2.0 * z * er)
+                - 2.0 * e * (z - 1.0))
+
+    if form == 'grad':
+        def logp(x):
+            return logp_z(A.to(x) @ x, even.to(x), 0)
+
+        def grad(x):
+            return A.to(x).T @ dlogp_dz(A.to(x) @ x, even.to(x), 0)
+
+        return DensityLite(logp=logp, grad=grad, vectorized=False,
+                           **kw), info
+    if form == 'logp_and_grad':
+        def logp_and_grad(x):
+            z = x @ A.to(x).T
+            return (logp_z(z, even.to(x), -1),
+                    dlogp_dz(z, even.to(x), -1) @ A.to(x))
+
+        return DensityLite(logp_and_grad=logp_and_grad, **kw), info
+    if form == 'external':
+        A32 = A.numpy().astype(np.float64)
+        even_np = even.numpy().astype(np.float64)
+        return DensityLite(logp=partial(_external_banana, A32, even_np, Q,
+                                        const),
+                           traceable=False, **kw), info
+    raise ValueError(f'unknown form {form!r}')
+
+
+def _external_banana(A, even, Q, const, x):
+    """The bench banana of one point in numpy (a module-level function, so
+    that a process pool can pickle it)."""
+    z = A @ np.asarray(x, np.float64)
+    r = z * z - np.roll(z, -1)
+    return float(-np.sum((r ** 2 / Q + (z - 1.0) ** 2) * even) - const)

@@ -73,6 +73,13 @@ and ``expand`` into the op set. Index ops lower to one ``gather`` node
 and a gather of a gather is folded into one, so the ring's ``cat`` of
 slices becomes one neighbour fetch.
 
+A ``DensityLite`` with the user's own gradient (``grad`` or
+``logp_and_grad``, as the JAX kernels trace the user's gradient through
+``device_logp_and_grad``) is traced as the pair: ``trace_density(...,
+with_grad=True)`` lowers ``(logp, grad)`` of one point, and the program's
+gradient is the trace of the user's function, run forward in the same
+node set; no adjoint is derived, so a wrong gradient stays wrong.
+
 ``Program.logp_and_grad`` is the plain version: it runs the nodes on
 (C, D) tensors in the kernels' order, every sum (a ``sum`` node and each
 row of a matrix product) in the warp's order of ``ops.densities.
@@ -814,9 +821,11 @@ _VIEWS = _MOVE - {'aten.index.Tensor', 'aten.cat.default',
                   'aten.index_select.default', 'aten.gather.default'}
 
 
-def _lower(gm, D, dtype, leaves=(), batch=False):
+def _lower(gm, D, dtype, leaves=(), batch=False, pair=False):
     """The aten graph of ``make_fx`` as program nodes; returns (graph,
-    logp node id). Its first input is x (D,), the others the leaves;
+    logp node id), or with ``pair`` (the function returns the user's
+    (logp, grad)) (graph, (logp node id, grad node id)), the gradient a
+    vector of length D. Its first input is x (D,), the others the leaves;
     ``batch``: see ``_Lower``."""
     lw = _Lower(dtype, batch)
     b = lw.b
@@ -883,18 +892,28 @@ def _lower(gm, D, dtype, leaves=(), batch=False):
                 env[node.args[0]] = env[node]
         elif node.op == 'output':
             out = arg(node.args[0])
-            if isinstance(out, (list, tuple)):
-                if len(out) != 1:
-                    raise TraceError('the logp returns several values')
-                out = out[0]
+            if not isinstance(out, (list, tuple)):
+                out = [out]
+            if len(out) != (2 if pair else 1):
+                raise TraceError(
+                    f'logp_and_grad returns {len(out)} values, not (logp, '
+                    f'grad)' if pair else 'the logp returns several values')
         else:
             raise TraceError(f'an fx node of kind {node.op}')
-    if isinstance(out, (_T, _C)):
-        i, shape = lw.node_of(out)
-        if _numel(shape) != 1:
-            raise TraceError('the logp of one point is not a scalar')
-        return b, (i if b.n(i) is None else b.pick(i, 0))
-    raise TraceError('the logp of one point is not a scalar')
+    if not all(isinstance(v, (_T, _C)) for v in out):
+        raise TraceError('the logp of one point is not a scalar')
+    i, shape = lw.node_of(out[0])
+    if _numel(shape) != 1:
+        raise TraceError('the logp of one point is not a scalar')
+    lp = i if b.n(i) is None else b.pick(i, 0)
+    if not pair:
+        return b, lp
+    # the user's gradient as it stands: a vector of D, whatever its shape
+    g, shape = lw.node_of(out[1])
+    if _numel(shape) != D:
+        raise TraceError(f'the gradient of one point has shape {shape}, '
+                         f'not ({D},)')
+    return b, (lp, b.bcast(g, D) if b.n(g) is None else g)
 
 
 # ---------------------------------------------------------------------------
@@ -1022,9 +1041,10 @@ def _adjoint(b, logp, x):
 
 class Program:
     """A traced density: ``nodes`` in evaluation order (forward, then the
-    adjoint), the ``logp`` (scalar) and ``grad`` (length D) node ids, and
-    the constants (``consts``: (tensor, kind) with kind 'scal', 'vec' or
-    'mat'; ``offsets``: each one's offset in the packed parameters)."""
+    adjoint; or the user's own logp and gradient as traced), the ``logp``
+    (scalar) and ``grad`` (length D) node ids, and the constants
+    (``consts``: (tensor, kind) with kind 'scal', 'vec' or 'mat';
+    ``offsets``: each one's offset in the packed parameters)."""
 
     def __init__(self, D, nodes, logp, grad, consts, const_fns=None):
         self.D = int(D)
@@ -1219,15 +1239,18 @@ def _prune(b, logp, grad):
 
 
 def trace_density(logp, D, dtype=torch.float64, device='cpu', leaves=(),
-                  batch=False):
+                  batch=False, with_grad=False):
     """Trace ``logp`` (batched torch, called here on one point x of shape
     (D,) of ``dtype`` on ``device``, and on ``leaves``, tensors it reads as
     runtime parameters: ``logp(x, *leaves)``) into a ``Program``; ``batch``
     when it runs the point as a batch of one (``x[None]``), so that its
-    one-element values are scalars (``_Lower``). Raises
-    ``TraceError`` naming the first aten op outside the op set, or what
-    else keeps the function from tracing, or a program the kernels cannot
-    hold (``ops.codegen.check_limits``)."""
+    one-element values are scalars (``_Lower``). With ``with_grad`` the
+    function returns the user's own ``(logp, grad)`` of the point, and the
+    program's gradient is the trace of ``grad``, run forward as the user
+    wrote it (no adjoint is derived). Raises ``TraceError`` naming the
+    first aten op outside the op set, or what else keeps the function
+    from tracing, or a program the kernels cannot hold
+    (``ops.codegen.check_limits``)."""
     from torch.fx.experimental.proxy_tensor import make_fx
     from .codegen import check_limits
     x = torch.zeros(int(D), dtype=dtype, device=device)
@@ -1239,9 +1262,12 @@ def trace_density(logp, D, dtype=torch.float64, device='cpu', leaves=(),
         raise TraceError(f'make_fx could not trace the logp: '
                          f'{type(exc).__name__}: {exc}'.splitlines()[0]) \
             from exc
-    b, out = _lower(gm, int(D), dtype, leaves, batch)
-    x_id = next(i for i, nd in enumerate(b.nodes) if nd.op == 'x')
-    grad = _adjoint(b, out, x_id)
+    b, out = _lower(gm, int(D), dtype, leaves, batch, with_grad)
+    if with_grad:
+        out, grad = out
+    else:
+        x_id = next(i for i, nd in enumerate(b.nodes) if nd.op == 'x')
+        grad = _adjoint(b, out, x_id)
     nodes, lp, g = _prune(b, out, grad)
     prog = Program(D, nodes, lp, g, b.consts, b.const_fns)
     check_limits(prog, torch.finfo(dtype).bits // 8)
@@ -1298,11 +1324,18 @@ def _has_contents(cell):
     return True
 
 
-def trace_key(logp):
+def trace_key(logp, *more):
     """A value equal between two calls when ``trace_density(logp, ...)``
     would give the same program and constants: the function's identity
     and the bytes of every tensor and array, and every number, that it
     closes over or names (its closure, defaults and the globals its code
     names; a module's state; one level into the functions among them). A
-    tensor mutated in place or rebound, or a number changed, changes it."""
-    return (id(logp),) + _state(logp, set(), 0)
+    tensor mutated in place or rebound, or a number changed, changes it.
+    ``more``: other values the trace reads (a gradient function, the
+    logp's arguments), each keyed the same way."""
+    seen = set()
+    key = (id(logp),) + _state(logp, seen, 0)
+    for v in more:
+        key += (((id(v),) + _state(v, seen, 0)) if callable(v)
+                else _leaf_key(v, seen, 0),)
+    return key

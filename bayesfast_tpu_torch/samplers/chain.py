@@ -120,9 +120,10 @@ class ChainDriver:
         ``Density`` plan and the compiled-in banana name their own lower
         limits). Otherwise ``nuts_kernel='cuda'`` raises
         ``NotImplementedError`` here, before any device work, and 'auto'
-        and 'torch' take the tree loop; under 'auto' a logp that does not
-        trace warns once, naming the op (as the JAX package warns when its
-        kernel fails to lower)."""
+        and 'torch' take the tree loop; under 'auto' a logp (or a logp and
+        the user's gradient) that does not trace warns once, naming the op
+        (as the JAX package warns when its kernel fails to lower); the
+        tree loop then runs the user's gradient (``plain_lpg``)."""
         if (self._algorithm != 'nuts'
                 or not isinstance(metric, DiagMetricState)):
             return False
@@ -143,8 +144,9 @@ class ChainDriver:
                 and not self._warned):
             self._warned = True
             warnings.warn(
-                'the logp (or Density plan) does not trace into the CUDA '
-                'NUTS kernels; its transitions run on the torch tree loop '
+                'the logp (with the user\'s gradient, where given; or the '
+                'Density plan) does not trace into the CUDA NUTS kernels; '
+                'its transitions run on the torch tree loop '
                 f'(set_nuts_kernel controls this). Cause: {trace_error}',
                 RuntimeWarning)
         return False

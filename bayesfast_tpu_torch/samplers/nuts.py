@@ -35,7 +35,7 @@ import torch
 from .metrics import DiagMetricState, sample_momentum_b
 
 __all__ = ['NutsStats', 'TIntegratorState', 'compute_state_t', 'leapfrog_t',
-           'nuts_core_batched', 'nuts_transition_batched']
+           'nuts_core_batched', 'nuts_transition_batched', 'nuts_transition']
 
 
 class NutsStats(NamedTuple):
@@ -393,3 +393,36 @@ def nuts_transition_batched(generator, q0, metric, step_size, logp_and_grad,
 
 
 nuts_transition_batched.transitions = 0
+
+
+def _leading(tree):
+    """Every tensor of a metric state (nested named tuples) with a leading
+    axis of one chain, as the JAX wrappers map ``l[None]`` over the
+    tree."""
+    if torch.is_tensor(tree):
+        return tree[None]
+    if isinstance(tree, tuple) and hasattr(tree, '_fields'):
+        return type(tree)(*(_leading(t) for t in tree))
+    return tree
+
+
+def _one_chain(lpg):
+    """A one-point ``(D,) -> (scalar, (D,))`` function as the batched form
+    takes it: under ``torch.func.vmap``, as the JAX wrappers ``jax.vmap``
+    it."""
+    return torch.func.vmap(lpg)
+
+
+def nuts_transition(generator, q0, metric, step_size, logp_and_grad,
+                    max_treedepth, max_change):
+    """Single-chain convenience wrapper (``nuts.py:577-590`` in the JAX
+    package): a batch of one over ``nuts_transition_batched``. ``q0`` is
+    (D,), the metric's leaves unbatched, ``logp_and_grad`` maps one point
+    (D,) -> (scalar, (D,)); returns ``(q_new (D,), NutsStats)`` of
+    scalars. The drivers call the batched form."""
+    q_new, stats = nuts_transition_batched(
+        generator, q0[None], _leading(metric),
+        torch.as_tensor(step_size, dtype=q0.dtype,
+                        device=q0.device).reshape(1),
+        _one_chain(logp_and_grad), max_treedepth, max_change)
+    return q_new[0], NutsStats(*(s[0] for s in stats))

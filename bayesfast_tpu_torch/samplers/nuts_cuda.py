@@ -759,7 +759,9 @@ def kernel_refusal(density, dim, dtype=None):
     plan that traces into the kernels' op set) and ``dim`` <= ``_MAX_D``
     for every kind of density, as a lane holds at most eight dimensions
     (a ``Density`` past it says so in its own words, as its plan has no
-    spec there); and for the compiled-in banana, its A and
+    spec there). A ``DensityLite`` with the user's gradient has a spec
+    when the pair traces, whatever its logp: the kernels then run the
+    user's gradient. For the compiled-in banana, its A and
     A^T within a block's shared memory (D <= 160 in float32, 96 in
     float64). The plain versions could run either way; the routing
     (``ChainDriver.uses_kernels``) asks this first."""
@@ -774,7 +776,8 @@ def kernel_refusal(density, dim, dtype=None):
     if dim > _MAX_D:
         return (f'the CUDA NUTS kernels take D <= {_MAX_D} (eight '
                 f'dimensions a lane), got {dim}')
-    if isinstance(getattr(density, '_logp', None), RotatedBanana):
+    if (isinstance(getattr(density, '_logp', None), RotatedBanana)
+            and not density.has_traced_spec):
         itemsize = torch.finfo(dtype or get_dtype()).bits // 8
         need = _banana_smem(dim, itemsize)
         if need > _MAX_SMEM:

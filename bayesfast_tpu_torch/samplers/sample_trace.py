@@ -562,14 +562,20 @@ class ChainTrace:
         return self._parent.i_iter
 
     @property
+    def input_size(self):
+        return self._parent._samples.shape[-1]
+
+    @property
     def stats(self):
         return StatsView(
             self._parent._stats_items,
             {k: v[self._i] for k, v in self._parent._stats_arrays.items()},
             self._parent.n_warmup)
 
+    # ``flatten`` is accepted, and ignored, as in the JAX package: one
+    # chain's draws have no chain axis to flatten
     def get(self, since_iter=None, include_warmup=False, original_space=True,
-            return_type='samples'):
+            return_type='samples', flatten=True):
         if since_iter is None:
             since_iter = 0 if include_warmup else self._parent.n_warmup
         since_iter = int(since_iter)

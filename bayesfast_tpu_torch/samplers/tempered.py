@@ -26,11 +26,12 @@ import torch
 
 from .hmc import mh_accept
 from .metrics import sample_momentum_b, velocity
-from .nuts import _make_vel_fn, _metric_t, nuts_core_batched
+from .nuts import (_leading, _make_vel_fn, _metric_t, _one_chain,
+                   nuts_core_batched)
 
 __all__ = ['TState', 'TnutsStats', 'ThmcStats', 't_compute_state',
            't_leapfrog', 't_compute_state_t', 't_leapfrog_t', 'thmc_core',
-           'thmc_transition', 'tnuts_transition_batched']
+           'thmc_transition', 'tnuts_transition_batched', 'tnuts_transition']
 
 
 class TState(NamedTuple):
@@ -235,3 +236,24 @@ def tnuts_transition_batched(generator, q0, u0, metric, step_size,
         energy_change=energy - start.energy,
         max_energy_change=out['max_de'], diverging=out['diverging'])
     return q, u, stats
+
+
+def tnuts_transition(generator, q0, u0, metric, step_size, lpg_target,
+                     lpg_base, max_treedepth, max_change):
+    """Single-chain TNUTS wrapper (``tempered.py:237-246`` in the JAX
+    package): a batch of one over ``tnuts_transition_batched``. ``q0`` is
+    (D,), ``u0`` a scalar, the metric's leaves unbatched, ``lpg_target``
+    and ``lpg_base`` map one point (D,) -> (scalar, (D,)); returns
+    ``(q_new (D,), u_new, TnutsStats)`` of scalars. The driver calls the
+    batched form. (``thmc_transition`` and ``hmc.hmc_transition`` stay
+    batched, as the port's drivers call them; the JAX package's are
+    single-chain.)"""
+    def row(a):
+        return torch.as_tensor(a, dtype=q0.dtype, device=q0.device) \
+            .reshape(1)
+
+    q_new, u_new, stats = tnuts_transition_batched(
+        generator, q0[None], row(u0), _leading(metric), row(step_size),
+        _one_chain(lpg_target), _one_chain(lpg_base), max_treedepth,
+        max_change)
+    return q_new[0], u_new[0], TnutsStats(*(s[0] for s in stats))

@@ -100,12 +100,16 @@ class SIT:
     Parameters mirror the JAX package's. ``random_generator`` is an int
     seed, a ``torch.Generator`` or None (the port's global generator).
     ``flow_dtype`` defaults to ``config.get_dtype()``; the fit and the flow
-    run on ``config.get_device()``.
+    run on ``config.get_device()``. ``parallel_backend`` is accepted and
+    ignored, as in the JAX package (the per-dimension work is batched on
+    the device); ``mvn_generator(mean, cov, n)`` draws ``sample``'s
+    latents (default: ``utils.sobol.multivariate_normal``).
     """
 
-    def __init__(self, n_iter=10, bw_factor=1., m_ica=20000,
-                 random_generator=None, m_plot=8, cubic_options=None,
-                 ica_options=None, flow_dtype=None):
+    def __init__(self, n_iter=10, parallel_backend=None, bw_factor=1.,
+                 m_ica=20000, random_generator=None, m_plot=8,
+                 cubic_options=None, ica_options=None, mvn_generator=None,
+                 flow_dtype=None):
         self._data = None
         self._spline_sets = []
         self._stk_key = None
@@ -118,6 +122,8 @@ class SIT:
         self.cubic_options = dict(cubic_options or {})
         self.ica_options = dict(ica_options if ica_options is not None
                                 else {'max_iter': 100})
+        self.mvn_generator = (multivariate_normal if mvn_generator is None
+                              else mvn_generator)
 
     @property
     def flow_dtype(self):
@@ -435,27 +441,29 @@ class SIT:
         out, log_j = self._flow(x.reshape((-1, shape[-1])), forward)
         return out.reshape(shape), log_j.reshape(shape[:-1])
 
-    def forward_transform(self, x):
+    # ``use_parallel`` is accepted and ignored by the four flow methods, as
+    # in the JAX package: the flow runs batched on the device
+    def forward_transform(self, x, use_parallel=False):
         """Data space -> latent (approximately N(0, I)); returns
         ``(y, log_j)``, log_j = log|dy/dx|."""
         return self._transform(x, True, 'x')
 
-    def backward_transform(self, y):
+    def backward_transform(self, y, use_parallel=False):
         """Latent -> data space; returns ``(x, log_j)``, log_j = log|dy/dx|
         at x (the reference's convention for both directions)."""
         return self._transform(y, False, 'y')
 
-    def sample(self, n):
-        """Draw ``n`` Sobol-normal latents and push them back; returns
-        ``(x, log_j, y)``."""
+    def sample(self, n, use_parallel=False):
+        """Draw ``n`` latents with ``mvn_generator`` (Sobol-normal by
+        default) and push them back; returns ``(x, log_j, y)``."""
         n = int(n)
         if n <= 0:
             raise ValueError('n should be a positive int.')
-        y = multivariate_normal(np.zeros(self.dim), np.eye(self.dim), n)
+        y = self.mvn_generator(np.zeros(self.dim), np.eye(self.dim), n)
         x, log_j = self.backward_transform(y)
         return x, log_j, y
 
-    def logq(self, x):
+    def logq(self, x, use_parallel=False):
         """Model log-density: the N(0, I) pullback."""
         y, log_j = self.forward_transform(x)
         const = -0.5 * np.log(2 * np.pi)

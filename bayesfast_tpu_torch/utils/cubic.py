@@ -176,7 +176,7 @@ class cubic_spline:
 
 def fit_spline_columns(cols, fun_batch, bins=100, edge_bins=1,
                        edge_points=10, max_width=5, split=4, max_add=5,
-                       knots=None):
+                       knots=None, speculative=True):
     """Fit one monotone percentile-knot spline per data column, with the
     expensive target-function evaluations batched across columns.
 
@@ -190,10 +190,11 @@ def fit_spline_columns(cols, fun_batch, bins=100, edge_bins=1,
     device (``transforms.sit._knot_stage``): dicts with ``x0``,
     ``xe1``, ``xe2`` (or ``degenerate`` = raw column for collapsed dims),
     so the host never touches the full data columns — ``cols`` may then be
-    ``None``. The stage-A batch also evaluates every interval's would-be
-    refinement midpoints, so the FIRST monotonicity-refinement round
-    consumes cached values instead of paying another device round trip
-    (the JAX package's default, ``speculative=True``).
+    ``None``. With ``speculative`` (the default, as in the JAX package)
+    the stage-A batch also evaluates every interval's would-be refinement
+    midpoints, so the FIRST monotonicity-refinement round consumes cached
+    values instead of paying another device round trip; without it that
+    round evaluates its midpoints anew, and the splines are the same.
 
     Stage structure (identical arithmetic to the reference's sequential
     constructor, ``cubic.py:61-151``): percentile knots + edge-regression
@@ -259,7 +260,7 @@ def fit_spline_columns(cols, fun_batch, bins=100, edge_bins=1,
 
         st[d] = {'x': x, 'xe1': xe1, 'xe2': xe2}
         q = [x, xe1 + x0[0], xe2 + x0[-1]]
-        if max_add > 0:
+        if speculative and max_add > 0:
             # same formula as np.linspace's interior points
             step = np.diff(x) / split
             mids = x[:-1, None] + step[:, None] * t_mid[None, :]
@@ -295,7 +296,7 @@ def fit_spline_columns(cols, fun_batch, bins=100, edge_bins=1,
     # ---- monotonicity-refinement rounds, batched across columns
     add_points = 0
     while add_points < max_add:
-        cached = add_points == 0
+        cached = add_points == 0 and speculative
         queries = []
         live = []
         for d in range(n_col):

@@ -216,6 +216,41 @@ class ParallelBackend:
             if owns:
                 pool.shutdown()
 
+    def map_async(self, fun, *iters):
+        """Submit ``fun`` over the zipped ``iters`` and return at once: a
+        list of futures (for a serial map, or one item, the results
+        themselves), which ``gather`` turns into the results. A pool that
+        this call makes lives until ``gather``."""
+        jobs = list(zip(*iters))
+        pool, owns = self._pool_for(len(jobs))
+        if pool is None:
+            return [fun(*args) for args in jobs]
+        futures = [pool.submit(fun, *args) for args in jobs]
+        if owns:
+            # a transient pool: kept until the futures are gathered
+            futures = _OwnedFutures(futures, pool)
+        return futures
+
+    def gather(self, async_result):
+        """The results of ``map_async``, in order; shuts down the pool that
+        ``map_async`` made for them."""
+        if isinstance(async_result, _OwnedFutures):
+            try:
+                return [f.result() for f in async_result]
+            finally:
+                async_result.pool.shutdown()
+        if async_result and hasattr(async_result[0], 'result'):
+            return [f.result() for f in async_result]
+        return async_result
+
+
+class _OwnedFutures(list):
+    """Futures plus the transient pool that must outlive them."""
+
+    def __init__(self, futures, pool):
+        super().__init__(futures)
+        self.pool = pool
+
 
 _backend = ParallelBackend()
 

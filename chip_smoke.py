@@ -140,6 +140,24 @@ card, drives the port's paths and checks what comes out:
   chain, bound, registers and spills. The four ``PolyGaussian`` units
   build beside [3]-[9] and are loaded in [2c].
 
+* the JAX package's ``DensityLite`` with a user's own gradient ([18]):
+  ``bench.py``'s banana-32 written as a JAX user writes it,
+  ``DensityLite(logp=, grad=, vectorized=False)`` with each a function of
+  one point and the gradient by hand
+  (``bayesfast_tpu_torch/examples/user_densities.py::bench_banana_user``),
+  its pair traced into a program with no adjoint and generated as a unit
+  in [2], through ``sample`` at [3]'s configuration under
+  ``nuts_kernel='cuda'``: 0 tree-loop transitions, no unit built during
+  the run, [3]'s gates and the moments within 5 standard errors, its
+  rates and its chunk kernels' device seconds beside [14]'s (the tracer's
+  adjoint of the same logp), both programs' K = 2 chunks on one state.
+  Then the frozen and warmup chunks (K = 2) and a block launch of both
+  forms (``grad=`` and the batched ``logp_and_grad=``, one unit) bitwise
+  against the program's interpreter at 256 chains, float32 and float64,
+  at depth 8; last, the external form (``traceable=False``, numpy) over
+  1024 rows on the host pool against the torch logp, and ``sample()`` on
+  it refused before any device work.
+
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
 Cauchy instantiation that spills fails the run, except float64 at D > 32,
@@ -272,6 +290,16 @@ TRACED_UNITS = (('bench_banana', 'float32'), ('bench_banana', 'float64'),
                 ('funnel', 'float64'), ('ring', 'float64'),
                 ('cauchy', 'float64'))
 TRACED_CHAINS = 256
+# [18]: the bench banana with the user's own gradient
+# (bayesfast_tpu_torch/examples/user_densities.py::bench_banana_user): its
+# two forms (grad= of one point under vectorized=False, and the batched
+# logp_and_grad=) generate one unit a dtype, built in [2]; the trees' depth
+# limit of their bitwise checks at TRACED_CHAINS chains (a leaf of the
+# plain version is some 30 eager torch calls; the kernels are timed at
+# depth 10), the external form's rows on the host pool and its tolerance
+# against the torch logp (both float64)
+USER_FORMS = ('grad', 'logp_and_grad')
+USER_CHECK_DEPTH, USER_EXT_ROWS, USER_EXT_RTOL = 8, 1024, 1e-10
 # [15]: the 2-d donut Recipe (bayesfast_tpu_torch/examples/donut_recipe.py,
 # the reference's headline example; 8 chains, float64): n_call at most the
 # notebook's ~330 plus 20 %, and the IS-weighted E[r] within DONUT_R_TOL of
@@ -2213,6 +2241,21 @@ def _traced_sources(torch):
     return dens, srcs
 
 
+def _user_grad_sources(torch):
+    """[2] [18]'s densities (``examples/user_densities.py::
+    bench_banana_user``: the two forms with the user's gradient and the
+    external form), each traced on the card, and the generated unit of the
+    first form's program in float32 and float64. Returns ({form: (density,
+    info)}, {'user_grad dtype': source})."""
+    from bayesfast_tpu_torch.examples.user_densities import bench_banana_user
+    dens = {form: bench_banana_user(form)
+            for form in USER_FORMS + ('external',)}
+    prog = dens[USER_FORMS[0]][0].kernel_spec()['program']
+    srcs = {f'user_grad {dt}': prog.source(getattr(torch, dt))
+            for dt in ('float32', 'float64')}
+    return dens, srcs
+
+
 def _traced_leapfrog_ops(program):
     """Operations of one leapfrog with a traced density behind the fused
     bound transform: the program's own (``Program.n_ops``, its forward and
@@ -2235,8 +2278,8 @@ def _traced(torch, bt, dens, rates3, anchor_carries, ptxas, builds,
     cauchy user forms' frozen chunk (K = 2, float64) on [12]'s final
     states. Prints each instantiation's kernel ms, ns a leapfrog on the
     slowest chain, registers and spills (``ptxas``) and its nvcc seconds
-    (``builds``, by label). Returns {kernel row: (launches, max abs error,
-    (ms, plain ms, bound ms, bound by))}."""
+    (``builds``, by label). Returns ({kernel row: (launches, max abs
+    error, (ms, plain ms, bound ms, bound by))}, the path's rates)."""
     from bayesfast_tpu_torch import config
     from bayesfast_tpu_torch.samplers import nuts as tree
     from bayesfast_tpu_torch.samplers import nuts_cuda as nc
@@ -2313,7 +2356,165 @@ def _traced(torch, bt, dens, rates3, anchor_carries, ptxas, builds,
               f'{builds[name + " float64"]}; {smi}')
         k = f'nuts_multi_traced_{name}'
         rows[k] = (0, e[k], times[k])
+    return rows, rates
+
+
+def _user_grad(torch, bt, dens, traced_den, rates14, ptxas, builds, smi):
+    """[18] The JAX package's ``DensityLite`` with the user's own gradient:
+    bench.py's banana-32 written as a JAX user writes it
+    (``DensityLite(logp=, grad=, vectorized=False, ...)``, each a
+    function of one point) through ``sample`` at [3]'s configuration
+    under ``nuts_kernel='cuda'``: warmup and post-warmup chunks on the
+    kernels with the trace of the user's pair (no adjoint), 0 tree-loop
+    transitions, no unit built during the run, [3]'s gates and the
+    moments within 5 standard errors; its rates and the chunk kernels'
+    device seconds beside [14]'s traced banana (the tracer's adjoint of
+    the same function), and both programs' K = 2 chunks on the device
+    alone on this path's final state. Then for each form (``grad=`` and
+    the batched ``logp_and_grad=``, one program and unit) the frozen and
+    warmup chunks (K = 2) and a block launch bitwise against the
+    program's interpreter at TRACED_CHAINS chains, float32 and float64, at
+    depth USER_CHECK_DEPTH; the kernels timed at depth 10. Last, the
+    external form (``traceable=False``, the logp of one point in numpy):
+    its logp over USER_EXT_ROWS rows on the host pool against the torch
+    logp (float64, rtol USER_EXT_RTOL), its rows/s, and ``sample()`` on
+    it raising before any device work. Returns {kernel row: (launches,
+    max abs error, (ms, plain ms, bound ms, bound by))}."""
+    from bayesfast_tpu_torch import _build, config
+    from bayesfast_tpu_torch.samplers import nuts as tree
+    from bayesfast_tpu_torch.samplers import nuts_cuda as nc
+    from bayesfast_tpu_torch.samplers.metrics import init_diag_metric
+    config.set_dtype(torch.float32)
+    config.set_nuts_kernel('cuda')
+    den, info = dens[USER_FORMS[0]]
+    prog = den.kernel_spec()['program']
+    progs = {f: dens[f][0].kernel_spec()['program'] for f in USER_FORMS}
+    same = all(p.source(torch.float32) == prog.source(torch.float32)
+               for p in progs.values())
+    print(f'[18] bench banana with the user\'s gradient (grad= of one '
+          f'point, vectorized=False): {len(prog.nodes)} nodes '
+          f'({prog.describe()}), {prog.n_ops} operations an evaluation '
+          f'([14]\'s adjoint {traced_den.kernel_spec()["program"].n_ops}), '
+          f'{_traced_leapfrog_ops(prog)} a leapfrog; the logp_and_grad= '
+          f'form\'s unit the same: {same}')
+    tree.nuts_transition_batched.transitions = 0
+    built = set(_build.traced_builds)
+    with _CallEvents(torch) as ev:
+        tt, launches, rates = _sample_path(
+            torch, bt, den, info['A'], "[18] main path, the banana with the "
+            "user's gradient, nuts_kernel='cuda'",
+            {'nuts_warmup': 1 + 4 * 2, 'nuts_multi': 3 * 2})
+        dev_s = ev.device_ms() / 1e3
+    n_tree = tree.nuts_transition_batched.transitions
+    new = sorted(set(_build.traced_builds) - built)
+    _banana_moments(tt, info['A'], '[18]')
+    print(f'    tree-loop transitions {n_tree}; units built during the '
+          f'run: {new or "none"}; the chunk kernels {dev_s:.3f} device s '
+          f'({len(ev.events)} launches); [14] traced (adjoint): warmup '
+          f'{rates14["warmup_its"]:.1f} it/s, ESS/s '
+          f'{rates14["ess_s"]:.1f}; user gradient / adjoint: warmup '
+          f'{rates["warmup_its"] / rates14["warmup_its"]:.3f}, post '
+          f'{rates["post_its"] / rates14["post_its"]:.3f}, ESS/s '
+          f'{rates["ess_s"] / rates14["ess_s"]:.3f}; {smi}')
+    if n_tree != 0:
+        raise AssertionError('[18] transitions ran on the tree loop')
+    if new:
+        raise AssertionError(f'[18] the run built {new}')
+    ops = _traced_leapfrog_ops(prog)
+    print('[18] K=2 chunks on this path\'s final state, device only: the '
+          'user\'s gradient, then [14]\'s adjoint of the same function')
+    _time_chunks(torch, den, tt.trace._carry, None, ops, '_user_grad C=1024',
+                 timer=_device_ms)
+    _time_chunks(torch, traced_den, tt.trace._carry, None,
+                 _traced_leapfrog_ops(traced_den.kernel_spec()['program']),
+                 '_traced C=1024', timer=_device_ms)
+    errs, carry = {}, _first_chains(tt.trace._carry, TRACED_CHAINS)
+    for form in USER_FORMS:
+        den_f = dens[form][0]
+        for dt, peak in ((torch.float32, PEAK_FP32),
+                         (torch.float64, PEAK_FP64)):
+            tag = str(dt)[6:]
+            c = _cast(carry, dt)
+            e, plain_ms = _chunks_vs_plain(
+                torch, den_f, c, dt, f'user gradient ({form}=)',
+                '_user_grad', block=True, depth=USER_CHECK_DEPTH)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            if form != USER_FORMS[0]:
+                continue
+            # the plain ms beside the kernel's: the compared call's, at
+            # the checks' depth
+            C, dim = c.q.shape
+            times = _time_chunks(torch, den_f, c, plain_ms, ops,
+                                 '_user_grad', peak)[0]
+            metric = init_diag_metric(c.q, nc._mat(c.metric.var, C, dim,
+                                                   c.q))
+            times['nuts_block_user_grad'] = _time_block(
+                torch, den_f, c.q, metric, torch.exp(c.step.log_bar),
+                plain_ms['nuts_block_user_grad'], ops, peak,
+                f'  nuts_block_user_grad {tag}')[0]
+            if dt == torch.float32:
+                f32_times = times
+            label = f'user_grad {tag}'
+            print(f'  user gradient {tag}: kernels '
+                  f'{_ptxas_text(ptxas, label)}; built in {builds[label]}')
+    rows = {f'{kind}_user_grad': (launches.get(kind, 0),
+                                  errs[f'{kind}_user_grad'],
+                                  f32_times[f'{kind}_user_grad'])
+            for kind in ('nuts_multi', 'nuts_warmup', 'nuts_block')}
+    _external_form(torch, bt, dens, info)
     return rows
+
+
+def _external_form(torch, bt, dens, info):
+    """[18] The external form: the banana's logp of one point in numpy
+    under ``traceable=False``, its rows over the host pool
+    (``utils.parallel.get_backend().map``) against the torch logp in
+    float64; then ``sample()`` on it, which must raise ``ValueError``
+    before any device work (no launch, no tree-loop transition, no
+    allocation on the card)."""
+    from bayesfast_tpu_torch import config
+    from bayesfast_tpu_torch.samplers import nuts as tree
+    config.set_dtype(torch.float64)
+    ext = dens['external'][0]
+    lo, hi = ext.input_scales[:, 0], ext.input_scales[:, 1]
+    rng = np.random.default_rng(18)
+    x = (info['A'].T @ np.ones(D))[None] + rng.normal(
+        size=(USER_EXT_ROWS, D)) * 0.5
+    x = np.clip(x, lo * 0.99, hi * 0.99)
+    t0 = time.time()
+    lp_ext = ext.logp(x)
+    dt_ext = time.time() - t0
+    lp_ref = dens[USER_FORMS[0]][0].logp(x)
+    rel = float(np.max(np.abs(lp_ext - lp_ref) / np.abs(lp_ref)))
+    print(f'[18] external form (traceable=False, numpy): {USER_EXT_ROWS} '
+          f'rows on the host pool in {dt_ext:.3f} s '
+          f'({USER_EXT_ROWS / dt_ext:.0f} rows/s); against the torch logp '
+          f'(float64): max rel err {rel:.3e} (tolerance {USER_EXT_RTOL})')
+    if not rel < USER_EXT_RTOL:
+        raise AssertionError(f'[18] the external logp differs by {rel}')
+    config.set_dtype(torch.float32)
+    for f in _counters().values():
+        f.launches = 0
+    tree.nuts_transition_batched.transitions = 0
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    try:
+        bt.sample(ext, bt.NTrace(n_chain=N_CHAIN, n_iter=20, n_warmup=10),
+                  verbose=False)
+    except ValueError as exc:
+        msg = str(exc)
+    else:
+        raise AssertionError('[18] sample() ran on the external logp')
+    moved = {k: f.launches for k, f in _counters().items() if f.launches}
+    n_tree = tree.nuts_transition_batched.transitions
+    d_mem = torch.cuda.memory_allocated() - mem
+    print(f'    sample() on it raised ValueError: "{msg[:90]}..."; '
+          f'launches {moved or "none"}, tree-loop transitions {n_tree}, '
+          f'bytes allocated on the card {d_mem}')
+    if moved or n_tree or d_mem:
+        raise AssertionError('[18] sample() worked on the card before it '
+                             'refused the external logp')
 
 
 def _donut_sources(torch):
@@ -3844,6 +4045,8 @@ def main():
     # [14]'s traced densities and [15]'s donut plans generate too; in the
     # background, beside the samplers of [11] that launch no kernel ----
     traced_dens, traced_srcs = _traced_sources(torch)
+    user_dens, user_srcs = _user_grad_sources(torch)
+    traced_srcs.update(user_srcs)
     donut_srcs = _donut_sources(torch)
     traced_srcs.update(donut_srcs)
     wide_dens, wide_srcs = _wide_sources(torch)
@@ -4044,11 +4247,19 @@ def main():
     # bench.py's banana written in torch through sample() under 'auto', the
     # traced kernels bitwise against the program's interpreter, the
     # anchors' user forms ----
-    traced_rows = _traced(torch, bt, traced_dens, rates3,
-                          {a: c for a, _, c, _, _ in anchor_runs}, ptxas,
-                          builds,
-                          smi)
+    traced_rows, rates14 = _traced(
+        torch, bt, traced_dens, rates3,
+        {a: c for a, _, c, _, _ in anchor_runs}, ptxas, builds, smi)
     t_phase = _wall(walls, '[14]', t_phase)
+
+    # ---- [18] the user's own gradient: the banana as a JAX user writes
+    # it (logp= and grad= of one point) through sample() under 'cuda', its
+    # traced pair's kernels bitwise against the interpreter in both forms,
+    # the external form on the host pool ----
+    traced_rows.update(_user_grad(
+        torch, bt, user_dens, traced_dens['bench_banana'][0], rates14,
+        ptxas, builds, smi))
+    t_phase = _wall(walls, '[18]', t_phase)
 
     # ---- [15] the 2-d donut Recipe under 'auto', every transition on the
     # chunk kernels with its plans traced; the quadratic plan's kernels
@@ -4121,10 +4332,10 @@ def main():
                      'launches': n, 'max_abs_err': err, 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': bound_ms,
                      'bound_by': bound_by, 'library_ms': None})
-    # [14]'s and [15]'s traced instantiations: launches on their main
-    # paths (the block kernel has none: both adapt per chain), float32
-    # times for the banana, float64 for the anchors' user forms and the
-    # donut's quadratic plan
+    # [14]'s, [15]'s and [18]'s traced instantiations: launches on their
+    # main paths (the block kernel has none: each adapts per chain),
+    # float32 times for the banana and its user-gradient form, float64 for
+    # the anchors' user forms and the donut's quadratic plan
     for k, (n, err, (ms, plain_ms, bound_ms, bound_by)) in \
             traced_rows.items():
         line = pallas[next(p for p in pallas if k.startswith(p))]

@@ -463,11 +463,18 @@ def test_past_64_dimensions_takes_the_tree_loop(make):
 
 
 def test_new_modules_import_no_jax():
-    """The tracer, the generator and the user densities, imported in a
-    fresh interpreter, load nothing of JAX or of the JAX package."""
-    code = ('import sys; import bayesfast_tpu_torch.ops.trace, '
-            'bayesfast_tpu_torch.ops.codegen, '
-            'bayesfast_tpu_torch.examples.user_densities; '
+    """The tracer, the generator, the user densities and every module the
+    user-gradient slice touched (the density, the sampling entry point,
+    the samplers and their routing, the host pool, the configuration, the
+    flow, the estimators and the splines), imported in a fresh
+    interpreter, load nothing of JAX or of the JAX package."""
+    mods = ['ops.trace', 'ops.codegen', 'examples.user_densities',
+            'core.density', 'core.sample', 'samplers.nuts',
+            'samplers.tempered', 'samplers.chain', 'samplers.nuts_cuda',
+            'samplers.sample_trace', 'utils.parallel', 'config',
+            'transforms.sit', 'evidence.gaussianized', 'utils.cubic']
+    code = ('import sys; import ' + ', '.join(
+                'bayesfast_tpu_torch.' + m for m in mods) + '; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "bayesfast_tpu")]; '
             'print(bad); sys.exit(1 if bad else 0)')
