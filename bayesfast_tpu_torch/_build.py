@@ -10,7 +10,10 @@ translation unit (``ops/codegen.py``) that includes ``csrc/nuts_kernels.cuh``;
 it is built the same way into a library of its own, named by a hash of its
 source, the headers and the flags (``load_traced``). ``build_library``
 starts one ``nvcc`` for each library that needs it, the generated ones too,
-all at once. A failed build or load raises with the compiler's output.
+all at once. The host library of ``native/`` (C and OpenMP) is built beside
+them by ``gcc`` (``build_host``), named by a hash of its source, its flags
+and the host's CPU model: ``-march=native`` code is not reused on another
+CPU. A failed build or load raises with the compiler's output.
 """
 
 import ctypes
@@ -23,7 +26,8 @@ import tempfile
 import time
 
 __all__ = ['load_library', 'load_traced', 'build_library', 'build_log',
-           'traced_path', 'NVCC_FLAGS', 'LIBRARIES']
+           'build_host', 'traced_path', 'NVCC_FLAGS', 'LIBRARIES',
+           'GCC_FLAGS', 'HOST_LIBRARIES']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, 'csrc')
@@ -35,6 +39,12 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-lineinfo', '--split-compile=0']
 #: library name -> its source in csrc/
 LIBRARIES = {'nuts': 'nuts.cu', 'kde': 'kde.cu'}
+# the host library's flags (the JAX package's, bayesfast_tpu/native)
+GCC_FLAGS = ['-O3', '-march=native', '-fopenmp', '-shared', '-fPIC',
+             '-fvisibility=hidden']
+#: host library name -> its C source
+HOST_LIBRARIES = {'native': os.path.join(_HERE, 'native', 'src',
+                                         'bf_native.c')}
 
 _libs = {}
 _traced = {}  # generated source -> its loaded library
@@ -43,6 +53,8 @@ last_build_seconds = None
 last_build_walls = {}
 #: every generated unit this process compiled: its stem -> nvcc seconds
 traced_builds = {}
+#: every host library this process compiled: its name -> gcc seconds
+host_builds = {}
 
 
 def _nvcc():
@@ -142,6 +154,74 @@ def build_library(names=None, verbose=False, sources=()):
     if failed:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
     return paths
+
+
+def _cpu_info():
+    """The first processor's fields in /proc/cpuinfo (none off Linux)."""
+    info = {}
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(':')
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return info
+
+
+def _cpu_model():
+    """The host's CPU model: /proc/cpuinfo's model name with its vendor,
+    family and model numbers (some hosts name the model 'unknown')."""
+    info = _cpu_info()
+    if not info:
+        import platform
+        return platform.machine()
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')}, "
+            f"family {info.get('cpu family', '?')}, model "
+            f"{info.get('model', '?')})")
+
+
+def host_path(name):
+    """The host library ``name``'s file: its hash covers the source, the
+    flags and the CPU model (with the CPU's feature flags, which
+    ``-march=native`` reads)."""
+    src = HOST_LIBRARIES[name]
+    h = hashlib.sha256(' '.join(GCC_FLAGS).encode() + b'\0'
+                       + _cpu_model().encode() + b'\0'
+                       + _cpu_info().get('flags', '').encode() + b'\0')
+    with open(src, 'rb') as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f'libbf_{name}_{h.hexdigest()[:16]}.so')
+
+
+def build_host(name='native'):
+    """Compile the host library ``name`` with ``gcc`` unless its hashed
+    file exists; returns its path. The compiler writes a temporary file
+    that ``os.replace`` moves into place, so processes that build at once
+    never load half a library. Records the gcc wall in ``host_builds``.
+    Raises ``RuntimeError`` with gcc's output when the build fails."""
+    out = host_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = ['gcc', *GCC_FLAGS, '-o', tmp, HOST_LIBRARIES[name], '-lm']
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f'gcc failed: {" ".join(cmd)}\n{e}') from None
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'gcc failed: {" ".join(cmd)}\n'
+                           + proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    host_builds[name] = time.time() - t0
+    return out
 
 
 def build_log(name=None, source=None):

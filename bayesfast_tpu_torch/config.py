@@ -1,6 +1,6 @@
 """Global configuration for bayesfast_tpu_torch.
 
-Counterpart of ``bayesfast_tpu/config.py``. Three knobs:
+Counterpart of ``bayesfast_tpu/config.py``. Four knobs:
 
 * the floating dtype (``torch.float64`` by default, as the reference
   numpy package; the bench runs ``torch.float32``);
@@ -12,7 +12,14 @@ Counterpart of ``bayesfast_tpu/config.py``. Three knobs:
               (``samplers/nuts_cuda.py``), CPU tensors run their plain
               torch versions;
     'cuda'  — always the kernels: a CPU tensor raises;
-    'torch' — always the plain torch versions (on any device).
+    'torch' — always the plain torch versions (on any device);
+* where the SIT fit's KDE-cdf sums run (``kde_on_device``,
+  ``kde_device_route``): off, on the host library ``native/`` (C and
+  OpenMP); on, on the device route, for data on a CUDA device at every
+  size, and for data on the CPU (where the device route is the KDE
+  kernel's plain version) from ``KDE_DEVICE_MIN`` elements up, as the JAX
+  package chooses. Auto turns it on when the configured device is a CUDA
+  device.
 
 Matmul precision: the JAX package forces ``'highest'`` matmul precision
 (``bayesfast_tpu/config.py:90-133``) because reduced-precision matmul noise
@@ -26,7 +33,8 @@ import torch
 
 __all__ = ['get_dtype', 'set_dtype', 'asarray', 'default_int', 'get_device',
            'set_device', 'get_nuts_kernel', 'set_nuts_kernel',
-           'set_matmul_precision']
+           'set_matmul_precision', 'kde_on_device', 'set_kde_device',
+           'kde_device_route']
 
 
 def _precision():
@@ -71,6 +79,11 @@ _dtype = torch.float64
 _DEFAULT_DEVICE = torch.device('cuda')
 _device = _DEFAULT_DEVICE
 _nuts_kernel = 'auto'
+_kde_device = None  # None = auto (on when the configured device is CUDA)
+#: the fewest elements (a SIT layer's rows x dimensions, a ``kde.cdf``
+#: call's points x data) on the CPU that take the device route when
+#: ``kde_on_device()`` (the JAX package's threshold)
+KDE_DEVICE_MIN = 100_000
 
 
 def get_dtype():
@@ -128,3 +141,30 @@ def set_nuts_kernel(mode):
 
 def get_nuts_kernel():
     return _nuts_kernel
+
+
+def kde_on_device():
+    """Whether the SIT fit's bulk KDE-cdf sums may run on the device (the
+    KDE-cdf kernel) instead of the host library: ``set_kde_device``'s
+    setting, or under auto whether ``get_device()`` is a CUDA device."""
+    if _kde_device is not None:
+        return _kde_device
+    return get_device().type == 'cuda'
+
+
+def set_kde_device(mode):
+    """Force (True / False) or restore auto (None) the device KDE-cdf
+    route."""
+    global _kde_device
+    _kde_device = None if mode is None else bool(mode)
+
+
+def kde_device_route(n, device):
+    """Whether KDE-cdf work of ``n`` elements on ``device`` takes the
+    device route. Data on a CUDA device stays there at every size (on the
+    H100 the device fit was the faster at every size measured,
+    ``chip_smoke.py`` [19b]); on the CPU both routes run on the host, and
+    the JAX package's threshold ``KDE_DEVICE_MIN`` chooses between them."""
+    if not kde_on_device():
+        return False
+    return torch.device(device).type == 'cuda' or n >= KDE_DEVICE_MIN

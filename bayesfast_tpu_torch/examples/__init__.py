@@ -7,7 +7,9 @@ Each module's ``main()`` samples its anchor density with NUTS through
 ``N_ITER`` and ``N_WARMUP``), prints logz beside the fiducial and returns
 the Recipe. The densities are compiled into the CUDA NUTS kernels
 (``ops/densities.py``), so every transition runs on the chunk kernels;
-the SIT fit of GBS runs its KDE sums on the KDE-cdf kernel. Run one with
+the SIT fit of GBS runs its KDE sums on the KDE-cdf kernel on the card
+(its fit half is at least 100 000 rows x dimensions at this
+configuration), and on the host library on the CPU. Run one with
 
     python -m bayesfast_tpu_torch.examples.funnel_gbs
 

@@ -3,36 +3,51 @@ samples.
 
 Counterpart of ``bayesfast_tpu/transforms/sit.py``. Each layer is (i) a
 FastICA rotation (``ops.ica``) and (ii) a per-dimension Gaussianization
-``ndtri(KDE_cdf(x))`` approximated by a monotone cubic spline. The fit
-always takes the JAX package's batched device-fit structure, on the device
-of ``config.get_device()`` (or ``device``):
+``ndtri(KDE_cdf(x))`` approximated by a monotone cubic spline. The spline
+fits take one of the JAX package's two routes, chosen per layer by
+``config.kde_device_route`` of the layer's ``n_rows * dim``: with
+``config.kde_on_device()`` on (auto on a CUDA device) the device route,
+for data on the card at every size and for data on the CPU from
+``config.KDE_DEVICE_MIN`` (100 000) up, as the JAX package chooses; else
+the host route.
 
-* the knot stage (percentile knots, edge-regression offsets, weighted
-  bandwidths, the finite-row count) runs in torch on the device and comes
-  back to the host as one small pack;
-* the spline fits (``utils.cubic.fit_spline_columns``) run on the host and
+* Device route, the JAX package's batched device-fit structure on the
+  device of ``config.get_device()``: the knot stage (percentile knots,
+  edge-regression offsets, weighted bandwidths, the finite-row count) runs
+  in torch on the device and comes back to the host as one small pack;
+  the spline fits (``utils.cubic.fit_spline_columns``) run on the host and
   evaluate the KDE cdf of every dimension at once, one ``ops.kde``
   ``kde_cdf_batch`` call per fit stage: on the card the KDE-cdf kernel,
-  on the CPU its plain version;
-* the fitted layer maps the data on the device for the next layer.
+  on the CPU its plain version.
+* Host route: the rotated data comes to the host in float64 numpy, and
+  each dimension is fitted on its own (``_gaussianize_1d``: a ``kde`` and
+  a ``cubic_spline`` of ``ndtri`` of its ``kde.cdf``, which sums on the
+  host library ``native/``, the windowed sorted sum, below its own
+  threshold), the dimensions fanned out over a thread pool with the
+  library's OpenMP team capped at one thread.
 
-Everything runs in the flow dtype, the run dtype (``config.get_dtype()``)
-unless ``flow_dtype`` is set. The forward and backward flows are loops over
-the stacked layers; the public methods take and return numpy arrays.
+Either way the fitted layer maps the data on the device for the next
+layer. Everything runs in the flow dtype, the run dtype
+(``config.get_dtype()``) unless ``flow_dtype`` is set (the host route's fits
+in float64). The forward and backward flows are loops over the stacked
+layers; the public methods take and return numpy arrays.
 """
 
+import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 from scipy.special import ndtri
 
-from ..config import get_device, get_dtype
+from ..config import get_device, get_dtype, kde_device_route
 from ..ops.ica import fast_ica
 from ..ops.kde import kde_cdf_batch
-from ..utils.cubic import (CubicSplineSet, fit_spline_columns,
+from ..utils.cubic import (CubicSplineSet, cubic_spline, fit_spline_columns,
                            _set_derivative, _set_evaluate, _set_solve)
+from ..utils.kde import kde
 from ..utils.random import generator_from_seed, get_generator
 from ..utils.sobol import multivariate_normal
 
@@ -101,9 +116,12 @@ class SIT:
     seed, a ``torch.Generator`` or None (the port's global generator).
     ``flow_dtype`` defaults to ``config.get_dtype()``; the fit and the flow
     run on ``config.get_device()``. ``parallel_backend`` is accepted and
-    ignored, as in the JAX package (the per-dimension work is batched on
-    the device); ``mvn_generator(mean, cov, n)`` draws ``sample``'s
-    latents (default: ``utils.sobol.multivariate_normal``).
+    ignored, as in the JAX package (the per-dimension fits are batched on
+    the device, or run on the host's threads); ``mvn_generator(mean, cov,
+    n)`` draws ``sample``'s latents (default:
+    ``utils.sobol.multivariate_normal``). After ``fit``, ``last_profile``
+    holds the fit's host seconds by stage and ``last_routes`` each fitted
+    layer's route, ``'device'`` or ``'host'``.
     """
 
     def __init__(self, n_iter=10, parallel_backend=None, bw_factor=1.,
@@ -242,6 +260,49 @@ class SIT:
         self.last_profile['splines_s'] -= self.last_profile['kde_s'] - kde_s
         return sset
 
+    def _gaussianize_1d(self, x, kde_s):
+        """One dimension's spline, ``ndtri`` of its KDE cdf, fitted on the
+        host (the JAX package's ``_gaussianize_1d``); appends the seconds
+        of its cdf calls to ``kde_s``."""
+        k = kde(x, bw_factor=self.bw_factor, weights=self._weights)
+
+        def fun(xx):
+            t0 = time.time()
+            out = ndtri(k.cdf(xx))
+            kde_s.append(time.time() - t0)
+            return out
+
+        return cubic_spline(x, fun, **self.cubic_options)
+
+    def _fit_host(self, y):
+        """All dimensions' spline fits for the layer input ``y`` (N, D),
+        float64 numpy, one ``_gaussianize_1d`` a dimension over a thread
+        pool of ``min(D, os.cpu_count())`` workers, with the host
+        library's OpenMP team capped at one thread while the pool runs (its
+        bits do not depend on the team). Returns the splines."""
+        from ..native import bindings as native
+        t0 = time.time()
+        D = y.shape[1]
+        kde_s = []
+        n_workers = min(D, os.cpu_count() or 1)
+        cols = [np.ascontiguousarray(y[:, i]) for i in range(D)]
+        if n_workers > 1:
+            native.set_threads(1)    # one OpenMP thread a pool thread
+            try:
+                with ThreadPoolExecutor(n_workers) as ex:
+                    splines = list(ex.map(
+                        lambda c: self._gaussianize_1d(c, kde_s), cols))
+            finally:
+                native.set_threads(0)
+        else:
+            splines = [self._gaussianize_1d(c, kde_s) for c in cols]
+        # the fits' wall, and the seconds of their KDE calls summed over
+        # the pool's threads
+        self._lap('host_fits_s', t0)
+        self.last_profile['host_kde_thread_s'] = \
+            self.last_profile.get('host_kde_thread_s', 0.0) + sum(kde_s)
+        return splines
+
     def _layer(self, x):
         """One layer fitted to ``x`` (N, D), a tensor of the flow dtype on
         the device: the ICA rotation, then the spline set. Appends the set
@@ -262,15 +323,35 @@ class SIT:
         components, mean = fast_ica(
             x_fit, gen, max_iter=self.ica_options.get('max_iter', 100),
             tol=self.ica_options.get('tol', 1e-4))
-        self._lap('ica_s', t0)
-        y = (x - mean) @ components.T
-        s = torch.std(y, dim=0, unbiased=False)
+        t0 = self._lap('ica_s', t0)
+        dt, dev = x.dtype, x.device
+        if kde_device_route(n_rows * x.shape[1], dev):
+            y = (x - mean) @ components.T
+            s = torch.std(y, dim=0, unbiased=False)
+            y = y / s
+            sset = self._fit_splines(y)
+            self._spline_sets.append(sset)
+            A = (components.double() / s.double()[:, None]).cpu().numpy()
+            m = torch.mean(x, dim=0).double().cpu().numpy()
+            self.last_routes.append('device')
+            return A, np.linalg.inv(A), m, sset.evaluate(y.T).T
+        # the host route: the rotation applied on the host in float64, as
+        # the JAX package's host route applies it
+        xh = x.double().cpu().numpy()
+        comps = components.double().cpu().numpy()
+        y = (xh - mean.double().cpu().numpy()) @ comps.T
+        s = np.std(y, axis=0)
         y = y / s
-        sset = self._fit_splines(y)
+        t0 = self._lap('host_copy_s', t0)
+        n_bad = int(np.sum(~np.isfinite(y).all(axis=1)))
+        if n_bad:
+            raise _NonFiniteLayer(n_bad)
+        sset = CubicSplineSet(self._fit_host(y), dtype=dt, device=dev)
         self._spline_sets.append(sset)
-        A = (components.double() / s.double()[:, None]).cpu().numpy()
-        m = torch.mean(x, dim=0).double().cpu().numpy()
-        return A, np.linalg.inv(A), m, sset.evaluate(y.T).T
+        A = comps / s[:, None]
+        x_next = sset.evaluate(torch.as_tensor(y.T, dtype=dt, device=dev)).T
+        self.last_routes.append('host')
+        return A, np.linalg.inv(A), np.mean(xh, axis=0), x_next
 
     def _lap(self, name, t0):
         t1 = time.time()
@@ -322,9 +403,13 @@ class SIT:
 
         plot = int(plot)
         # host seconds of this fit by stage: evaluate_s (each layer's wait
-        # for the previous layer's device evaluation), ica_s, knots_s,
-        # kde_s (the KDE-cdf calls) and splines_s (the host spline fits)
+        # for the previous layer's device evaluation), ica_s; on the device
+        # route knots_s, kde_s (the KDE-cdf calls) and splines_s (the host
+        # spline fits); on the host route host_copy_s (the rotated data
+        # to the host), host_fits_s (the per-dimension fits' wall) and
+        # host_kde_thread_s (their KDE calls, summed over the threads)
         self.last_profile = {}
+        self.last_routes = []
         x = torch.as_tensor(self._data, dtype=self.flow_dtype,
                             device=get_device())
         for _ in range(n_run):

@@ -2,16 +2,18 @@
 
 Counterpart of ``bayesfast_tpu/utils/kde.py``: weighted Scott/Silverman
 bandwidth with a ``bw_factor`` multiplier and the n-d ``logpdf`` (host
-numpy, as in the JAX package), the 1-d ``cdf`` through the KDE-cdf kernel
-(``ops/kde.py``) on ``config.get_device()`` in ``config.get_dtype()``, and
-``resample`` from an explicit numpy or torch generator.
+numpy, as in the JAX package), the 1-d ``cdf`` on one of the JAX package's
+two routes (the KDE-cdf kernel, ``ops/kde.py``, on ``config.get_device()``
+in ``config.get_dtype()``, or the windowed sum of the host library
+``native/`` in float64), and ``resample`` from an explicit numpy or torch
+generator.
 """
 
 import numpy as np
 import torch
 from scipy.special import logsumexp
 
-from ..config import get_device, get_dtype
+from ..config import get_device, get_dtype, kde_device_route
 from .random import get_generator
 
 __all__ = ['kde']
@@ -50,6 +52,7 @@ class kde:
             self._weights = weights / np.sum(weights)
         self._neff = 1.0 / np.sum(self._weights ** 2)
         self._bw_factor = float(bw_factor)
+        self._cdf_cache = None   # the host route's sorted data
         self.set_bandwidth(bw_method)
 
     @property
@@ -106,14 +109,21 @@ class kde:
     __call__ = pdf
 
     def cdf(self, x):
-        """1-d cdf: the weighted sum of normal cdfs, through the KDE-cdf
-        kernel (``ops.kde.kde_cdf_device``) on the configured device and
-        dtype; numpy float64 out."""
-        from ..ops.kde import kde_cdf_device
+        """1-d cdf, the weighted sum of normal cdfs; numpy float64 out. On
+        the device route (``config.kde_device_route`` of ``x.size * n``
+        on the configured device) the KDE-cdf kernel
+        (``ops.kde.kde_cdf_device``) on that device and the configured
+        dtype sums it, else the host library (``_cdf_host``)."""
         if self.d != 1:
             raise NotImplementedError('currently only supports cdf for 1-d '
                                       'kde')
         x = np.atleast_1d(np.asarray(x, np.float64))
+        if kde_device_route(x.size * self.n, get_device()):
+            return self._cdf_device(x)
+        return self._cdf_host(x)
+
+    def _cdf_device(self, x):
+        from ..ops.kde import kde_cdf_device
         dtype, device = get_dtype(), get_device()
         if self._dev_cache is None or self._dev_cache[0] != (dtype, device):
             self._dev_cache = ((dtype, device), tuple(
@@ -124,6 +134,23 @@ class kde:
         out = kde_cdf_device(torch.as_tensor(x, dtype=dtype, device=device),
                              data, w, h)
         return out.cpu().numpy().astype(np.float64)
+
+    def _cdf_host(self, x):
+        """The cdf by the host library's windowed sum
+        (``native.bindings.kde_cdf_sorted``), float64: the data sorted
+        once per kde (each spline fit evaluates the cdf several times), and
+        each point sums only the +-8h window of the sorted data above the
+        prefix weight below it."""
+        from ..native import bindings as native
+        if self._cdf_cache is None:
+            order = np.argsort(self.dataset[:, 0], kind='stable')
+            sdata = np.ascontiguousarray(self.dataset[order, 0])
+            sw = np.ascontiguousarray(self._weights[order])
+            prefix = np.concatenate(([0.0], np.cumsum(sw)))
+            self._cdf_cache = (sdata, sw, prefix)
+        sdata, sw, prefix = self._cdf_cache
+        return native.kde_cdf_sorted(sdata, sw, prefix,
+                                     np.sqrt(self.covariance[0, 0]), x)
 
     def resample(self, size=None, random_generator=None):
         """Draw samples from the estimated density: pick a data point by

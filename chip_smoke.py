@@ -157,6 +157,26 @@ card, drives the port's paths and checks what comes out:
   at depth 8; last, the external form (``traceable=False``, numpy) over
   1024 rows on the host pool against the torch logp, and ``sample()`` on
   it refused before any device work.
+* the host route of small SIT fits ([19]; ``bayesfast_tpu_torch/native``,
+  the host library of C and OpenMP, built by gcc at first use): [19a] the
+  library's gcc wall and OpenMP team, each entry point against its plain
+  numpy version at a small fit's sizes (Sobol points bitwise, also
+  against ``utils.sobol`` on the card; the KDE cdf sums within rtol
+  1e-12; the splines within ``tests/test_native.py``'s tolerances), the
+  windowed sum at one thread bitwise against the full team, and its rate;
+  [19b] SIT fits at D = 27 under auto either side of the JAX package's
+  100 000 rows x dimensions (data on the card: the device route, KDE
+  launches, at both), then each route forced (``set_kde_device``) at
+  about 2e4, 1e5 and 5e5 with both walls printed (the host route with 0
+  KDE launches) and the device route, replaying the host route's
+  rotations, within a mean |logq difference| of 0.01 on held-out rows;
+  [19c] GBS after importance sampling (``Recipe._evidence_with_is``,
+  ``evidence_method='GBS'``) on [10]'s finished Recipe: on all its chains
+  and on its first 8 under auto (the device route), and on the first 8
+  under ``set_kde_device(False)`` (the host route, 0 KDE launches); each
+  surrogate evidence (the GBS part, before the IS term that all three
+  share) finite, the host route's within 4 combined GBS errors of each
+  device run's, n_call unchanged and no true-model call.
 
 The build's ``-Xptxas -v`` report, kept beside the library, gives each
 NUTS kernel's registers and spills ([2b]); a PolyGaussian, Funnel, Ring or
@@ -340,6 +360,17 @@ WIDE_CHECK_DEPTH, WIDE_POLY_FIT = 6, 600
 # block of [17]'s last state, and a state of mixed tree sizes
 # (``_mixed_state``)
 WIDE_PARTIAL_CHAINS, WIDE_MIXED_CHAINS = 60, 24
+# [19]: the host route of small SIT fits (bayesfast_tpu_torch/native): the
+# data rows and queries of [19a]'s checks (a GBS fit half of 8 chains x 800
+# draws, the queries of a dimension's first fit stage), its Sobol points
+# (that run's proposal count) and timed calls; [19b]'s dimensions, layers,
+# fit rows (rows x D about 2e4, 1e5 and 5e5) and held-out rows, and its
+# gate on the two routes' mean |logq difference| (the port's tolerance
+# against the JAX package's device fit); [19c]'s chains on each route
+HOST_ROWS, HOST_QUERIES, HOST_SOBOL, HOST_REPS = 3200, 420, 6400, 20
+ROUTE_D, ROUTE_LAYERS, ROUTE_HELD = 27, 2, 2000
+ROUTE_ROWS, ROUTE_TOL = (741, 3704, 18519), 0.01
+HOST_CHAINS = 8
 # --ab: MVN-250's saved state, from a per-chain sample() at 1024 chains,
 # float32, seed 32 of this many warmup + post iterations (the first process)
 MVN_AB_WARMUP, MVN_AB_POST = 100, 10
@@ -4018,6 +4049,274 @@ def _ab(parent, work, n_seeds):
     return 1 if differ or spills is not None else 0
 
 
+def _cpu_text():
+    """The host's CPU model and its cores (all, and this process's)."""
+    from bayesfast_tpu_torch import _build
+    return (f'{_build._cpu_model()}, {os.cpu_count()} cores '
+            f'({len(os.sched_getaffinity(0))} to this process)')
+
+
+def _close(a, b, rtol):
+    """|a - b| <= rtol |b| + 1e-15: the C sums take Phi as 0.5 (1 + erf),
+    which cancels to ~1e-16 absolute in the far left tail."""
+    return bool(np.all(np.abs(a - b) <= rtol * np.abs(b) + 1e-15))
+
+
+def _host_library(torch):
+    """[19a] The host library on this host: built (gcc wall) and loaded,
+    its OpenMP team; each entry point against its plain numpy version at
+    the host route's sizes (HOST_ROWS data rows, HOST_QUERIES queries):
+    Sobol bitwise, also against ``utils.sobol``'s integers on the card;
+    the KDE cdf sums within rtol 1e-12; the splines within
+    tests/test_native.py's tolerances; the windowed sum at one thread and
+    at the full team bitwise, and its rate at both."""
+    from scipy.special import ndtri
+    from bayesfast_tpu_torch import _build
+    from bayesfast_tpu_torch.native import bindings as nb
+    from bayesfast_tpu_torch.utils import sobol
+    from bayesfast_tpu_torch.utils.cubic import cubic_spline
+    t0 = time.time()
+    ok = nb.available()
+    first = time.time() - t0
+    gcc = _build.host_builds.get('native')
+    lib = os.path.relpath(_build.host_path('native'), _REPO)
+    print(f'[19a] host library {lib}: available {ok}; gcc '
+          f'{"reused, not built" if gcc is None else f"{gcc:.2f} s"} (first '
+          f'call {first:.2f} s); OpenMP team '
+          f'{nb.team_size() if ok else None}; host {_cpu_text()}')
+    if not ok:
+        raise AssertionError(f'[19a]: {nb._error}')
+    rng = np.random.default_rng(19)
+    V = sobol.direction_numbers(DES_D)
+    pts = nb.sobol_points(V, HOST_SOBOL, 1)
+    card = (sobol.sobol_uint32(HOST_SOBOL, DES_D, 1, device='cuda').double()
+            * 2.0 ** -32).cpu().numpy()
+    checks = {'sobol_points vs plain': np.array_equal(
+                  pts, nb.sobol_points_plain(V, HOST_SOBOL, 1)),
+              'sobol_points vs utils.sobol on the card':
+                  np.array_equal(pts, card)}
+    data = rng.standard_t(4, size=HOST_ROWS)
+    w = rng.uniform(0.2, 1.0, size=HOST_ROWS)
+    w /= w.sum()
+    h = float(np.std(data) * HOST_ROWS ** -0.2)
+    x = rng.normal(size=HOST_QUERIES) * 2.0
+    order = np.argsort(data, kind='stable')
+    sd, sw = data[order], w[order]
+    prefix = np.concatenate(([0.0], np.cumsum(sw)))
+    dense = nb.kde_cdf(data, w, h, x)
+    srt = nb.kde_cdf_sorted(sd, sw, prefix, h, x)
+    checks['kde_cdf vs plain, rtol 1e-12'] = _close(
+        dense, nb.kde_cdf_plain(data, w, h, x), 1e-12)
+    checks['kde_cdf_sorted vs plain, rtol 1e-12'] = _close(
+        srt, nb.kde_cdf_sorted_plain(sd, sw, prefix, h, x), 1e-12)
+    rates = {}
+    for n in (1, 0):
+        nb.set_threads(n)
+        try:
+            one = nb.kde_cdf_sorted(sd, sw, prefix, h, x)
+            t0 = time.time()
+            for _ in range(HOST_REPS):
+                nb.kde_cdf_sorted(sd, sw, prefix, h, x)
+            rates[n] = HOST_REPS * HOST_QUERIES / (time.time() - t0)
+        finally:
+            nb.set_threads(0)
+        at = 'one thread' if n else 'the full team'
+        checks[f'kde_cdf_sorted at {at} vs the first call, bitwise'] = \
+            np.array_equal(one, srt)
+    sp = cubic_spline(data, lambda q: ndtri(nb.kde_cdf_sorted(
+        sd, sw, prefix, h, q)))
+    q = np.concatenate([x, sp._x])
+    for fn in ('spline_eval', 'spline_deriv'):
+        checks[f'{fn} vs plain, 1e-8'] = np.allclose(
+            getattr(nb, fn)(sp._c, sp._x, q),
+            getattr(nb, fn + '_plain')(sp._c, sp._x, q), rtol=0, atol=1e-8)
+    ev = nb.spline_eval(sp._c, sp._x, x)
+    sol = nb.spline_solve(sp._c, sp._x, sp._y, ev)
+    checks['spline_solve vs plain, 1e-8'] = np.allclose(
+        sol, nb.spline_solve_plain(sp._c, sp._x, sp._y, ev), rtol=0,
+        atol=1e-8)
+    checks['spline_solve round trip, 1e-6'] = np.allclose(sol, x, atol=1e-6)
+    print(f'    {HOST_SOBOL} Sobol points x {DES_D}; KDE cdf of {HOST_ROWS} '
+          f'rows at {HOST_QUERIES} queries, h {h:.4f}; a spline of '
+          f'{sp._n} knots fitted to them')
+    for k, v in checks.items():
+        print(f'    {k}: {v}')
+    print(f'    kde_cdf_sorted, {HOST_ROWS} rows: {rates[1]:.0f} queries/s '
+          f'at one thread, {rates[0]:.0f} at the team of {nb.team_size()}')
+    if not all(checks.values()):
+        raise AssertionError('[19a]: ' + ', '.join(
+            k for k, v in checks.items() if not v))
+
+
+def _route_data(n, seed=19):
+    """n rows of ROUTE_D independent non-Gaussian sources (cubed normal,
+    gamma, Student t, Laplace, uniform), mixed by a seeded near-identity
+    matrix."""
+    rng = np.random.default_rng(seed)
+    draw = (lambda m: rng.normal(size=m) ** 3,
+            lambda m: rng.gamma(2.0, size=m),
+            lambda m: rng.standard_t(3, size=m),
+            lambda m: rng.laplace(size=m), lambda m: rng.uniform(-1, 1, m))
+    s = np.stack([draw[i % 5](n) for i in range(ROUTE_D)], 1)
+    mix = np.eye(ROUTE_D) + 0.3 * rng.normal(size=(ROUTE_D, ROUTE_D)) \
+        / np.sqrt(ROUTE_D)
+    return s @ mix.T
+
+
+def _route_fit(torch, bt, x, route, rotations=None, replay=None,
+               n_iter=ROUTE_LAYERS):
+    """A SIT fitted to ``x`` (seed 19, the run dtype) on ``route`` ('auto',
+    'host' or 'device': ``set_kde_device`` None, False or True); each
+    layer's FastICA result appended to ``rotations``, or taken from
+    ``replay``. Returns (the SIT, its wall, its KDE kernel launches)."""
+    from bayesfast_tpu_torch.ops import kde as tk
+    from bayesfast_tpu_torch.transforms import sit as tsit
+    orig = tsit.fast_ica
+    if replay is not None:
+        it = iter(replay)
+        tsit.fast_ica = lambda *a, **kw: next(it)
+    elif rotations is not None:
+        def recorded(*a, **kw):
+            rotations.append(orig(*a, **kw))
+            return rotations[-1]
+        tsit.fast_ica = recorded
+    bt.config.set_kde_device({'auto': None, 'host': False,
+                              'device': True}[route])
+    tk.kde_cdf_batch.launches = 0
+    try:
+        st = bt.transforms.SIT(n_iter=n_iter, random_generator=19)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st.fit(x)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        tsit.fast_ica = orig
+        bt.config.set_kde_device(None)
+    return st, wall, tk.kde_cdf_batch.launches
+
+
+def _route_crossover(torch, bt):
+    """[19b] The route of a SIT fit and its crossover, ROUTE_D dimensions
+    in the run dtype: under auto, fits of rows x D just under and just over
+    the JAX package's 100 000 (data on the card: both on the device route,
+    with KDE launches); then at rows x D about 2e4, 1e5 and 5e5 each route
+    forced, both walls printed, the host route with 0 KDE launches, and
+    the device route replaying the host route's FastICA results: mean
+    |logq difference| on held-out rows below ROUTE_TOL (free fits take
+    other rotations from the second layer on: FastICA's fixed point on
+    Gaussianized marginals is ill-defined; their difference is printed)."""
+    n_lo = -(-bt.config.KDE_DEVICE_MIN // ROUTE_D) - 1
+    for n in (n_lo, n_lo + 1):
+        st, wall, launches = _route_fit(torch, bt, _route_data(n), 'auto',
+                                        n_iter=2)
+        print(f'[19b] auto, {n} x {ROUTE_D} = {n * ROUTE_D}: routes '
+              f'{st.last_routes}, KDE launches {launches}, wall {wall:.3f} s')
+        if st.last_routes != ['device'] * 2 or launches == 0:
+            raise AssertionError(f'[19b]: the fit of {n} rows took '
+                                 f'{st.last_routes} with {launches} launches')
+    for n in ROUTE_ROWS:
+        x = _route_data(n + ROUTE_HELD, seed=n)
+        fit, held = x[:n], x[n:]
+        rot = []
+        sh, wh, lh = _route_fit(torch, bt, fit, 'host', rotations=rot)
+        sd, wd, ld = _route_fit(torch, bt, fit, 'device')
+        sr, _, _ = _route_fit(torch, bt, fit, 'device', replay=rot)
+        q_h = sh.logq(held)
+        d_free = np.abs(sd.logq(held) - q_h).mean()
+        d_same = np.abs(sr.logq(held) - q_h).mean()
+        print(f'[19b] {n} x {ROUTE_D} = {n * ROUTE_D}, {ROUTE_LAYERS} layers:'
+              f' host route {wh:.3f} s ({lh} KDE launches; '
+              f'{ {k: round(v, 3) for k, v in sh.last_profile.items()} }), '
+              f'device route {wd:.3f} s ({ld} launches; '
+              f'{ {k: round(v, 3) for k, v in sd.last_profile.items()} }); '
+              f'held-out mean |d logq| {d_same:.2e} with the host route\'s '
+              f'rotations (gate {ROUTE_TOL}), {d_free:.3f} free')
+        if not (lh == 0 and ld > 0
+                and sh.last_routes == ['host'] * ROUTE_LAYERS
+                and sr.last_routes == ['device'] * ROUTE_LAYERS
+                and d_same < ROUTE_TOL):
+            raise AssertionError(f'[19b]: the routes at {n} rows disagree: '
+                                 f'{d_same}, launches {lh} / {ld}')
+
+
+def _gbs_host_route(torch, bt, rec):
+    """[19c] GBS after IS on [10]'s finished DES-like Recipe:
+    ``_evidence_with_is`` with ``evidence_method='GBS'`` on the post step's
+    surrogate trace and its IS logp / logq: on all chains' draws and on the
+    first HOST_CHAINS chains' under auto (both the device route), and on
+    the first HOST_CHAINS chains' under ``set_kde_device(False)`` (the host
+    route). Gates on each run's surrogate evidence logz_q (the GBS part:
+    the IS term and its error are the same in all three): finite, the host
+    route's within 4 combined GBS errors of each device run's; n_call
+    unchanged and no true-model call; KDE launches on the device route and
+    0 on the host route."""
+    from bayesfast_tpu_torch.ops import kde as tk
+    res = rec.get()
+    n_call = res.n_call
+    true_calls = []
+    true_logp = rec._true_logp
+    rec._true_logp = lambda x: true_calls.append(len(x)) or true_logp(x)
+    first = (res.x_q[:HOST_CHAINS], res.logq_q[:HOST_CHAINS])
+    out = {}
+    try:
+        for label, route, (x_q, logq_q) in (
+                (f'all {res.x_q.shape[0]} chains, auto', None,
+                 (res.trace_q, res.logq_q)),
+                (f'first {HOST_CHAINS} chains, auto', None, first),
+                (f'first {HOST_CHAINS} chains, host', False, first)):
+            step = bt.recipe.PostStep(evidence_method='GBS')
+            gbs = step.evidence_method
+            run, q = gbs.run, []
+            gbs.run = lambda *a, **kw: q.append(run(*a, **kw)) or q[-1]
+            xa = res.x_q if hasattr(x_q, 'n_call') else x_q
+            bt.utils.set_generator(19)
+            bt.config.set_kde_device(route)
+            tk.kde_cdf_batch.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                with warnings.catch_warnings():
+                    # an array has no call count: n_q is its sample count
+                    warnings.filterwarnings('ignore',
+                                            message='f_call sizing')
+                    n_q = gbs._proposal_count(xa,
+                                              getattr(x_q, 'n_call', None))
+                    logz, err = rec._evidence_with_is(step, x_q, logq_q,
+                                                      res.logp, res.logq)
+                torch.cuda.synchronize()
+            finally:
+                bt.config.set_kde_device(None)
+            wall = time.time() - t0
+            launches = tk.kde_cdf_batch.launches
+            out[label] = (*q[0], launches, gbs.sit.last_routes)
+            print(f'[19c] GBS after IS, {label}: fit {xa.shape[0] // 2} x '
+                  f'{xa.shape[1]} x {xa.shape[2]} rows, n_q {n_q}; logz '
+                  f'{logz:.4f} +- {err:.4f}, of it logz_q {q[0][0]:.4f} +- '
+                  f'{q[0][1]:.4f}; wall {wall:.3f} s; KDE launches '
+                  f'{launches}; SIT routes {gbs.sit.last_routes}')
+            for name, prof in (('GBS phases', gbs.last_profile),
+                               ('SIT fit stages', gbs.sit.last_profile)):
+                print(f'    {name} (s): '
+                      f'{ {k: round(v, 3) for k, v in prof.items()} }')
+    finally:
+        del rec._true_logp
+    (z1, e1, l1, r1), (z2, e2, l2, r2), (zh, eh, lh, rh) = out.values()
+    gaps = [(abs(zh - z), 4 * np.hypot(eh, e)) for z, e in ((z1, e1),
+                                                            (z2, e2))]
+    print('    host route logz_q against the device runs: '
+          + ', '.join(f'|d| {g:.4f} (4 combined GBS errors {b:.4f})'
+                      for g, b in gaps)
+          + f'; n_call {rec.get().n_call} (was {n_call}), true-model calls '
+          f'{len(true_calls)}')
+    if not (np.isfinite([z1, z2, zh]).all() and all(g < b for g, b in gaps)
+            and rec.get().n_call == n_call and not true_calls
+            and l1 > 0 and l2 > 0 and lh == 0 and set(r1) == {'device'}
+            and set(r2) == {'device'} and set(rh) == {'host'}):
+        raise AssertionError(f'[19c]: {out}, n_call {rec.get().n_call} / '
+                             f'{n_call}, true-model calls {true_calls}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4033,6 +4332,7 @@ def main():
     name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f'[1] device: {name}; nvidia-smi: {smi}')
+    print(f'    host: {_cpu_text()}')
     print(f'    torch {torch.__version__}, CUDA {torch.version.cuda}')
 
     t_run = t_phase = time.time()
@@ -4284,6 +4584,16 @@ def main():
     wide_rows.update(_wide_plan_kernels(torch, bt, rec_w, wide_launches,
                                         mvn_carry, ptxas, builds, smi))
     t_phase = _wall(walls, '[17a]', t_phase)
+
+    # ---- [19] the host route of small SIT fits: the host library
+    # (bayesfast_tpu_torch/native, gcc and OpenMP) against its plain
+    # versions, the route of a fit and its crossover, GBS after IS on
+    # [10]'s Recipe on both routes ----
+    config.set_dtype(torch.float32)
+    _host_library(torch)
+    _route_crossover(torch, bt)
+    _gbs_host_route(torch, bt, rec)
+    t_phase = _wall(walls, '[19]', t_phase)
 
     meta = {
         'nuts_multi': ('bayesfast_tpu_torch/csrc/nuts.cu',

@@ -232,6 +232,10 @@ def test_sources_import_no_jax():
                                                '**', '*.py'), recursive=True)
              if not f.startswith(build)]
     files.append(os.path.join(_REPO, 'chip_smoke.py'))
+    # the host library's bindings are among them
+    native = os.path.join(_REPO, 'bayesfast_tpu_torch', 'native', '')
+    assert {os.path.relpath(f, native) for f in files
+            if f.startswith(native)} == {'__init__.py', 'bindings.py'}
     for f in files:
         with open(f) as fh:
             tree = ast.parse(fh.read())

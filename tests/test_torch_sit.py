@@ -19,10 +19,14 @@ Tolerances:
 * SIT carried across (``interop.sit_from_numpy``): the same flow evaluated
   by both packages, float64, rel 1e-9.
 * SIT fitted by the port against the JAX host path (float64 KDE, x64):
-  ``logq`` on held-out points to mean |d| < 1e-4.
+  ``logq`` on held-out points to mean |d| < 1e-4. Under auto on the CPU
+  both packages take their host routes (``test_torch_sit_host.py`` holds
+  the two host routes to 1e-8).
 * Against the JAX device path, whose KDE sums run in float32: the
   tolerance of ``tests/test_sit_evidence.py::test_device_kde_fit_matches_
-  host``, mean |d| < 0.01 and |mean d| < 1e-3.
+  host``, mean |d| < 0.01 and |mean d| < 1e-3. The port's side is pinned
+  to its device route (``set_kde_device(True)``), as is the knot-stage
+  test's.
 """
 
 import warnings
@@ -48,6 +52,15 @@ def _on_cpu():
     old = tconfig.set_device('cpu')
     yield
     tconfig.set_device(old)
+
+
+@pytest.fixture
+def kde_device():
+    """The port's SIT fits of ``n_rows * dim >= 100_000`` on the device
+    route for one test (auto, on the CPU, is the host route)."""
+    tconfig.set_kde_device(True)
+    yield
+    tconfig.set_kde_device(None)
 
 
 def _jax_draw(key, d, dtype=jnp.float64):
@@ -168,16 +181,17 @@ def test_sit_fit_matches_jax_host_path(monkeypatch, d, n_iter, opts):
     assert np.abs(diff).mean() < 1e-4
 
 
-def test_sit_fit_matches_jax_device_path(monkeypatch):
+def test_sit_fit_matches_jax_device_path(monkeypatch, kde_device):
     # above the JAX device fit's threshold (n * dim >= 1e5)
     data = _sources(40000, 3)
     sj, st = _fit_pair(monkeypatch, data, 3, True)
+    assert st.last_routes == ['device'] * 3
     d = st.logq(data[:2000]) - sj.logq(data[:2000])
     assert np.abs(d).mean() < 0.01
     assert abs(d.mean()) < 1e-3
 
 
-def test_knot_stage_matches_jax():
+def test_knot_stage_matches_jax(kde_device):
     rng = np.random.default_rng(5)
     y = np.stack([rng.normal(size=5000), rng.gamma(2., size=5000),
                   rng.standard_t(3, size=5000)])

@@ -466,13 +466,15 @@ def test_new_modules_import_no_jax():
     """The tracer, the generator, the user densities and every module the
     user-gradient slice touched (the density, the sampling entry point,
     the samplers and their routing, the host pool, the configuration, the
-    flow, the estimators and the splines), imported in a fresh
+    flow, the estimators and the splines) and the host library's bindings
+    with the KDE and the build, imported in a fresh
     interpreter, load nothing of JAX or of the JAX package."""
     mods = ['ops.trace', 'ops.codegen', 'examples.user_densities',
             'core.density', 'core.sample', 'samplers.nuts',
             'samplers.tempered', 'samplers.chain', 'samplers.nuts_cuda',
             'samplers.sample_trace', 'utils.parallel', 'config',
-            'transforms.sit', 'evidence.gaussianized', 'utils.cubic']
+            'transforms.sit', 'evidence.gaussianized', 'utils.cubic',
+            'native', 'native.bindings', 'utils.kde', '_build']
     code = ('import sys; import ' + ', '.join(
                 'bayesfast_tpu_torch.' + m for m in mods) + '; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
